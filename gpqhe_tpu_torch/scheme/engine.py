@@ -1,0 +1,475 @@
+"""CKKS scheme engine on torch: encode/encrypt/keygen/add/mult/rescale.
+
+Port of gpqhe_tpu/scheme/engine.py, part A (the main path):
+  encode/decode      ref: src/he-encode.c:53-125
+  enc/dec            ref: src/he-encrypt.c:37-123
+  keygen + swk       ref: src/he-kem.c:43-169
+  add family         ref: src/he-add.c:32-142
+  mult + relin       ref: src/he-mult.c:40-156
+  rescale/moddown    ref: src/he-rescale.c:33-70
+
+Ciphertext polys are limb tensors on the engine's device; each scheme op is
+a sequence of eager torch calls and CUDA NTT launches (the JAX engine's one
+jitted program per (op, level) becomes one cached closure per level).  The
+divide-round by P in key switching runs without big-int division: r = c mod
+P via a small CRT over the first hectx.dim primes, then
+u = (c - r) * P^-1 mod 2^(32K) — exact, and identical to mpi_rdiv semantics
+(ref: src/types.c:115-128).
+
+Randomness is the shared host surf stream, so keys, errors and messages are
+bit-identical to the JAX package's from the same Surf().
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import params
+from ..context import HeContext
+from ..ops import limbs as lb
+from ..ops import rns as rns_ops
+from ..ops.modmath import addmod, mulmod, u64_to_torch
+from ..ring import sample
+from ..ring.canemb import canemb, invcanemb
+from ..ring.poly import RingEngine
+from ..substrate import bigint
+from ..substrate.surf import Surf, default_rng
+from .types import (Ciphertext, Plaintext, PublicKey, SecretKey, SwitchKey,
+                    limbs_to_numpy, limbs_to_torch)
+
+
+class CKKS:
+    """Scheme engine bound to one HeContext and one torch device."""
+
+    def __init__(self, ctx: HeContext, rng: Surf | None = None, device=None):
+        self.ctx = ctx
+        self.ring = RingEngine(ctx.poly, device=device)
+        self.device = self.ring.device
+        self.rng = rng if rng is not None else default_rng()
+        self._fns: dict = {}
+        # fixed widths
+        self.kq = bigint.nlimbs(ctx.q[ctx.L].bit_length())        # ct limbs at top
+        self.pinv16 = bigint.digits16(
+            pow(ctx.P, -1, 1 << (32 * self.kq)), 2 * self.kq)     # P^-1 mod 2^(32 kq)
+        r8 = self.ring.recon(ctx.dim)
+        self.rk8 = r8.ks                                          # width of r = c mod P
+        self.p_half_up = self._t(bigint.int_to_limbs((ctx.P + 1) // 2, self.rk8))
+        # switch keys carry extra primes covering a plaintext scale, so that
+        # hoisted rotations (a later slice) can use the same keys; the JAX
+        # engine's default margin, so keys cross between the packages
+        hoist_bits = int(ctx.Delta).bit_length() + ctx.poly.logn + 8
+        self.dimswk_h = min(ctx.poly.dimub,
+                            ctx.dimswk + (hoist_bits + ctx.logp_prime - 1)
+                            // ctx.logp_prime)
+
+    # ------------------------------------------------------------------
+    # helpers
+    # ------------------------------------------------------------------
+
+    @property
+    def Delta(self) -> float:
+        return self.ctx.Delta
+
+    def qbits(self, l: int) -> int:
+        return self.ctx.q[l].bit_length()
+
+    def kl(self, l: int) -> int:
+        return bigint.nlimbs(self.qbits(l))
+
+    def _t(self, limbs_u32) -> torch.Tensor:
+        """Host u32 limbs -> device limb tensor."""
+        return limbs_to_torch(limbs_u32, self.device)
+
+    def _cached(self, key, build):
+        if key not in self._fns:
+            self._fns[key] = build()
+        return self._fns[key]
+
+    # ------------------------------------------------------------------
+    # encode / decode (host <-> device boundary)
+    # ------------------------------------------------------------------
+
+    def ecd(self, m: np.ndarray, nu: float | None = None) -> Plaintext:
+        """Encode complex slots into an integral polynomial
+        (ref: src/he-encode.c:53-64, he_ecd:107-111)."""
+        ctx = self.ctx
+        nu = self.Delta if nu is None else nu
+        u = invcanemb(np.asarray(m, dtype=np.complex128), ctx.slots,
+                      ctx.poly.cyc_group, ctx.poly.ring_zetas, ctx.poly.m)
+        n = ctx.poly.n
+        nh = n // 2
+        gap = nh // ctx.slots
+        re = sample.c_round(u.real * nu)
+        im = sample.c_round(u.imag * nu)
+        coeff_bound = float(max(np.max(np.abs(re)), np.max(np.abs(im)), 1.0))
+        if np.max(np.abs(np.concatenate([re, im]))) < 2**62:
+            coeffs = np.zeros(n, dtype=np.int64)
+            coeffs[0:nh:gap] = re.astype(np.int64)
+            coeffs[nh::gap] = im.astype(np.int64)
+            limbs = bigint.i64_to_limbs(coeffs, self.kq)
+        else:  # huge scales go through exact ints
+            coeffs = [0] * n
+            for i in range(ctx.slots):
+                coeffs[i * gap] = int(re[i])
+                coeffs[i * gap + nh] = int(im[i])
+            limbs = bigint.ints_to_limbs(coeffs, self.kq)
+        return Plaintext(nu=float(nu), m=self._t(limbs), mod_bits=32 * self.kq,
+                         bound=coeff_bound)
+
+    def dcd(self, pt: Plaintext) -> np.ndarray:
+        """Decode plaintext back to complex slots (ref: src/he-encode.c:67-74)."""
+        ctx = self.ctx
+        n = ctx.poly.n
+        nh = n // 2
+        gap = nh // ctx.slots
+        vals = bigint.limbs_to_ints(limbs_to_numpy(pt.m))
+        mod = 1 << pt.mod_bits
+        half = mod >> 1
+        cent = [(v & (mod - 1)) for v in vals]
+        cent = [v - mod if v >= half else v for v in cent]
+        m = np.empty(ctx.slots, dtype=np.complex128)
+        for i in range(ctx.slots):
+            m[i] = float(cent[i * gap]) / pt.nu + 1j * float(cent[i * gap + nh]) / pt.nu
+        return canemb(m, ctx.slots, ctx.poly.cyc_group, ctx.poly.ring_zetas, ctx.poly.m)
+
+    def const_pt(self, num: complex) -> Plaintext:
+        """Constant plaintext (ref: src/he-encode.c:119-125)."""
+        n = self.ctx.poly.n
+        nh = n // 2
+        coeffs = [0] * n
+        coeffs[0] = int(sample.c_round(np.float64(num.real) * self.Delta))
+        coeffs[nh] = int(sample.c_round(np.float64(num.imag) * self.Delta))
+        return Plaintext(nu=self.Delta, m=self._t(bigint.ints_to_limbs(coeffs, self.kq)),
+                         mod_bits=32 * self.kq,
+                         bound=float(max(abs(coeffs[0]), abs(coeffs[nh]), 1)))
+
+    # ------------------------------------------------------------------
+    # keygen (ref: src/he-kem.c)
+    # ------------------------------------------------------------------
+
+    def _poly_to_ints_signed(self, limbs, mod_bits: int) -> list[int]:
+        vals = bigint.limbs_to_ints(limbs_to_numpy(limbs))
+        mod = 1 << mod_bits
+        half = mod >> 1
+        return [(v & (mod - 1)) - mod if (v & (mod - 1)) >= half else v & (mod - 1)
+                for v in vals]
+
+    def keypair(self) -> tuple[PublicKey, SecretKey]:
+        """sk + pk (ref: src/he-kem.c:43-71); sampling order sk, e, p1."""
+        ctx = self.ctx
+        n = ctx.poly.n
+        qL = ctx.q[ctx.L]
+        sk = self._t(bigint.i64_to_limbs(sample.sample_sk(self.rng, n), 1))
+        e = sample.sample_error(self.rng, n)
+        p1 = self._t(sample.uniform_bytes_to_limbs(
+            sample.sample_uniform_bytes(self.rng, n, qL), qL.bit_length(), self.kq))
+        prod = self.ring.poly_mul(sk, p1, ctx.dim, qL.bit_length(), self.kq,
+                                  signed_a=32, signed_b=None)
+        e_l = self._t(bigint.i64_to_limbs(e, self.kq))
+        p0 = lb.mask_bits(lb.add(lb.neg(prod), e_l), qL.bit_length())
+        return PublicKey(p0=p0, p1=p1), SecretKey(s=sk)
+
+    def genswk(self, sp_ints, sk: SecretKey) -> SwitchKey:
+        """Key-switching key for secret sp (ref: src/he-kem.c:74-118).
+        Sampling order: e, then swkp1.  sp_ints: per-coefficient secret to
+        switch FROM — a list of python ints or an int64 array."""
+        ctx = self.ctx
+        n = ctx.poly.n
+        PqL = ctx.PqL
+        e = sample.sample_error(self.rng, n)
+        swk_bytes = sample.sample_uniform_bytes(self.rng, n, PqL)
+        k_big = bigint.nlimbs(PqL.bit_length())
+        swkp1 = self._t(sample.uniform_bytes_to_limbs(
+            swk_bytes, PqL.bit_length(), k_big))
+        prod_bits = 32 * (k_big + 2)
+        prod = self.ring.poly_mul(swkp1, sk.s, ctx.dim_genswk(), prod_bits,
+                                  k_big + 2, signed_a=None, signed_b=32)
+        prod_ints = self._poly_to_ints_signed(prod, prod_bits)
+        P = ctx.P
+        swkp0_ints = [(-c + int(ei) + P * int(spi)) % PqL
+                      for c, ei, spi in zip(prod_ints, e, sp_ints)]
+        swkp0 = self._t(bigint.ints_to_limbs(swkp0_ints, k_big))
+        # NTT-resident storage over the dimswk basis (ref: src/he-kem.c:103-110),
+        # extended by the hoisting margin
+        return SwitchKey(p0hat=self.ring.fwd_ntt(swkp0, self.dimswk_h),
+                         p1hat=self.ring.fwd_ntt(swkp1, self.dimswk_h))
+
+    def genrlk(self, sk: SecretKey) -> SwitchKey:
+        """Relinearization key from sk^2 (ref: src/he-kem.c:120-136)."""
+        s2 = self.ring.poly_mul(sk.s, sk.s, self.ctx.dim_rlk_s2(), 64, 2,
+                                signed_a=32, signed_b=32)
+        s2np = limbs_to_numpy(s2).astype(np.uint64)
+        s2_i64 = (s2np[:, 0] | (s2np[:, 1] << np.uint64(32))).astype(np.int64)
+        return self.genswk(s2_i64, sk)
+
+    def _sk_i64(self, sk: SecretKey) -> np.ndarray:
+        """Secret-key coefficients as signed int64."""
+        return limbs_to_numpy(sk.s)[:, 0].astype(np.int32).astype(np.int64)
+
+    def genck(self, sk: SecretKey) -> SwitchKey:
+        """Conjugation key from conj(sk) (ref: src/he-kem.c:139-152)."""
+        sk_i = self._sk_i64(sk)
+        conj = np.empty_like(sk_i)
+        conj[0] = sk_i[0]
+        conj[1:] = -sk_i[:0:-1]
+        return self.genswk(conj, sk)
+
+    def genrk(self, sk: SecretKey, rotations=None) -> dict[int, SwitchKey]:
+        """Rotation key bank, one swk per rotation (ref: src/he-kem.c:154-169)."""
+        ctx = self.ctx
+        n, m = ctx.poly.n, ctx.poly.m
+        sk_i = self._sk_i64(sk)
+        idx = np.arange(n, dtype=np.int64)
+        rots = range(ctx.slots) if rotations is None else rotations
+        out = {}
+        for rot in rots:
+            power = pow(params.ROT, rot, m)
+            k = (idx * power) % m
+            wrap = k >= n
+            rk_ints = np.zeros(n, dtype=np.int64)
+            rk_ints[np.where(wrap, k - n, k)] = np.where(wrap, -sk_i, sk_i)
+            out[rot] = self.genswk(rk_ints, sk)
+        return out
+
+    # ------------------------------------------------------------------
+    # encrypt / decrypt (ref: src/he-encrypt.c)
+    # ------------------------------------------------------------------
+
+    def enc_pk(self, pt: Plaintext, pk: PublicKey) -> Ciphertext:
+        """c = v*pk + (m + e0, e1) smod qL (ref: src/he-encrypt.c:37-73);
+        sampling order v, e0, e1."""
+        ctx = self.ctx
+        n = ctx.poly.n
+        qb = self.qbits(ctx.L)
+        v = self._t(bigint.i64_to_limbs(sample.sample_zo(self.rng, n), 1))
+        e0 = sample.sample_error(self.rng, n)
+        e1 = sample.sample_error(self.rng, n)
+        c0 = self.ring.poly_mul(pk.p0, v, ctx.dim, qb, self.kq,
+                                signed_a=None, signed_b=32)
+        c1 = self.ring.poly_mul(pk.p1, v, ctx.dim, qb, self.kq,
+                                signed_a=None, signed_b=32)
+        e0_l = self._t(bigint.i64_to_limbs(e0, self.kq))
+        e1_l = self._t(bigint.i64_to_limbs(e1, self.kq))
+        m_l = lb.resize(pt.m, self.kq)
+        c0 = lb.mask_bits(lb.add(lb.add(c0, m_l), e0_l), qb)
+        c1 = lb.mask_bits(lb.add(c1, e1_l), qb)
+        nu = pt.nu if pt.nu >= self.Delta else self.Delta
+        return Ciphertext(l=ctx.L, nu=nu, B=ctx.bounds.Bclean, c0=c0, c1=c1)
+
+    def enc_sk(self, pt: Plaintext, sk: SecretKey) -> Ciphertext:
+        """c1 uniform, c0 = -c1*sk + m + e (ref: src/he-encrypt.c:75-103);
+        sampling order e, c1."""
+        ctx = self.ctx
+        n = ctx.poly.n
+        qb = self.qbits(ctx.L)
+        e = sample.sample_error(self.rng, n)
+        qL = ctx.q[ctx.L]
+        c1 = self._t(sample.uniform_bytes_to_limbs(
+            sample.sample_uniform_bytes(self.rng, n, qL), qL.bit_length(), self.kq))
+        prod = self.ring.poly_mul(c1, sk.s, ctx.dim, qb, self.kq,
+                                  signed_a=None, signed_b=32)
+        e_l = self._t(bigint.i64_to_limbs(e, self.kq))
+        m_l = lb.resize(pt.m, self.kq)
+        c0 = lb.mask_bits(lb.add(lb.add(lb.neg(prod), m_l), e_l), qb)
+        nu = pt.nu if pt.nu >= self.Delta else self.Delta
+        return Ciphertext(l=ctx.L, nu=nu, B=ctx.bounds.Bclean, c0=c0, c1=c1)
+
+    def dec(self, ct: Ciphertext, sk: SecretKey) -> Plaintext:
+        """m = c0 + c1*sk smod q_l (ref: src/he-encrypt.c:105-123)."""
+        qb = self.qbits(ct.l)
+        klv = self.kl(ct.l)
+        prod = self.ring.poly_mul(ct.c1, sk.s, self.ctx.dim_dec(ct.l), qb, klv,
+                                  signed_a=None, signed_b=32)
+        m = lb.mask_bits(lb.add(prod, lb.resize(ct.c0, klv)), qb)
+        return Plaintext(nu=ct.nu, m=m, mod_bits=qb - 1)
+
+    # ------------------------------------------------------------------
+    # add family (ref: src/he-add.c)
+    # ------------------------------------------------------------------
+
+    def add(self, ct1: Ciphertext, ct2: Ciphertext) -> Ciphertext:
+        assert ct1.l == ct2.l, "level mismatch (ref: src/he-add.c:35)"
+        qb = self.qbits(ct1.l)
+        return Ciphertext(
+            l=ct1.l, nu=max(ct1.nu, ct2.nu), B=ct1.B + ct2.B,
+            c0=lb.mask_bits(lb.add(ct1.c0, ct2.c0), qb),
+            c1=lb.mask_bits(lb.add(ct1.c1, ct2.c1), qb))
+
+    def sub(self, ct1: Ciphertext, ct2: Ciphertext) -> Ciphertext:
+        assert ct1.l == ct2.l
+        qb = self.qbits(ct1.l)
+        return Ciphertext(
+            l=ct1.l, nu=max(ct1.nu, ct2.nu), B=ct1.B + ct2.B,
+            c0=lb.mask_bits(lb.sub(ct1.c0, ct2.c0), qb),
+            c1=lb.mask_bits(lb.sub(ct1.c1, ct2.c1), qb))
+
+    def neg(self, ct: Ciphertext) -> Ciphertext:
+        qb = self.qbits(ct.l)
+        return Ciphertext(l=ct.l, nu=ct.nu, B=ct.B,
+                          c0=lb.mask_bits(lb.neg(ct.c0), qb),
+                          c1=lb.mask_bits(lb.neg(ct.c1), qb))
+
+    def addpt(self, ct: Ciphertext, pt: Plaintext) -> Ciphertext:
+        qb = self.qbits(ct.l)
+        c0 = lb.mask_bits(lb.add(ct.c0, lb.resize(pt.m, self.kl(ct.l))), qb)
+        return Ciphertext(l=ct.l, nu=max(ct.nu, pt.nu), B=ct.B,
+                          c0=c0, c1=lb.mask_bits(ct.c1, qb))
+
+    def subpt(self, ct: Ciphertext, pt: Plaintext) -> Ciphertext:
+        qb = self.qbits(ct.l)
+        c0 = lb.mask_bits(lb.sub(ct.c0, lb.resize(pt.m, self.kl(ct.l))), qb)
+        return Ciphertext(l=ct.l, nu=max(ct.nu, pt.nu), B=ct.B,
+                          c0=c0, c1=lb.mask_bits(ct.c1, qb))
+
+    # ------------------------------------------------------------------
+    # multiply + relinearize (ref: src/he-mult.c)
+    # ------------------------------------------------------------------
+
+    def _keyswitch_core(self, dim: int, l: int):
+        """Build the (d * swk) / P + rounding pair for level l: for each half
+        h, u_h = rdiv(d x swk_h, P) mod q_l via the small-CRT remainder trick
+        (module docstring), under the classic single-product bound
+        ctx.bits_swk(l) that enables the truncated CRT reconstruct."""
+        ctx = self.ctx
+        bound_bits = ctx.bits_swk(l)
+        ba = self.ring.ba(dim)
+        plan = self.ring.recon(dim)
+        ba8 = self.ring.ba(ctx.dim)
+        plan8 = self.ring.recon(ctx.dim)
+        # the scaled INTT emits y_d = c_d * phatinv(dim-basis)_d; the
+        # sub-basis reconstruct (r = c mod P over the first ctx.dim primes)
+        # needs c_d * phatinv(dim8-basis)_d, so its phatinv constant becomes
+        # the RATIO phatinv8 / phatinvS per prime
+        import dataclasses
+        bS = ctx.poly.basis(dim)
+        b8 = ctx.poly.basis(ctx.dim)
+        adj = np.array(
+            [b8.phat_invmp[d] * pow(bS.phat_invmp[d], p - 2, p) % p
+             * params.R % p for d, p in enumerate(b8.primes)],
+            dtype=np.uint64)
+        ba8_adj = dataclasses.replace(ba8, phatinv_mont=u64_to_torch(adj, self.device))
+        qb = self.qbits(l)
+        klv = self.kl(l)
+        kq = self.kq
+
+        def post(res):
+            c = rns_ops.reconstruct(res, ba, plan, center=True, k_out=kq,
+                                    bound_bits=bound_bits, pre_scaled=True)
+            r = rns_ops.reconstruct(res[..., :ctx.dim, :], ba8_adj, plan8,
+                                    center=False, k_out=plan8.ks)
+            u = lb.mul_const_mod2k(lb.sub(lb.resize(c, kq), lb.resize(r, kq)),
+                                   self.pinv16, kq)
+            round_bit = lb.geq_const(lb.resize(r, self.rk8), self.p_half_up)
+            u = lb.add_scalar_bit(u, round_bit)
+            return lb.resize(lb.mask_bits(u, qb), klv)
+
+        def pair(u0h, u1h):
+            # both halves' inverse NTTs in one [2, dim, n] launch, with the
+            # phat^-1 reconstruct multiply fused into the INTT scaling
+            res = self.ring.ntt_i(torch.stack([u0h, u1h]), dim, scale_phatinv=True)
+            return post(res[0]), post(res[1])
+        return pair
+
+    def mul_step_fn(self, l: int):
+        """The he_mul program for level l:
+        (c10, c11, c20, c21, ek0, ek1) -> (c0, c1)."""
+        return self._cached(("he_mul", l), lambda: self._build_mul_step(l))
+
+    def _build_mul_step(self, l: int):
+        ctx = self.ctx
+        qb = self.qbits(l)
+        klv = self.kl(l)
+        dim_m = ctx.dim_mul(l)
+        dim_s = ctx.dim_swk(l)
+        ring = self.ring
+        bam = ring.ba(dim_m)
+        planm = ring.recon(dim_m)
+        r2m = ring.r2(dim_m)
+        bas = ring.ba(dim_s)
+        r2s = ring.r2(dim_s)
+        ks_pair = self._keyswitch_core(dim_s, l)
+        wm = ring.weights(dim_m, klv)
+        ws = ring.weights(dim_s, klv)
+        pm, pvm = bam.ps[:, None], bam.pinv[:, None]
+        ps, pvs = bas.ps[:, None], bas.pinv[:, None]
+
+        def back(res):
+            c = rns_ops.reconstruct(res, bam, planm, center=True, k_out=klv,
+                                    bound_bits=ctx.bits_mul(l), pre_scaled=True)
+            return lb.resize(lb.mask_bits(c, qb), klv)
+
+        def f(c10, c11, c20, c21, ek0, ek1):
+            # cross terms over the dim_m basis (ref: src/he-mult.c:116-138);
+            # the 4 forward NTTs ride one [4, dim_m, n] launch
+            dec = torch.stack([rns_ops.decompose(x, bam, wm)
+                               for x in (c10, c11, c20, c21)])
+            x0, x1, y0, y1 = ring.ntt_f(dec, dim_m)
+            d0h = mulmod(x0, y0, pm, pvm, r2m)
+            d2h = mulmod(x1, y1, pm, pvm, r2m)
+            d1h = addmod(mulmod(x0, y1, pm, pvm, r2m),
+                         mulmod(x1, y0, pm, pvm, r2m), pm)
+            # the 3 inverse NTTs likewise (phat^-1 fused into the scaling)
+            resb = ring.ntt_i(torch.stack([d0h, d1h, d2h]), dim_m,
+                              scale_phatinv=True)
+            d0, d1, d2 = back(resb[0]), back(resb[1]), back(resb[2])
+            # relinearize d2 with rlk over the dim_s basis (ref: he-mult.c:40-85)
+            d2hat = ring.ntt_f(rns_ops.decompose(d2, bas, ws), dim_s)
+            u0, u1 = ks_pair(mulmod(d2hat, ek0[:dim_s], ps, pvs, r2s),
+                             mulmod(d2hat, ek1[:dim_s], ps, pvs, r2s))
+            return (lb.mask_bits(lb.add(u0, d0), qb),
+                    lb.mask_bits(lb.add(u1, d1), qb))
+        return f
+
+    def _mul_meta(self, ct1: Ciphertext, ct2: Ciphertext) -> tuple[float, float]:
+        nu = ct1.nu * ct2.nu
+        B = (ct1.nu * ct2.B + ct2.nu * ct1.B + ct1.B * ct2.B
+             + self.ctx.bounds.Bmult[ct1.l])
+        return nu, B
+
+    def mul(self, ct1: Ciphertext, ct2: Ciphertext, rlk: SwitchKey) -> Ciphertext:
+        """Full ciphertext product with relinearization (ref: src/he-mult.c:88-156)."""
+        assert ct1.l == ct2.l
+        c0, c1 = self.mul_step_fn(ct1.l)(ct1.c0, ct1.c1, ct2.c0, ct2.c1,
+                                         rlk.p0hat, rlk.p1hat)
+        nu, B = self._mul_meta(ct1, ct2)
+        return Ciphertext(l=ct1.l, nu=nu, B=B, c0=c0, c1=c1)
+
+    def _rs_limbs(self, x, lnew: int):
+        """Divide-round by Delta = 2^logD into level lnew's width."""
+        logD = self.ctx.p.bit_length() - 1
+        return lb.resize(lb.mask_bits(lb.rshift_round(x, logD), self.qbits(lnew)),
+                         self.kl(lnew))
+
+    def mul_rs(self, ct1: Ciphertext, ct2: Ciphertext,
+               rlk: SwitchKey) -> Ciphertext:
+        """Fused multiply + relinearize + rescale: the main path."""
+        assert ct1.l == ct2.l
+        lnew = ct1.l - 1
+        c0, c1 = self.mul_step_fn(ct1.l)(ct1.c0, ct1.c1, ct2.c0, ct2.c1,
+                                         rlk.p0hat, rlk.p1hat)
+        nu, B = self._mul_meta(ct1, ct2)
+        return Ciphertext(l=lnew, nu=nu / self.Delta,
+                          B=B / self.Delta + self.ctx.bounds.Brs,
+                          c0=self._rs_limbs(c0, lnew), c1=self._rs_limbs(c1, lnew))
+
+    # ------------------------------------------------------------------
+    # rescale / moddown (ref: src/he-rescale.c)
+    # ------------------------------------------------------------------
+
+    def rs(self, ct: Ciphertext) -> Ciphertext:
+        """Divide-round by Delta, drop one level (ref: src/he-rescale.c:33-54)."""
+        lnew = ct.l - 1
+        return Ciphertext(l=lnew, nu=ct.nu / self.Delta,
+                          B=ct.B / self.Delta + self.ctx.bounds.Brs,
+                          c0=self._rs_limbs(ct.c0, lnew),
+                          c1=self._rs_limbs(ct.c1, lnew))
+
+    def moddown(self, ct: Ciphertext) -> Ciphertext:
+        """Re-center mod q_{l-1} only (ref: src/he-rescale.c:56-70)."""
+        lnew = ct.l - 1
+        qb = self.qbits(lnew)
+        klv = self.kl(lnew)
+        return Ciphertext(l=lnew, nu=ct.nu, B=ct.B,
+                          c0=lb.resize(lb.mask_bits(ct.c0, qb), klv),
+                          c1=lb.resize(lb.mask_bits(ct.c1, qb), klv))

@@ -1,0 +1,98 @@
+"""The port on an NVIDIA GPU: the CUDA NTT against its plain torch twin, and
+the CUDA engine against the CPU engine, bit for bit.
+
+Every test here needs the card and skips without one.  The file imports
+neither jax nor gpqhe_tpu, so it runs on a machine without them:
+
+    python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
+
+(--noconftest: tests/conftest.py configures jax for the JAX package's tests.)
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from gpqhe_tpu_torch import CKKS, HeContext, Surf
+from gpqhe_tpu_torch.context import PolyContext
+from gpqhe_tpu_torch.ops import ntt as twin
+from gpqhe_tpu_torch.ops import ntt_cuda
+from gpqhe_tpu_torch.ops.modmath import u64_to_torch
+from gpqhe_tpu_torch.ring import sample
+from gpqhe_tpu_torch.ring.poly import RingEngine
+
+torch.set_num_threads(1)
+
+MODES = ["fwd", "inv", "inv_scaled"]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernel; no CPU build)")
+    return torch.device("cuda")
+
+
+def _twin(a, ba, mode):
+    if mode == "fwd":
+        return twin.ntt(a, ba.zetas, ba.ps, ba.pinv)
+    scale = ba.ninvphat_mont if mode == "inv_scaled" else ba.ninv_mont
+    return twin.intt(a, ba.zetas_inv, ba.ps, ba.pinv, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logn,batch", [(4, (3,)), (11, (4,)), (14, (2,)), (15, ()),
+                                        (16, ())])
+@pytest.mark.parametrize("mode", MODES)
+def test_cuda_kernel_matches_twin(cuda_device, logn, batch, mode):
+    dim = 3
+    ring = RingEngine(PolyContext(logn, q=1 << 20, dim_cap=dim), device=cuda_device)
+    rng = np.random.default_rng(logn)
+    ps = np.array(ring.pctx.primes[:dim], dtype=np.uint64)[:, None]
+    host = rng.integers(0, 1 << 62, batch + (dim, 1 << logn), dtype=np.uint64) % ps
+    a = u64_to_torch(host, cuda_device)
+    before = dict(ntt_cuda.LAUNCHES)
+    got = (ring.ntt_f(a, dim) if mode == "fwd"
+           else ring.ntt_i(a, dim, scale_phatinv=mode == "inv_scaled"))
+    torch.cuda.synchronize()
+    assert ntt_cuda.LAUNCHES[mode] == before[mode] + 1
+    assert torch.equal(got, _twin(a, ring.ba(dim), mode))
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_rejects_unsupported_n(cuda_device):
+    ring = RingEngine(PolyContext(4, q=1 << 20, dim_cap=2), device=cuda_device)
+    plan = ring.ntt_plan(2)
+    with pytest.raises(ValueError, match="does not match"):
+        ntt_cuda.ntt(torch.zeros((2, 32), dtype=torch.int64, device=cuda_device), plan)
+    with pytest.raises(ValueError, match="int64"):
+        ntt_cuda.ntt(torch.zeros((2, 16), dtype=torch.int32, device=cuda_device), plan)
+
+
+def _run(device):
+    ctx = HeContext(logn=11, q=1 << 48, slots=4, Delta=1 << 22)
+    eng = CKKS(ctx, rng=Surf(), device=device)
+    pk, sk = eng.keypair()
+    rlk = eng.genrlk(sk)
+    m1 = sample.sample_z01vec(eng.rng, ctx.slots)
+    m2 = sample.sample_z01vec(eng.rng, ctx.slots)
+    ct1 = eng.enc_pk(eng.ecd(m1), pk)
+    ct2 = eng.enc_pk(eng.ecd(m2), pk)
+    out = eng.mul_rs(ct1, ct2, rlk)
+    return dict(rlk=rlk, ct1=ct1, mul_rs=out, rs_mul=eng.rs(eng.mul(ct1, ct2, rlk)),
+                dcd=eng.dcd(eng.dec(out, sk)))
+
+
+@pytest.mark.cuda
+def test_cuda_engine_matches_cpu(cuda_device):
+    before = dict(ntt_cuda.LAUNCHES)
+    c = _run(cuda_device)
+    t = _run(torch.device("cpu"))
+    assert all(ntt_cuda.LAUNCHES[k] > before[k] for k in MODES)
+    for name in ("ct1", "mul_rs", "rs_mul"):
+        assert c[name].c0.is_cuda
+        assert torch.equal(c[name].c0.cpu(), t[name].c0), name
+        assert torch.equal(c[name].c1.cpu(), t[name].c1), name
+    assert torch.equal(c["rlk"].p0hat.cpu(), t["rlk"].p0hat)
+    assert torch.equal(c["rlk"].p1hat.cpu(), t["rlk"].p1hat)
+    assert np.array_equal(c["dcd"], t["dcd"])
