@@ -1,0 +1,5 @@
+"""Homomorphic algorithm layer (ref: src/he-algo.c)."""
+
+from .linalg import (  # noqa: F401
+    GemvPlan, HoistedGemvPlan, gemv, gemv_hoisted, gemv_hoisted_full, he_idx,
+    he_nrm2, he_sum, zrotdiag)

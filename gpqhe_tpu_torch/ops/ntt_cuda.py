@@ -13,24 +13,22 @@ Dispatch: a CPU tensor goes through the plain twin (ops/ntt.py); a CUDA
 tensor launches the kernel, which raises if it cannot.  There is no other
 fallback.  LAUNCHES counts kernel launches per entry.
 
-The library is built with nvcc for sm_90a at first use into build/kernels/
-at the repository root, named by the hash of the source and flags, and
-loaded with ctypes.
+The library is built at first use by ops/cuda_build.py and loaded with
+ctypes.  The plan-table builders, the argument check and the launch are
+shared with the u32 kernel's binding (ops/ntt_cuda32.py): word = 64 here,
+32 there.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
-import tempfile
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from . import cuda_build
 from . import ntt as twin
 from .modmath import u64_to_torch
 
@@ -39,14 +37,10 @@ LAUNCHES = {"fwd": 0, "inv": 0, "inv_scaled": 0}
 LOGN_MIN, LOGN_MAX = 4, 16
 _MAX_SLABS = 65535            # grid.y of the global-memory stage pass
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "ntt.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+SOURCE = os.path.join(cuda_build.CSRC, "ntt.cu")
+PRIME_BITS = 61               # the u64 kernel's lazy < 8p bounds
 
 _lib = None
-BUILD_LOG = ""                # nvcc's output of the last build (ptxas -v)
 
 
 def reset_launches() -> None:
@@ -54,65 +48,52 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME:
-        cand = os.path.join(CUDA_HOME, "bin", "nvcc")
-        if os.path.exists(cand):
-            return cand
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the CUDA NTT needs the CUDA toolkit")
-    return found
+def bind(source: str, symbol: str):
+    """Build and load a kernel library; returns its entry point, which takes
+    (a_in, a_out, nslab, dim, logn, tw, tws, primes, scale, scale_s,
+    inverse, stream) and returns the cudaError of the launch."""
+    fn = getattr(cuda_build.load(source), symbol)
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = [vp, vp, i64, i32, i32, vp, vp, vp, vp, vp, i32, vp]
+    fn.restype = i32
+    return fn
 
 
 def load_library():
-    """Build (if the source changed) and load the kernel library."""
-    global _lib, BUILD_LOG
-    if _lib is not None:
-        return _lib
-    with open(SOURCE, "rb") as f:
-        src = f.read()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, f"ntt_{tag}.so")
-    if not os.path.exists(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            out = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                                 capture_output=True, text=True)
-            BUILD_LOG = out.stdout + out.stderr
-            if out.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({out.returncode}):\n{BUILD_LOG}")
-            os.replace(tmp, so)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-    lib = ctypes.CDLL(so)
-    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.gpqhe_ntt.argtypes = [vp, vp, i64, i32, i32, vp, vp, vp, vp, vp, i32, vp]
-    lib.gpqhe_ntt.restype = i32
-    _lib = lib
-    return lib
+    """Build (if the source changed) and load the kernel's entry point."""
+    global _lib
+    if _lib is None:
+        _lib = bind(SOURCE, "gpqhe_ntt")
+    return _lib
 
 
 # ---------------------------------------------------------------------------
 # plan tables
 # ---------------------------------------------------------------------------
 
-def std_and_shoup(zmont: np.ndarray, p: int) -> tuple[np.ndarray, np.ndarray]:
+def std_and_shoup(zmont: np.ndarray, p: int, word: int = 64) -> tuple[np.ndarray, np.ndarray]:
     """Montgomery-domain table (z*R mod p, R = 2^64) -> (standard-domain z,
-    Shoup companions floor(z * 2^64 / p)), both u64, exact in Python ints."""
+    Shoup companions floor(z * 2^word / p)), both u64, exact in Python ints."""
     rinv = pow(1 << 64, -1, p)
     z = (np.asarray(zmont, dtype=np.uint64).astype(object) * rinv) % p
-    return z.astype(np.uint64), ((z << 64) // p).astype(np.uint64)
+    return z.astype(np.uint64), ((z << word) // p).astype(np.uint64)
+
+
+def words_to_torch(a: np.ndarray, word: int, device) -> torch.Tensor:
+    """u64 host array of values < 2^word -> int64 (word=64) or int32
+    (word=32) tensor holding the same bit patterns."""
+    if word == 64:
+        return u64_to_torch(a, device)
+    return torch.from_numpy(
+        np.ascontiguousarray(a, dtype=np.uint32).view(np.int32)).to(device)
 
 
 @dataclass(frozen=True)
 class KernelTables:
-    """Twiddle tables of every prime of a ring's chain: int64[dimub, n]
-    (u64 bit patterns), rows in chain order."""
+    """Twiddle tables of every prime of a ring's chain: [dimub, n] words
+    (u64 bit patterns in int64 for the u64 kernel, u32 in int32 for the u32
+    kernel), rows in chain order."""
+    word: int
     primes: torch.Tensor
     tw_f: torch.Tensor
     tws_f: torch.Tensor
@@ -120,18 +101,20 @@ class KernelTables:
     tws_i: torch.Tensor
 
 
-def make_kernel_tables(pctx, device) -> KernelTables:
-    if max(pctx.primes) >= 1 << 61:
-        raise ValueError("the CUDA NTT's lazy < 8p bounds need primes < 2^61")
+def make_kernel_tables(pctx, device, word: int = 64) -> KernelTables:
+    bits = PRIME_BITS if word == 64 else 30
+    if max(pctx.primes) >= 1 << bits:
+        raise ValueError(f"the u{word} CUDA NTT's lazy bounds need primes < 2^{bits}")
     rows = {"tw_f": [], "tws_f": [], "tw_i": [], "tws_i": []}
     for pc in pctx.prime_ctx:
         for key, table in (("f", pc.zetas), ("i", pc.zetas_inv)):
-            z, zs = std_and_shoup(table, pc.p)
+            z, zs = std_and_shoup(table, pc.p, word)
             rows["tw_" + key].append(z)
             rows["tws_" + key].append(zs)
     return KernelTables(
-        primes=u64_to_torch(np.array(pctx.primes, dtype=np.uint64), device),
-        **{k: u64_to_torch(np.stack(v), device) for k, v in rows.items()})
+        word=word,
+        primes=words_to_torch(np.array(pctx.primes, dtype=np.uint64), word, device),
+        **{k: words_to_torch(np.stack(v), word, device) for k, v in rows.items()})
 
 
 @dataclass(frozen=True)
@@ -142,23 +125,24 @@ class NttPlan:
     n: int
     ba: object                       # rns.BasisArrays
     tables: KernelTables | None
-    scale: torch.Tensor | None       # int64[2, dim]: n^-1 and its Shoup companion
-    scale_phat: torch.Tensor | None  # int64[2, dim]: n^-1 phat^-1 and companion
+    scale: torch.Tensor | None       # [2, dim] words: n^-1 and its Shoup companion
+    scale_phat: torch.Tensor | None  # [2, dim] words: n^-1 phat^-1 and companion
 
 
 def make_plan(pctx, dim: int, ba, tables: KernelTables | None) -> NttPlan:
     if tables is None:
         return NttPlan(dim, pctx.n, ba, None, None, None)
     b = pctx.basis(dim)
+    word = tables.word
     rows = {"n": [], "np": []}
     for d, p in enumerate(b.primes):
         ninv = pow(pctx.n, -1, p)
         for key, s in (("n", ninv), ("np", ninv * b.phat_invmp[d] % p)):
-            rows[key].append((s, (s << 64) // p))
+            rows[key].append((s, (s << word) // p))
     dev = tables.primes.device
 
     def t(vals):
-        return u64_to_torch(np.array(vals, dtype=np.uint64).T, dev)
+        return words_to_torch(np.array(vals, dtype=np.uint64).T, word, dev)
     return NttPlan(dim, pctx.n, ba, tables, t(rows["n"]), t(rows["np"]))
 
 
@@ -186,38 +170,57 @@ def check_args(a: torch.Tensor, plan: NttPlan) -> tuple[int, int]:
     return logn, nslab
 
 
-def _launch(a: torch.Tensor, plan: NttPlan, inverse: bool, scaled: bool):
+def launch(loader, word: int, counters: dict, a: torch.Tensor, plan: NttPlan,
+           inverse: bool, scaled: bool) -> torch.Tensor:
+    """One kernel launch on int64 residues through the entry point that
+    loader() returns (see bind); adds one to the entry's counter."""
     logn, nslab = check_args(a, plan)
+    if plan.tables.word != word:
+        raise ValueError(f"NTT plan holds u{plan.tables.word} tables, the kernel takes u{word}")
     a = a.contiguous()
     out = torch.empty_like(a)
     if nslab == 0:
         return out
-    lib = load_library()
     t = plan.tables
     tw, tws = (t.tw_i, t.tws_i) if inverse else (t.tw_f, t.tws_f)
     sc = plan.scale_phat if scaled else plan.scale
-    rc = lib.gpqhe_ntt(a.data_ptr(), out.data_ptr(), nslab, plan.dim, logn,
-                       tw.data_ptr(), tws.data_ptr(), t.primes.data_ptr(),
-                       sc[0].data_ptr(), sc[1].data_ptr(), int(inverse),
-                       torch.cuda.current_stream(a.device).cuda_stream)
+    if not all(x.is_contiguous() for x in (tw, tws, t.primes, sc[0], sc[1])):
+        raise ValueError("the NTT kernel's tables must be contiguous")
+    rc = loader()(a.data_ptr(), out.data_ptr(), nslab, plan.dim, logn,
+                  tw.data_ptr(), tws.data_ptr(), t.primes.data_ptr(),
+                  sc[0].data_ptr(), sc[1].data_ptr(), int(inverse),
+                  torch.cuda.current_stream(a.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"gpqhe_ntt launch failed: cudaError {rc}")
-    LAUNCHES["inv_scaled" if scaled else "inv" if inverse else "fwd"] += 1
+        raise RuntimeError(f"NTT kernel launch failed: cudaError {rc}")
+    counters["inv_scaled" if scaled else "inv" if inverse else "fwd"] += 1
     return out
+
+
+def _launch(a: torch.Tensor, plan: NttPlan, inverse: bool, scaled: bool):
+    return launch(load_library, 64, LAUNCHES, a, plan, inverse, scaled)
+
+
+def plain_ntt(a: torch.Tensor, plan: NttPlan) -> torch.Tensor:
+    """The plain twin on the plan's Montgomery tables."""
+    ba = plan.ba
+    return twin.ntt(a, ba.zetas, ba.ps, ba.pinv)
+
+
+def plain_intt(a: torch.Tensor, plan: NttPlan, scaled: bool = False) -> torch.Tensor:
+    ba = plan.ba
+    return twin.intt(a, ba.zetas_inv, ba.ps, ba.pinv,
+                     ba.ninvphat_mont if scaled else ba.ninv_mont)
 
 
 def ntt(a: torch.Tensor, plan: NttPlan) -> torch.Tensor:
     """Forward NTT of [..., dim, n] residues < p, bit-reversed order."""
     if a.device.type == "cpu":
-        ba = plan.ba
-        return twin.ntt(a, ba.zetas, ba.ps, ba.pinv)
+        return plain_ntt(a, plan)
     return _launch(a, plan, inverse=False, scaled=False)
 
 
 def intt(a: torch.Tensor, plan: NttPlan, scaled: bool = False) -> torch.Tensor:
     """Inverse NTT, times n^-1 (scaled=False) or n^-1 * phat^-1 (scaled=True)."""
     if a.device.type == "cpu":
-        ba = plan.ba
-        return twin.intt(a, ba.zetas_inv, ba.ps, ba.pinv,
-                         ba.ninvphat_mont if scaled else ba.ninv_mont)
+        return plain_intt(a, plan, scaled)
     return _launch(a, plan, inverse=True, scaled=scaled)

@@ -3,8 +3,10 @@
 Port of gpqhe_tpu/ring/poly.py (ref: src/poly.c:84-120).  Polynomials are
 u32-limb tensors [n, K] (see ops/limbs.py, stored in int64); products run
 decompose -> NTT -> pointwise -> INTT -> CRT-reconstruct on the engine's
-device as eager torch calls.  The NTTs go through ops/ntt_cuda.py: the CUDA
-kernel for every CUDA tensor, the plain twin for a CPU tensor.
+device as eager torch calls.  The NTTs go through ops/ntt_cuda.py (primes
+of up to 60 bits) or ops/ntt_cuda32.py (a chain whose primes are all below
+2^30, i.e. logp <= 29): the CUDA kernel for every CUDA tensor, the plain
+twin for a CPU tensor.
 
 Every ciphertext modulus is q_l = 2^logq_l, and 2^(32K) is a multiple of
 q_l, so two's-complement limb arithmetic mod 2^(32K) preserves values mod
@@ -13,27 +15,43 @@ q_l: masking replaces the reference's big-int smod.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from .. import params
 from ..context import PolyContext
 from ..ops import limbs as lb
-from ..ops import ntt_cuda
+from ..ops import ntt_cuda, ntt_cuda32
 from ..ops import rns as rns_ops
 from ..ops.modmath import mulmod, u64_to_torch
 
 
 class RingEngine:
-    """Per-PolyContext plan caches and composites on one torch device."""
+    """Per-PolyContext plan caches and composites on one torch device.
+
+    device=None means the GPU ("cuda") and raises where there is none; CPU
+    callers pass device="cpu"."""
 
     def __init__(self, pctx: PolyContext, device=None):
         self.pctx = pctx
-        self.device = torch.device("cpu") if device is None else torch.device(device)
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "no CUDA device: gpqhe_tpu_torch engines run on the GPU by "
+                    "default; pass device=\"cpu\" to run on the CPU")
+            device = "cuda"
+        self.device = torch.device(device)
+        # the single-word u32 kernel serves a chain whose largest prime is
+        # below 2^30 (4p fits a u32 word); every other chain the u64 kernel
+        self.ntt_mod = (ntt_cuda32 if pctx.primes[pctx.dimub - 1] < (1 << 30)
+                        else ntt_cuda)
         self._ba: dict[int, rns_ops.BasisArrays] = {}
         self._recon: dict[int, rns_ops.ReconPlan] = {}
         self._weights: dict[tuple[int, int], torch.Tensor] = {}
         self._r2: dict[int, torch.Tensor] = {}
         self._ntt: dict[int, ntt_cuda.NttPlan] = {}
         self._tables: ntt_cuda.KernelTables | None = None
+        self._galois: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
 
     # -- plan caches --------------------------------------------------------
 
@@ -62,22 +80,47 @@ class RingEngine:
     def ntt_plan(self, dim: int) -> ntt_cuda.NttPlan:
         if dim not in self._ntt:
             if self.device.type == "cuda" and self._tables is None:
-                self._tables = ntt_cuda.make_kernel_tables(self.pctx, self.device)
-            self._ntt[dim] = ntt_cuda.make_plan(self.pctx, dim, self.ba(dim),
-                                                self._tables)
+                self._tables = self.ntt_mod.make_kernel_tables(self.pctx, self.device)
+            self._ntt[dim] = self.ntt_mod.make_plan(self.pctx, dim, self.ba(dim),
+                                                    self._tables)
         return self._ntt[dim]
+
+    def galois_map(self, rot: int | None) -> tuple[torch.Tensor, torch.Tensor]:
+        """(src_index [n], neg_flag [n]) for output slot k, on the device.
+        rot=None means conjugation.
+
+        poly_rot: k = i*5^rot mod 2n, sign flip above n (ref: src/poly.c:263-276);
+        poly_conj: r[0]=a[0], r[i]=-a[n-i] (ref: src/poly.c:278-283)."""
+        key = -1 if rot is None else rot
+        if key not in self._galois:
+            n, m = self.pctx.n, self.pctx.m
+            i = np.arange(n, dtype=np.int64)
+            src = np.empty(n, dtype=np.int64)
+            negf = np.empty(n, dtype=bool)
+            if rot is None:
+                src[0], negf[0] = 0, False
+                src[1:], negf[1:] = n - i[1:], True
+            else:
+                k = (i * pow(params.ROT, rot, m)) % m
+                wrap = k >= n
+                dst = np.where(wrap, k - n, k)
+                src[dst] = i
+                negf[dst] = wrap
+            self._galois[key] = (torch.from_numpy(src).to(self.device),
+                                 torch.from_numpy(negf).to(self.device))
+        return self._galois[key]
 
     # -- NTT dispatch -------------------------------------------------------
 
     def ntt_f(self, res, dim: int):
         """Forward NTT of [..., dim, n] residues."""
-        return ntt_cuda.ntt(res, self.ntt_plan(dim))
+        return self.ntt_mod.ntt(res, self.ntt_plan(dim))
 
     def ntt_i(self, res, dim: int, scale_phatinv: bool = False):
         """Inverse NTT.  scale_phatinv=True fuses the CRT reconstruct's
         per-prime phat^-1 multiply into the final n^-1 scaling (callers then
         pass pre_scaled=True to rns.reconstruct)."""
-        return ntt_cuda.intt(res, self.ntt_plan(dim), scaled=scale_phatinv)
+        return self.ntt_mod.intt(res, self.ntt_plan(dim), scaled=scale_phatinv)
 
     # -- decompose variants -------------------------------------------------
 
@@ -124,3 +167,11 @@ class RingEngine:
         yh = self.fwd_ntt(b, dim, signed_b)
         return self.inv_ntt_recon(self.pointwise_mul(xh, yh, dim), dim,
                                   mask_to_bits, k_out)
+
+    def galois(self, a, rot: int | None, q_bits: int):
+        """Apply the rot/conj automorphism to limbs [n, K] mod 2^q_bits: a row
+        gather, then negation of the rows that wrapped past X^n = -1."""
+        src, negf = self.galois_map(rot)
+        g = a[src, :]
+        return torch.where(negf[:, None], lb.mask_bits(lb.neg(g), q_bits),
+                           lb.mask_bits(g, q_bits))

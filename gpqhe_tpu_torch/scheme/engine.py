@@ -1,12 +1,14 @@
 """CKKS scheme engine on torch: encode/encrypt/keygen/add/mult/rescale.
 
-Port of gpqhe_tpu/scheme/engine.py, part A (the main path):
+Port of gpqhe_tpu/scheme/engine.py:
   encode/decode      ref: src/he-encode.c:53-125
   enc/dec            ref: src/he-encrypt.c:37-123
   keygen + swk       ref: src/he-kem.c:43-169
   add family         ref: src/he-add.c:32-142
-  mult + relin       ref: src/he-mult.c:40-156
+  mult + relin       ref: src/he-mult.c:40-196
   rescale/moddown    ref: src/he-rescale.c:33-70
+  conj/rot           ref: src/he-automorphism.c:40-115
+and the double-hoisted gemv programs (Halevi-Shoup hoisting).
 
 Ciphertext polys are limb tensors on the engine's device; each scheme op is
 a sequence of eager torch calls and CUDA NTT launches (the JAX engine's one
@@ -22,6 +24,9 @@ bit-identical to the JAX package's from the same Surf().
 
 from __future__ import annotations
 
+import dataclasses
+import math
+
 import numpy as np
 import torch
 
@@ -30,6 +35,7 @@ from ..context import HeContext
 from ..ops import limbs as lb
 from ..ops import rns as rns_ops
 from ..ops.modmath import addmod, mulmod, u64_to_torch
+from ..ops.ntt import ntt_galois_perm
 from ..ring import sample
 from ..ring.canemb import canemb, invcanemb
 from ..ring.poly import RingEngine
@@ -40,9 +46,11 @@ from .types import (Ciphertext, Plaintext, PublicKey, SecretKey, SwitchKey,
 
 
 class CKKS:
-    """Scheme engine bound to one HeContext and one torch device."""
+    """Scheme engine bound to one HeContext and one torch device.
+    device=None means the GPU ("cuda") and raises where there is none."""
 
-    def __init__(self, ctx: HeContext, rng: Surf | None = None, device=None):
+    def __init__(self, ctx: HeContext, rng: Surf | None = None, device=None,
+                 hoist_bits: int | None = None):
         self.ctx = ctx
         self.ring = RingEngine(ctx.poly, device=device)
         self.device = self.ring.device
@@ -55,10 +63,12 @@ class CKKS:
         r8 = self.ring.recon(ctx.dim)
         self.rk8 = r8.ks                                          # width of r = c mod P
         self.p_half_up = self._t(bigint.int_to_limbs((ctx.P + 1) // 2, self.rk8))
-        # switch keys carry extra primes covering a plaintext scale, so that
-        # hoisted rotations (a later slice) can use the same keys; the JAX
-        # engine's default margin, so keys cross between the packages
-        hoist_bits = int(ctx.Delta).bit_length() + ctx.poly.logn + 8
+        # hoisted rotations accumulate pt*perm(c1hat)*evk in the extended
+        # basis, so switch keys carry extra primes covering the plaintext
+        # scale (sized for gemv diagonals at Delta; the JAX engine's default
+        # margin, so keys cross between the packages)
+        if hoist_bits is None:
+            hoist_bits = int(ctx.Delta).bit_length() + ctx.poly.logn + 8
         self.dimswk_h = min(ctx.poly.dimub,
                             ctx.dimswk + (hoist_bits + ctx.logp_prime - 1)
                             // ctx.logp_prime)
@@ -132,6 +142,27 @@ class CKKS:
         for i in range(ctx.slots):
             m[i] = float(cent[i * gap]) / pt.nu + 1j * float(cent[i * gap + nh]) / pt.nu
         return canemb(m, ctx.slots, ctx.poly.cyc_group, ctx.poly.ring_zetas, ctx.poly.m)
+
+    def canemb_norm(self, m: np.ndarray, Delta: float | None = None) -> float:
+        """Canonical-embedding norm of a message (ref: src/he-encode.c:95-104)."""
+        Delta = self.Delta if Delta is None else Delta
+        m = np.asarray(m, dtype=np.complex128)
+        u = np.concatenate([sample.c_round(m.real * Delta),
+                            sample.c_round(m.imag * Delta)])
+        return float(np.max(np.abs(u)))
+
+    def canemb_norm_pt(self, pt: Plaintext) -> float:
+        """Canonical-embedding norm of an encoded plaintext
+        (ref: src/he-encode.c:77-92)."""
+        ctx = self.ctx
+        nh = ctx.poly.n // 2
+        gap = nh // ctx.slots
+        cent = self._poly_to_ints_signed(pt.m, pt.mod_bits)
+        m = np.array([float(cent[i * gap]) + 1j * float(cent[i * gap + nh])
+                      for i in range(ctx.slots)])
+        m = canemb(m, ctx.slots, ctx.poly.cyc_group, ctx.poly.ring_zetas, ctx.poly.m)
+        u = np.concatenate([sample.c_round(m.real), sample.c_round(m.imag)])
+        return float(np.max(np.abs(u)))
 
     def const_pt(self, num: complex) -> Plaintext:
         """Constant plaintext (ref: src/he-encode.c:119-125)."""
@@ -326,13 +357,21 @@ class CKKS:
     # multiply + relinearize (ref: src/he-mult.c)
     # ------------------------------------------------------------------
 
-    def _keyswitch_core(self, dim: int, l: int):
+    _CLASSIC = object()  # sentinel: "single-product key-switch bound"
+
+    def _keyswitch_core(self, dim: int, l: int, bound_bits=_CLASSIC):
         """Build the (d * swk) / P + rounding pair for level l: for each half
         h, u_h = rdiv(d x swk_h, P) mod q_l via the small-CRT remainder trick
-        (module docstring), under the classic single-product bound
-        ctx.bits_swk(l) that enables the truncated CRT reconstruct."""
+        (module docstring).
+
+        bound_bits: proven bound on the accumulated |d x swk| coefficients
+        (enables the truncated CRT reconstruct); defaults to the classic
+        single-product bound ctx.bits_swk(l).  Hoisted callers accumulating
+        n1 products pass their larger bound (or None to force the exact
+        full-width path)."""
         ctx = self.ctx
-        bound_bits = ctx.bits_swk(l)
+        if bound_bits is CKKS._CLASSIC:
+            bound_bits = ctx.bits_swk(l)
         ba = self.ring.ba(dim)
         plan = self.ring.recon(dim)
         ba8 = self.ring.ba(ctx.dim)
@@ -341,7 +380,6 @@ class CKKS:
         # sub-basis reconstruct (r = c mod P over the first ctx.dim primes)
         # needs c_d * phatinv(dim8-basis)_d, so its phatinv constant becomes
         # the RATIO phatinv8 / phatinvS per prime
-        import dataclasses
         bS = ctx.poly.basis(dim)
         b8 = ctx.poly.basis(ctx.dim)
         adj = np.array(
@@ -365,15 +403,18 @@ class CKKS:
             return lb.resize(lb.mask_bits(u, qb), klv)
 
         def pair(u0h, u1h):
-            # both halves' inverse NTTs in one [2, dim, n] launch, with the
-            # phat^-1 reconstruct multiply fused into the INTT scaling
+            # both halves' inverse NTTs in one [2, (B,) dim, n] launch, with
+            # the phat^-1 reconstruct multiply fused into the INTT scaling
             res = self.ring.ntt_i(torch.stack([u0h, u1h]), dim, scale_phatinv=True)
             return post(res[0]), post(res[1])
         return pair
 
     def mul_step_fn(self, l: int):
         """The he_mul program for level l:
-        (c10, c11, c20, c21, ek0, ek1) -> (c0, c1)."""
+        (c10, c11, c20, c21, ek0, ek1) -> (c0, c1).  The ciphertext
+        arguments are [n, klv] limbs or a batch [B, n, klv] of them: the B
+        pairs ride the same NTT launches ([4, B, dim_m, n] forward,
+        [3, B, dim_m, n] and [2, B, dim_s, n] inverse)."""
         return self._cached(("he_mul", l), lambda: self._build_mul_step(l))
 
     def _build_mul_step(self, l: int):
@@ -401,7 +442,7 @@ class CKKS:
 
         def f(c10, c11, c20, c21, ek0, ek1):
             # cross terms over the dim_m basis (ref: src/he-mult.c:116-138);
-            # the 4 forward NTTs ride one [4, dim_m, n] launch
+            # the 4 forward NTTs ride one launch
             dec = torch.stack([rns_ops.decompose(x, bam, wm)
                                for x in (c10, c11, c20, c21)])
             x0, x1, y0, y1 = ring.ntt_f(dec, dim_m)
@@ -453,6 +494,66 @@ class CKKS:
                           B=B / self.Delta + self.ctx.bounds.Brs,
                           c0=self._rs_limbs(c0, lnew), c1=self._rs_limbs(c1, lnew))
 
+    def mul_rs_batch_fn(self, l: int, B: int):
+        """Batched fused multiply + relinearize + rescale: B independent
+        ciphertext pairs through one sequence of torch calls, the NTT batch
+        axis carrying 4B forward and 3B + 2B inverse transforms per launch,
+        so the per-ciphertext cost amortizes (throughput, against the
+        latency-oriented mul_rs).
+
+        f(c10, c11, c20, c21, ek0, ek1) with ct args [B, n, klv]
+        -> (c0, c1) [B, n, kl(l-1)].  Same math as mul_step_fn per element.
+        """
+        mul_f = self.mul_step_fn(l)
+
+        def f(c10, c11, c20, c21, ek0, ek1):
+            assert c10.shape[0] == B
+            c0, c1 = mul_f(c10, c11, c20, c21, ek0, ek1)
+            return self._rs_limbs(c0, l - 1), self._rs_limbs(c1, l - 1)
+        return f
+
+    def mul_rs_batch(self, cts1: list, cts2: list, rlk: SwitchKey) -> list:
+        """Batched mul_rs over aligned ciphertext lists (one level)."""
+        ctx = self.ctx
+        B = len(cts1)
+        l = cts1[0].l
+        assert all(c.l == l for c in cts1 + cts2)
+        f = self.mul_rs_batch_fn(l, B)
+        c0, c1 = f(torch.stack([c.c0 for c in cts1]),
+                   torch.stack([c.c1 for c in cts1]),
+                   torch.stack([c.c0 for c in cts2]),
+                   torch.stack([c.c1 for c in cts2]),
+                   rlk.p0hat, rlk.p1hat)
+        out = []
+        for i, (a, b) in enumerate(zip(cts1, cts2)):
+            nu, Bn = self._mul_meta(a, b)
+            out.append(Ciphertext(l=l - 1, nu=nu / self.Delta,
+                                  B=Bn / self.Delta + ctx.bounds.Brs,
+                                  c0=c0[i], c1=c1[i]))
+        return out
+
+    def mulpt(self, ct: Ciphertext, pt: Plaintext) -> Ciphertext:
+        """Plaintext product (ref: src/he-mult.c:159-196)."""
+        ctx = self.ctx
+        l = ct.l
+        qb = self.qbits(l)
+        klv = self.kl(l)
+        dim = ctx.dim_mulpt(l, pt.size_bound)
+        bits_pt = ctx.bits_mulpt(l, pt.size_bound)
+        ring = self.ring
+        ba = ring.ba(dim)
+        plan = ring.recon(dim)
+        pthat = ring.fwd_ntt(pt.m, dim, signed_bits=32 * pt.m.shape[-1])
+
+        def one(cx):
+            ch = ring.pointwise_mul(ring.fwd_ntt(cx, dim), pthat, dim)
+            res = ring.ntt_i(ch, dim, scale_phatinv=True)
+            c = rns_ops.reconstruct(res, ba, plan, center=True, k_out=klv,
+                                    bound_bits=bits_pt, pre_scaled=True)
+            return lb.resize(lb.mask_bits(c, qb), klv)
+        return Ciphertext(l=l, nu=ct.nu * pt.nu, B=ct.B * pt.nu,
+                          c0=one(ct.c0), c1=one(ct.c1))
+
     # ------------------------------------------------------------------
     # rescale / moddown (ref: src/he-rescale.c)
     # ------------------------------------------------------------------
@@ -473,3 +574,141 @@ class CKKS:
         return Ciphertext(l=lnew, nu=ct.nu, B=ct.B,
                           c0=lb.resize(lb.mask_bits(ct.c0, qb), klv),
                           c1=lb.resize(lb.mask_bits(ct.c1, qb), klv))
+
+    # ------------------------------------------------------------------
+    # automorphisms (ref: src/he-automorphism.c)
+    # ------------------------------------------------------------------
+
+    def _apply_swk(self, d0, d1, swk: SwitchKey, l: int) -> tuple:
+        """Key switch (d0, d1): c0' = rdiv(d1*swk0, P) + d0, c1' = rdiv(d1*swk1, P)
+        (ref: src/he-automorphism.c:40-85)."""
+        dim_s = self.ctx.dim_swk(l)
+        ring = self.ring
+        ks_pair = self._cached(("swk", l), lambda: self._keyswitch_core(dim_s, l))
+        dhat = ring.fwd_ntt(d1, dim_s)
+        # the keys hold dimswk_h rows; the slices are views
+        u0, u1 = ks_pair(ring.pointwise_mul(dhat, swk.p0hat[:dim_s], dim_s),
+                         ring.pointwise_mul(dhat, swk.p1hat[:dim_s], dim_s))
+        return lb.mask_bits(lb.add(u0, d0), self.qbits(l)), u1
+
+    def conj(self, ct: Ciphertext, ck: SwitchKey) -> Ciphertext:
+        """Complex conjugation (ref: src/he-automorphism.c:87-100)."""
+        qb = self.qbits(ct.l)
+        d0 = self.ring.galois(ct.c0, None, qb)
+        d1 = self.ring.galois(ct.c1, None, qb)
+        c0, c1 = self._apply_swk(d0, d1, ck, ct.l)
+        return Ciphertext(l=ct.l, nu=ct.nu, B=ct.B, c0=c0, c1=c1)
+
+    def rot(self, ct: Ciphertext, r: int, rk: dict[int, SwitchKey]) -> Ciphertext:
+        """Slot rotation by r (ref: src/he-automorphism.c:102-115)."""
+        qb = self.qbits(ct.l)
+        d0 = self.ring.galois(ct.c0, r, qb)
+        d1 = self.ring.galois(ct.c1, r, qb)
+        c0, c1 = self._apply_swk(d0, d1, rk[r], ct.l)
+        return Ciphertext(l=ct.l, nu=ct.nu, B=ct.B, c0=c0, c1=c1)
+
+    # ------------------------------------------------------------------
+    # hoisted rotations (Halevi-Shoup double hoisting)
+    # ------------------------------------------------------------------
+
+    def bits_hoist(self, l: int, nu_sum: float) -> int:
+        """Proven bound on the hoisted |c1|*|pt|*n1*|ek| accumulation."""
+        ctx = self.ctx
+        return int(self.qbits(l) + math.log2(max(nu_sum, 1.0))
+                   + ctx.PqL.bit_length() + ctx.poly.logn + 1)
+
+    def dim_hoist(self, l: int, nu_sum: float) -> int:
+        """Extended-basis size covering the hoisted |c1|*|pt|*n1*|ek|
+        accumulation (the classic relin bound of ctx.dim_swk grown by the
+        plaintext-sum magnitude)."""
+        return self.bits_hoist(l, nu_sum) // self.ctx.logp_prime + 1
+
+    def gemv_dims(self, l: int, bnd_sum: float) -> tuple[int, int]:
+        """(dims_h, dimc) bases for the hoisted gemv at level l."""
+        return self.dim_hoist(l, bnd_sum), self.ctx.dim_mulpt(l, bnd_sum)
+
+    def hoisted_gemv_prep_fn(self, l: int, n1: int, dims_h: int, dimc: int):
+        """Hoisting prologue: decompose + NTT c0/c1 ONCE in the extended
+        bases and apply all n1 baby-step Galois permutations as one gather
+        (ops/ntt.py ntt_galois_perm).
+
+        f(c0, c1) -> (c1p [n1, dims_h, n], c0p [n1, dimc, n])
+        """
+        return self._cached(("hoistprep", l, n1, dims_h, dimc),
+                            lambda: self._build_hoisted_prep(n1, dims_h, dimc))
+
+    def _build_hoisted_prep(self, n1: int, dims_h: int, dimc: int):
+        assert dims_h <= self.dimswk_h, \
+            (f"hoist basis {dims_h} exceeds switch-key limbs "
+             f"{self.dimswk_h}; raise hoist_bits at engine construction")
+        ring = self.ring
+        logn = self.ctx.poly.logn
+        perm = torch.from_numpy(np.stack(
+            [ntt_galois_perm(logn, j) for j in range(n1)]).astype(np.int64)
+        ).to(self.device)
+
+        def f(c0, c1):
+            c1h = ring.fwd_ntt(c1, dims_h)
+            c0h = ring.fwd_ntt(c0, dimc)
+            # [dim, n1, n] -> [n1, dim, n]
+            return (c1h[:, perm].transpose(0, 1), c0h[:, perm].transpose(0, 1))
+        return f
+
+    def hoisted_gemv_step_fn(self, l: int, dims_h: int, dimc: int,
+                             bits_h: int | None = None,
+                             bits_c: int | None = None):
+        """BSGS-gemv giant step with double hoisting.
+
+        The reference's gemv does a FULL key switch per baby-step rotation
+        (ref: src/he-algo.c:63-85: he_rot + he_ecd + he_mulpt per (i,j)).
+        Here each baby-step rotation is a pointwise multiply with the
+        pre-NTT'd diagonal plaintext and rotation key, accumulated in the
+        extended basis; ONE divide-round per giant step.  Exact up to the
+        divide-round of the sum (a strictly smaller rounding error than the
+        classic sum of n1 divide-rounds).  The caller loops giant steps with
+        one plaintext slab per call, so device memory stays O(n1), not
+        O(slots).
+
+        f(c1p [n1,dims_h,n], c0p [n1,dimc,n], ptx_i [n1,dims_h,n],
+          ptb_i [n1,dimc,n], rk0, rk1 [n1,>=dims_h,n]) -> (c0_i, c1_i)
+        """
+        return self._cached(
+            ("hoiststep", l, dims_h, dimc, bits_h, bits_c),
+            lambda: self._build_hoisted_step(l, dims_h, dimc, bits_h, bits_c))
+
+    def _build_hoisted_step(self, l, dims_h, dimc, bits_h, bits_c):
+        qb = self.qbits(l)
+        klv = self.kl(l)
+        ring = self.ring
+        bas = ring.ba(dims_h)
+        bac = ring.ba(dimc)
+        planc = ring.recon(dimc)
+        ps = bas.ps[:, None]
+        pc = bac.ps[:, None]
+        ks_pair = self._keyswitch_core(dims_h, l, bound_bits=bits_h)
+
+        def modsum(x, p):
+            # sum over the baby-step axis mod p: every partial stays in
+            # [0, p), so any order gives the same words; each addition is a
+            # two-operand addmod (a plain sum of residues of a 60-bit prime
+            # overflows the word)
+            while x.shape[0] > 1:
+                h = x.shape[0] // 2
+                head = addmod(x[:h], x[h:2 * h], p)
+                x = torch.cat([head, x[2 * h:]]) if x.shape[0] % 2 else head
+            return x[0]
+
+        def f(c1p, c0p, ptx_i, ptb_i, rk0, rk1):
+            # all n1 baby steps as one batched product each; the key slices
+            # are views of the stacked bank
+            t = ring.pointwise_mul(c1p, ptx_i, dims_h)
+            acc0 = modsum(ring.pointwise_mul(t, rk0[:, :dims_h], dims_h), ps)
+            acc1 = modsum(ring.pointwise_mul(t, rk1[:, :dims_h], dims_h), ps)
+            accb = modsum(ring.pointwise_mul(c0p, ptb_i, dimc), pc)
+            k0, k1 = ks_pair(acc0, acc1)
+            res = ring.ntt_i(accb, dimc, scale_phatinv=True)
+            db = rns_ops.reconstruct(res, bac, planc, center=True, k_out=klv,
+                                     bound_bits=bits_c, pre_scaled=True)
+            db = lb.resize(lb.mask_bits(db, qb), klv)
+            return lb.mask_bits(lb.add(k0, db), qb), k1
+        return f

@@ -7,8 +7,9 @@ Switch keys are the only objects kept in the NTT/RNS domain: [dimswk_h, n]
 residues in the butterfly NTT order that both packages share.
 
 from_numpy / to_numpy convert to and from the array layout that
-gpqhe_tpu/utils/serialize.py writes (u32 limbs, u64 NTT-resident keys), so
-keys and ciphertexts cross between the JAX package and this one.
+gpqhe_tpu/utils/serialize.py writes (u32 limbs, u64 NTT-resident keys, a
+rotation-key bank as 'rots' plus one p0hat_r / p1hat_r pair per rotation),
+so keys and ciphertexts cross between the JAX package and this one.
 """
 
 from __future__ import annotations
@@ -85,10 +86,16 @@ _LIMB_FIELDS = {"ct": ("c0", "c1"), "pt": ("m",), "pk": ("p0", "p1"), "sk": ("s"
 
 def from_numpy(kind: str, arrays: dict, device=None):
     """Arrays in the serialize.py layout -> object on device.  kind is one of
-    'ct', 'pt', 'pk', 'sk', 'swk'; 'ct' and 'pt' also take 'meta'."""
+    'ct', 'pt', 'pk', 'sk', 'swk', 'rk' (a rotation-key bank, returned as
+    {rotation: SwitchKey}); 'ct' and 'pt' also take 'meta'."""
     if kind == "swk":
         return SwitchKey(p0hat=u64_to_torch(arrays["p0hat"], device),
                          p1hat=u64_to_torch(arrays["p1hat"], device))
+    if kind == "rk":
+        return {int(r): SwitchKey(
+            p0hat=u64_to_torch(arrays[f"p0hat_{int(r)}"], device),
+            p1hat=u64_to_torch(arrays[f"p1hat_{int(r)}"], device))
+            for r in arrays["rots"]}
     if kind not in _LIMB_FIELDS:
         raise ValueError(f"unknown kind {kind!r}")
     t = {f: limbs_to_torch(arrays[f], device) for f in _LIMB_FIELDS[kind]}
@@ -106,6 +113,12 @@ def to_numpy(obj) -> tuple[str, dict]:
     if isinstance(obj, SwitchKey):
         return "swk", {"p0hat": torch_to_u64(obj.p0hat),
                        "p1hat": torch_to_u64(obj.p1hat)}
+    if isinstance(obj, dict):  # rotation-key bank
+        arrays = {"rots": np.array(sorted(obj))}
+        for r, swk in obj.items():
+            arrays[f"p0hat_{r}"] = torch_to_u64(swk.p0hat)
+            arrays[f"p1hat_{r}"] = torch_to_u64(swk.p1hat)
+        return "rk", arrays
     kind = {Ciphertext: "ct", Plaintext: "pt", PublicKey: "pk",
             SecretKey: "sk"}.get(type(obj))
     if kind is None:

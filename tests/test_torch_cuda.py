@@ -1,5 +1,6 @@
-"""The port on an NVIDIA GPU: the CUDA NTT against its plain torch twin, and
-the CUDA engine against the CPU engine, bit for bit.
+"""The port on an NVIDIA GPU: the two CUDA NTT kernels (u64 words for the
+59-bit chain, u32 words for a logp=29 chain) against the plain torch twin,
+and the CUDA engine against the CPU engine, bit for bit, on both chains.
 
 Every test here needs the card and skips without one.  The file imports
 neither jax nor gpqhe_tpu, so it runs on a machine without them:
@@ -14,9 +15,10 @@ import pytest
 import torch
 
 from gpqhe_tpu_torch import CKKS, HeContext, Surf
+from gpqhe_tpu_torch.algo import linalg
 from gpqhe_tpu_torch.context import PolyContext
 from gpqhe_tpu_torch.ops import ntt as twin
-from gpqhe_tpu_torch.ops import ntt_cuda
+from gpqhe_tpu_torch.ops import ntt_cuda, ntt_cuda32
 from gpqhe_tpu_torch.ops.modmath import u64_to_torch
 from gpqhe_tpu_torch.ring import sample
 from gpqhe_tpu_torch.ring.poly import RingEngine
@@ -69,6 +71,40 @@ def test_cuda_kernel_rejects_unsupported_n(cuda_device):
         ntt_cuda.ntt(torch.zeros((2, 16), dtype=torch.int32, device=cuda_device), plan)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("logn,batch", [(4, (3,)), (11, (4,)), (14, (2,)), (15, ()),
+                                        (16, ())])
+@pytest.mark.parametrize("mode", MODES)
+def test_cuda_u32_kernel_matches_twin(cuda_device, logn, batch, mode):
+    dim = 3
+    ring = RingEngine(PolyContext(logn, q=1 << 20, logp=29, dim_cap=dim),
+                      device=cuda_device)
+    assert ring.ntt_mod is ntt_cuda32
+    rng = np.random.default_rng(logn)
+    ps = np.array(ring.pctx.primes[:dim], dtype=np.uint64)[:, None]
+    host = rng.integers(0, 1 << 62, batch + (dim, 1 << logn), dtype=np.uint64) % ps
+    host[..., :2] = ps - np.uint64(1)                  # p - 1: the largest input
+    a = u64_to_torch(host, cuda_device)
+    before, before64 = dict(ntt_cuda32.LAUNCHES32), dict(ntt_cuda.LAUNCHES)
+    got = (ring.ntt_f(a, dim) if mode == "fwd"
+           else ring.ntt_i(a, dim, scale_phatinv=mode == "inv_scaled"))
+    torch.cuda.synchronize()
+    assert ntt_cuda32.LAUNCHES32[mode] == before[mode] + 1
+    assert ntt_cuda.LAUNCHES == before64
+    assert torch.equal(got, _twin(a, ring.ba(dim), mode))
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_reject_the_other_chains_plan(cuda_device):
+    wide = RingEngine(PolyContext(4, q=1 << 20, dim_cap=2), device=cuda_device)
+    narrow = RingEngine(PolyContext(4, q=1 << 20, logp=29, dim_cap=2), device=cuda_device)
+    a = torch.zeros((2, 16), dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError, match="u64 tables"):
+        ntt_cuda32.ntt(a, wide.ntt_plan(2))
+    with pytest.raises(ValueError, match="u32 tables"):
+        ntt_cuda.ntt(a, narrow.ntt_plan(2))
+
+
 def _run(device):
     ctx = HeContext(logn=11, q=1 << 48, slots=4, Delta=1 << 22)
     eng = CKKS(ctx, rng=Surf(), device=device)
@@ -96,3 +132,50 @@ def test_cuda_engine_matches_cpu(cuda_device):
     assert torch.equal(c["rlk"].p0hat.cpu(), t["rlk"].p0hat)
     assert torch.equal(c["rlk"].p1hat.cpu(), t["rlk"].p1hat)
     assert np.array_equal(c["dcd"], t["dcd"])
+
+
+def _run_keyswitch(device, logp):
+    """rot, conj, mulpt, mul_rs_batch and both hoisted gemv routes on a ring
+    with room for the hoisting basis on either chain."""
+    ctx = HeContext(logn=9, q=1 << 120, slots=4, Delta=1 << 30, logp=logp)
+    eng = CKKS(ctx, rng=Surf(), device=device)
+    pk, sk = eng.keypair()
+    rlk = eng.genrlk(sk)
+    ck = eng.genck(sk)
+    rk = eng.genrk(sk)
+    rng = np.random.default_rng(9)
+    m = rng.random(4) + 1j * rng.random(4)
+    A = rng.random(16) + 1j * rng.random(16)
+    ct = eng.enc_pk(eng.ecd(m), pk)
+    plan = linalg.HoistedGemvPlan(eng, A)
+    bank = {r: rk[r] for r in rk if r < plan.n1 or r % plan.n1 == 0}
+    out = dict(rot=eng.rot(ct, 1, rk), conj=eng.conj(ct, ck),
+               mulpt=eng.mulpt(ct, eng.ecd(m)),
+               batch=eng.mul_rs_batch([ct, ct], [ct, ct], rlk)[1],
+               full=linalg.gemv_hoisted_full(eng, plan, ct, rk),
+               bsgs=linalg.gemv_hoisted(eng, plan, ct, bank))
+    assert plan.fallbacks == 0
+    return out, eng.dcd(eng.dec(out["full"], sk)), A.reshape(4, 4) @ m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logp", [59, 29])
+def test_cuda_keyswitch_path_matches_cpu(cuda_device, logp):
+    mine, other = ((ntt_cuda.LAUNCHES, ntt_cuda32.LAUNCHES32) if logp == 59
+                   else (ntt_cuda32.LAUNCHES32, ntt_cuda.LAUNCHES))
+    before, before_other = dict(mine), dict(other)
+    c, got, want = _run_keyswitch(cuda_device, logp)
+    assert all(mine[k] > before[k] for k in MODES) and other == before_other
+    t, got_cpu, _ = _run_keyswitch(torch.device("cpu"), logp)
+    for name in c:
+        assert c[name].c0.is_cuda
+        assert torch.equal(c[name].c0.cpu(), t[name].c0), name
+        assert torch.equal(c[name].c1.cpu(), t[name].c1), name
+    assert np.array_equal(got, got_cpu)
+    assert np.max(np.abs(got - want)) < 1e-5
+
+
+@pytest.mark.cuda
+def test_default_device_is_cuda(cuda_device):
+    eng = CKKS(HeContext(logn=9, q=1 << 120, slots=4, Delta=1 << 30), rng=Surf())
+    assert eng.device.type == "cuda" and eng.ring.device.type == "cuda"

@@ -153,8 +153,9 @@ def test_port_imports_with_jax_blocked():
         "import torch\n"
         "torch.set_num_threads(1)\n"
         "from gpqhe_tpu_torch import CKKS, HeContext, Surf\n"
-        "import gpqhe_tpu_torch.ops.ntt_cuda, gpqhe_tpu_torch.scheme.types\n"
-        "eng = CKKS(HeContext(11, 1 << 48, 4, 1 << 22), rng=Surf())\n"
+        "import gpqhe_tpu_torch.ops.ntt_cuda, gpqhe_tpu_torch.ops.ntt_cuda32\n"
+        "import gpqhe_tpu_torch.scheme.types, gpqhe_tpu_torch.algo.linalg\n"
+        "eng = CKKS(HeContext(11, 1 << 48, 4, 1 << 22), rng=Surf(), device='cpu')\n"
         "pk, sk = eng.keypair()\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'gpqhe_tpu.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"

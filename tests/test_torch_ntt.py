@@ -37,7 +37,7 @@ MODES = ["fwd", "inv", "inv_scaled"]
 def rings():
     jp = JPolyContext(LOGN, q=1 << 54, dim_cap=DIM)
     tp = PolyContext(LOGN, q=1 << 54, dim_cap=DIM)
-    return jp, jrns.make_basis_arrays(jp, DIM), RingEngine(tp)
+    return jp, jrns.make_basis_arrays(jp, DIM), RingEngine(tp, device="cpu")
 
 
 def _rand(primes, shape, seed=7):
@@ -217,7 +217,7 @@ def _model_ntt(a, tw, tws, primes, scale, inverse, smem_logn):
 def test_kernel_schedule_model_matches_twin(logn, smem_logn, mode):
     dim = 2
     pctx = PolyContext(logn, q=1 << 118, dim_cap=dim)
-    ring = RingEngine(pctx)
+    ring = RingEngine(pctx, device="cpu")
     tables = ntt_cuda.make_kernel_tables(pctx, torch.device("cpu"))
     plan = ntt_cuda.make_plan(pctx, dim, ring.ba(dim), tables)
     a = _rand(pctx.primes[:dim], (2, dim, 1 << logn), seed=logn)

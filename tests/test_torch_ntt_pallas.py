@@ -34,7 +34,8 @@ def check_twin_against_pallas(P, mode):
     """The twin equals ntt_pallas(interpret=True) on one [P,] dim x n stack."""
     if not _RINGS:
         _RINGS["jax"] = JPolyContext(LOGN, q=1 << 54, dim_cap=DIM)
-        _RINGS["torch"] = RingEngine(PolyContext(LOGN, q=1 << 54, dim_cap=DIM))
+        _RINGS["torch"] = RingEngine(PolyContext(LOGN, q=1 << 54, dim_cap=DIM),
+                                     device="cpu")
     jp, ring = _RINGS["jax"], _RINGS["torch"]
     shape = (P, DIM, N) if P > 1 else (DIM, N)
     rng = np.random.default_rng(P)

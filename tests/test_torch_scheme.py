@@ -62,7 +62,7 @@ def _run(pkg, surf, smp, device=None):
 
 @pytest.fixture(scope="module")
 def runs():
-    return _run(gpqhe_tpu, jsurf, jsmp), _run(gt, tsurf, tsmp)
+    return _run(gpqhe_tpu, jsurf, jsmp), _run(gt, tsurf, tsmp, device="cpu")
 
 
 KEYS = {"pk.p0": ("pk", "p0"), "pk.p1": ("pk", "p1"), "sk.s": ("sk", "s"),
@@ -136,7 +136,7 @@ def test_golden_replay():
     with open(GOLDEN) as f:
         g = {k: np.array([complex(a, b) for a, b in v]) for k, v in json.load(f).items()}
     ctx = gt.HeContext(logn=11, q=1 << 48, slots=4, Delta=1 << 20)
-    eng = gt.CKKS(ctx, rng=gt.Surf())
+    eng = gt.CKKS(ctx, rng=gt.Surf(), device="cpu")
     pk, sk = eng.keypair()
     rlk = eng.genrlk(sk)
     eng.genck(sk)
@@ -165,7 +165,7 @@ def test_golden_replay():
 def test_main_path_size_decodes():
     """logn=14/logq=438/slots=16/Delta=2^50: decode diff < 1e-5 (bench.py's gate)."""
     ctx = gt.HeContext(logn=14, q=1 << 438, slots=16, Delta=1 << 50)
-    eng = gt.CKKS(ctx, rng=gt.Surf())
+    eng = gt.CKKS(ctx, rng=gt.Surf(), device="cpu")
     pk, sk = eng.keypair()
     rlk = eng.genrlk(sk)
     m1 = tsmp.sample_z01vec(eng.rng, ctx.slots)
