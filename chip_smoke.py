@@ -7,12 +7,19 @@ Phases, each printing JSON lines; any failure raises and the script exits
 non-zero:
   build    — compile csrc/ntt.cu and csrc/ntt32.cu with nvcc (sm_90a), one
              process each, started together, and load them; the card's name
-             and power limit from nvidia-smi; ptxas registers; static
+             and power limit from nvidia-smi; per kernel instantiation
+             ptxas's registers, spills, stack and shared memory; static
              multiply-instruction counts from cuobjdump.
   kernels  — each CUDA NTT (u64 words on the 59-bit chain, u32 words on the
-             logp=29 chain) against the plain torch twin on the card,
-             torch.equal on random residues at the paths' shapes, with both
-             median times (CUDA events, after warm-up) and the bound.
+             logp=29 chain) against the plain torch twin on the card and
+             against the first-design kernel kept in the same library
+             (entries gpqhe_ntt_v1 / gpqhe_ntt32_v1, called from here only):
+             torch.equal of all three on random residues at the paths'
+             shapes; the device time per launch of the kernel and of v1, in
+             turns (v1, new, new, v1), each a run of many launches between
+             one pair of CUDA events with the host enqueueing ahead of the
+             device, inputs L2-warm; the wrapper's host time per call; the
+             twin's median; the bound.
   golden   — the logn=11 replay of tests/golden/golden_logn11.json (enc,
              add, mul+rs, conj, rot1, moddown) within tests/test_golden.py's
              tolerances.
@@ -75,6 +82,9 @@ KERNELS = {
 }
 MODES = ("fwd", "inv", "inv_scaled")
 ITERS = 20      # timed runs per median
+CALLS = 40      # launches between one pair of events in a device-time run
+SLEEP_CYCLES = 10_000_000          # the sleep such a run starts behind: ~5 ms
+MAX_SLEEP_CYCLES = 1_000_000_000   # ~0.5 s: past this the host is not ahead
 
 # Peaks of one H100 SXM for the bound: 3.35 TB/s of HBM3 (NVIDIA's data
 # sheet).  Integer rate: the data sheet's 67 TFLOP/s of fp32 is 128 lanes
@@ -119,6 +129,117 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
+def device_ms_runs(fn, rounds: int, calls: int = CALLS) -> list:
+    """Device milliseconds per call of fn() without the host's share: each
+    of `rounds` readings is `calls` calls between one pair of events,
+    enqueued while the device sits in a sleep kernel, so that every launch
+    is waiting in the stream before the first one starts.  That is checked:
+    a reading counts only if the sleep had not ended when the last call was
+    enqueued (the event behind the sleep not yet reached); else the sleep is
+    doubled and the round repeated.  fn sees the same tensors every time:
+    its inputs are L2-warm."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    out, sleep = [], SLEEP_CYCLES
+    while len(out) < rounds:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep)
+        a.record()
+        for _ in range(calls):
+            fn()
+        host_ahead = not a.query()
+        b.record()
+        b.synchronize()
+        if host_ahead:
+            out.append(a.elapsed_time(b) / calls)
+        elif sleep > MAX_SLEEP_CYCLES:
+            raise RuntimeError(f"the host cannot enqueue {calls} calls inside a sleep of "
+                               f"{sleep} cycles: no device time without the host's share")
+        else:
+            sleep *= 2
+    return out
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds per call of fn(): the wrapper's checks, allocation
+    and enqueue, over un-synchronised calls on an idle device."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+_V1 = {}           # kernel -> bound v1 entry point
+_V1_TABLES = {}    # (id of a plan's tables, inverse) -> (z, companions, the tables)
+
+
+def v1_transform(kernel: str, a, plan, mode: str):
+    """One transform through the first-design kernel (one block per slab;
+    entries gpqhe_ntt_v1 / gpqhe_ntt32_v1), kept for this comparison and
+    bound here: nothing in the package calls it.  It takes the twiddles and
+    their companions as two [dim, n] tables, split here from the plan's
+    interleaved one."""
+    import torch
+    from gpqhe_tpu_torch.ops import ntt_cuda, ntt_cuda32
+    symbol = "gpqhe_ntt_v1" if kernel == "ntt" else "gpqhe_ntt32_v1"
+    if kernel not in _V1:
+        mod = ntt_cuda if kernel == "ntt" else ntt_cuda32
+        _V1[kernel] = ntt_cuda.bind(mod.SOURCE, symbol, ntables=2)
+    inverse = mode != "fwd"
+    t = plan.tables
+    if (id(t), inverse) not in _V1_TABLES:
+        pairs = t.tw_i if inverse else t.tw_f
+        _V1_TABLES[id(t), inverse] = (pairs[..., 0].contiguous(),
+                                      pairs[..., 1].contiguous(), t)
+    z, zs, _ = _V1_TABLES[id(t), inverse]
+    logn, nslab = ntt_cuda.check_args(a, plan)
+    a = a.contiguous()
+    out = torch.empty_like(a)
+    sc = plan.scale_phat if mode == "inv_scaled" else plan.scale
+    rc = _V1[kernel](a.data_ptr(), out.data_ptr(), nslab, plan.dim, logn, z.data_ptr(),
+                     zs.data_ptr(), t.primes.data_ptr(), sc[0].data_ptr(), sc[1].data_ptr(),
+                     int(inverse), torch.cuda.current_stream(a.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{symbol} launch failed: cudaError {rc}")
+    return out
+
+
+def pass_breakdown(fn, calls: int = 20) -> dict:
+    """Microseconds per call of each device kernel of fn(), by name, from
+    torch.profiler over `calls` back-to-back calls: how a transform's time
+    splits over its passes, and whether they overlap (their sum against the
+    time per launch).  Raises if the profiler shows no NTT kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(SLEEP_CYCLES)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and "ntt" in e.name:
+            key = short_kernel_name(e.name)
+            out[key] = out.get(key, 0.0) + e.time_range.elapsed_us() / calls
+    if not out:
+        raise RuntimeError("the profiler saw no NTT pass kernel: no time per pass")
+    return out
+
+
 def ntt_bound(word: int, mode: str, shape) -> dict:
     """The least time the card could take for one NTT call of this shape:
     the larger of bytes over the memory rate (every 64-bit residue read once
@@ -146,12 +267,43 @@ def phase_build():
     ntt_cuda.load_library()
     ntt_cuda32.load_library()
     secs = time.time() - t0
-    ptxas = {os.path.basename(src): [ln.strip() for ln in log.splitlines()
-                                     if "registers" in ln or "Compiling entry" in ln]
+    ptxas = {os.path.basename(src): ptxas_summary(log)
              for src, log in cuda_build.BUILD_LOGS.items()}
     emit({"phase": "build", "seconds": secs, "gpu": gpu_line(), "ptxas": ptxas,
           "sass_multiplies": {os.path.basename(src): sass_multiplies(cuda_build.library_path(src))
                               for src in (ntt_cuda.SOURCE, ntt_cuda32.SOURCE)}})
+
+
+def short_kernel_name(name: str) -> str:
+    """A pass instantiation by pass, log2 size and direction, mangled or not
+    (ntt_col_pass<7, false> -> "col L7 fwd"); a first-design kernel by name."""
+    import re
+    t = (re.search(r"ntt_(col|row)_passILi(\d+)ELb([01])E", name)
+         or re.search(r"ntt_(col|row)_pass<(\d+), *(true|false|[01])>", name))
+    if t:
+        return f"{t.group(1)} L{t.group(2)} {'inv' if t.group(3) in ('1', 'true') else 'fwd'}"
+    t = re.search(r"(ntt\d*_(?:smem|stage)_kernel)", name)
+    return f"v1 {t.group(1)}" if t else name
+
+
+def ptxas_summary(log: str) -> dict:
+    """nvcc -Xptxas -v per kernel: registers, spill and stack bytes, static
+    shared memory."""
+    import re
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = short_kernel_name(m.group(1))
+            out[name] = {}
+        elif name and "bytes stack frame" in ln:
+            v = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
+            out[name].update(stack=v[0], spill_stores=v[1], spill_loads=v[2])
+        elif name and "Used" in ln and "registers" in ln:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            out[name]["smem"] = int(m.group(1)) if m else 0
+    return out
 
 
 def sass_multiplies(library: str):
@@ -170,7 +322,7 @@ def sass_multiplies(library: str):
     counts, fn = {}, None
     for ln in out.stdout.splitlines():
         if "Function :" in ln:
-            fn = ln.split("Function :")[1].strip()
+            fn = short_kernel_name(ln.split("Function :")[1].strip())
             counts[fn] = {"IMAD": 0, "IMAD.WIDE": 0, "IMAD.HI": 0, "IMAD.MOV": 0, "other_mul": 0}
         elif fn and (" IMAD" in ln or " IMUL" in ln or " UIMAD" in ln):
             op = ln.split("*/")[1].split()[0] if "*/" in ln else ""
@@ -204,9 +356,13 @@ def kernel_ring(kernel: str, logn: int, dim: int):
     return _RINGS[key]
 
 
-def compare_kernel(kernel: str, mode: str, shape, iters: int, rng) -> dict:
-    """One kernel entry against the plain twin on random residues on the
-    card: torch.equal, and both medians.  Raises if they differ."""
+def compare_kernel(kernel: str, mode: str, shape, iters: int, rng,
+                   breakdown: bool = False) -> dict:
+    """One kernel entry against the plain twin and against the first-design
+    kernel on random residues on the card: torch.equal of all three, then
+    the device time per launch of v1 and of the kernel in turns (v1, new,
+    new, v1), the wrapper's host time and the twin's median.  Raises if any
+    two differ."""
     import numpy as np
     import torch
     from gpqhe_tpu_torch.ops import ntt_cuda
@@ -231,37 +387,52 @@ def compare_kernel(kernel: str, mode: str, shape, iters: int, rng) -> dict:
 
         def plain():
             return ntt_cuda.plain_intt(a, plan, scaled)
-    got = kern()
-    want = plain()
+
+    def prev():
+        return v1_transform(kernel, a, plan, mode)
+    got, old, want = kern(), prev(), plain()
     torch.cuda.synchronize()
     equal = bool(torch.equal(got, want))
+    equal_v1 = bool(torch.equal(got, old))
     err = int((got - want).abs().max().item())
-    ms = cuda_ms(kern, iters)
-    plain_ms = cuda_ms(plain, max(3, iters // 4))
+    runs = [device_ms_runs(fn, iters) for fn in (prev, kern, kern, prev)]
     out = {"phase": "kernels", "kernel": kernel, "entry": mode, "shape": list(shape),
-           "equal": equal, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "equal": equal, "equal_v1": equal_v1, "max_abs_err": err,
+           "ms": median(runs[1] + runs[2]), "prev_ms": median(runs[0] + runs[3]),
+           "turn_ms": [median(r) for r in runs],
+           "host_us": host_us(kern), "prev_host_us": host_us(prev),
+           "plain_ms": cuda_ms(plain, max(3, iters // 4)),
            **ntt_bound(KERNELS[kernel]["word"], mode, shape)}
+    if breakdown:
+        out["pass_us"] = pass_breakdown(kern)
     emit(out)
     if not equal:
         raise AssertionError(f"CUDA {kernel} {mode} {shape} differs from its twin")
+    if not equal_v1:
+        raise AssertionError(f"CUDA {kernel} {mode} {shape} differs from the v1 kernel")
     return out
 
 
 def phase_kernels(iters: int) -> dict:
-    """Every kernel entry against its twin at CASES; returns, per entry name,
-    the numbers of its main-path shape."""
+    """Every kernel entry against its twin and v1 at CASES; returns, per
+    entry name, the numbers of its main-path shape."""
     import numpy as np
     rng = np.random.default_rng(2024)
     result = {}
     for kernel, cases in CASES.items():
         for mode, shape in cases:
-            r = compare_kernel(kernel, mode, shape, iters, rng)
             name = f"{kernel}_{mode}"
-            if name not in result:         # the first case is the main shape
-                result[name] = {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                                  "bound_ms", "bound_by")}
+            main = name not in result          # the first case is the main shape
+            r = compare_kernel(kernel, mode, shape, iters if main else max(3, iters // 4), rng,
+                               breakdown=main)
+            if main:
+                result[name] = {k: r[k] for k in ("max_abs_err", "ms", "prev_ms", "host_us",
+                                                  "plain_ms", "bound_ms", "bound_by")}
                 result[name]["shape"] = list(shape)
             result[name]["max_abs_err"] = max(result[name]["max_abs_err"], r["max_abs_err"])
+    emit({"phase": "kernels", "summary": "device ms per launch, new vs v1, main-path shapes",
+          "faster_than_v1": {k: v["ms"] < v["prev_ms"] for k, v in result.items()},
+          "speedup": {k: v["prev_ms"] / v["ms"] for k, v in result.items()}})
     return result
 
 
@@ -331,12 +502,14 @@ def profile_op(op: str, fn, **tags) -> None:
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    ntt_us = sum(v for k, v in by_name.items() if "ntt" in k and "_kernel" in k)
+    def is_ntt(name):
+        return "ntt" in name and ("_pass" in name or "_kernel" in name)
+    ntt_us = sum(v for k, v in by_name.items() if is_ntt(k))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     emit({"phase": "profile", "op": op, **tags, "wall_ms": wall_us / 1e3,
           "device_busy_ms": busy_us / 1e3,
           "idle_share": 1 - busy_us / wall_us, "device_kernels": len(kernels),
-          "ntt_kernels": sum(1 for e in kernels if "ntt" in e.name and "_kernel" in e.name),
+          "ntt_kernels": sum(1 for e in kernels if is_ntt(e.name)),
           "ntt_ms": ntt_us / 1e3, "ntt_share_of_busy": ntt_us / busy_us,
           "top_ms": [[k[:60], v / 1e3] for k, v in top]})
 

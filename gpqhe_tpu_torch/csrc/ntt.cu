@@ -1,4 +1,4 @@
-// Negacyclic NTT / INTT over RNS primes for Hopper (sm_90a).
+// Negacyclic NTT / INTT over RNS primes for Hopper (sm_90a), u64 words.
 //
 // Replaces the TPU kernel gpqhe_tpu/ops/ntt_pallas.py::_ntt_kernel (forward,
 // inverse, and inverse scaled by n^-1 * phat^-1), with the same arithmetic:
@@ -10,24 +10,28 @@
 // gpqhe_tpu_torch/ops/ntt.py (the NTT is a linear map mod p; any exact
 // algorithm gives the same fully reduced words).
 //
-// What bounds it on the H100: one n = 2^14 slab is 128 KiB read and written
-// once, plus 2 * n * 8 B of twiddles (L2-resident across slabs of one prime),
-// against n/2 * log2(n) = 114,688 butterflies, each one 64x64->128 high
-// multiply (__umul64hi) and two 64-bit low multiplies: ~2 ops per byte of
-// device traffic on a card whose 64-bit integer multiply is emulated with
-// 32-bit IMADs.  So it is integer-multiply and latency bound, not memory
-// bound: each stage is a __syncthreads() barrier over a block that holds
-// the whole slab.
+// What bounds it on the H100: by the peaks, bytes.  A [4, 16, 2^14] call
+// reads and writes 64 slabs of 128 KiB once and the 16 primes' twiddle pairs
+// once: 21.0 MB, 6.26 us at 3.35 TB/s, against 64 * n/2 * 14 = 7.3e6
+// butterflies of one 64x64->128 high product and two 64-bit low products
+// (about 10 32-bit IMAD: 4.4 us at 16.75e12 IMAD/s).  An 8-slab call has a
+// byte bound of 1.25 us, below the latency of a launch.  So the design has
+// to keep the whole card busy on few slabs and pay few synchronisations.
 //
-// Design: one thread block per (poly, prime) slab, the slab in dynamic
-// shared memory (opt-in above 48 KB), all log2(n) stages in the block with a
-// barrier between stages, twiddles read from global memory.  Slabs larger
-// than SMEM_N words (n = 2^15, 2^16) first run their outer stages (those
-// whose butterfly span 2*len exceeds SMEM_N) as one grid-wide pass per stage
-// in global memory; after that every contiguous SMEM_N sub-block is an
-// independent shared-memory NTT with the same global twiddle indexing.  The
-// inverse runs the same split in the opposite order and folds the final
-// scaling into its last global stage.
+// Design (gpqhe_ntt, csrc/ntt_passes.cuh): the slab is split n = n1 * n2 and
+// transformed by two kernels of many small blocks, a column pass and a row
+// pass, with 8 coefficients a thread held in registers through up to 3
+// stages between exchanges in shared memory, compile-time loop bounds, and
+// one 16-byte load per twiddle pair from the interleaved table.  A
+// [4, 16, 2^14] call is 1,024 column blocks and 1,024 row blocks of 128
+// threads instead of 64 blocks; an 8-slab call 128 and 128 instead of 8.  The intermediate is
+// written to the output and crosses L2.
+//
+// The first design (gpqhe_ntt_v1: one 1024-thread block per slab with the
+// slab in 128 KiB of shared memory, a barrier per stage, and one grid-wide
+// pass per outer stage for n > 2^14) is kept below under its own entry
+// point for measurement only: the smoke test times both in turns and holds
+// them equal.  Nothing else calls it.
 //
 // Plain C interface, loaded with ctypes.  Launches on the caller's stream,
 // allocates nothing, does not synchronise, returns cudaGetLastError().
@@ -69,6 +73,29 @@ __device__ __forceinline__ void inv_bf(u64 &x0, u64 &x1, u64 z, u64 zs, u64 p) {
 __device__ __forceinline__ u64 scale_reduce(u64 x, u64 s, u64 ss, u64 p) {
     return csub(shoup_mul(x, s, ss, p), p);
 }
+
+typedef ulonglong2 wpair;
+typedef u64 word;
+#define COL_LOGC 3             // 8 columns of 8 bytes
+
+#include "ntt_passes.cuh"
+
+// a_in/a_out: [nslab, n] with slab j on prime j % dim; tw: [dim, n, 2]
+// standard-domain twiddles interleaved with their Shoup companions (forward
+// or inverse table); primes/scale/scale_s: [dim].  4 <= logn <= 16, primes
+// < 2^61, a_in and a_out 16-byte aligned.
+extern "C" int gpqhe_ntt(const void *a_in, void *a_out, long long nslab, int dim,
+                         int logn, const void *tw, const void *primes,
+                         const void *scale, const void *scale_s, int inverse,
+                         void *stream) {
+    return ntt_two_pass((const u64 *)a_in, (u64 *)a_out, nslab, dim, logn,
+                        (const wpair *)tw, (const u64 *)primes, (const u64 *)scale,
+                        (const u64 *)scale_s, inverse, (cudaStream_t)stream);
+}
+
+// ---------------------------------------------------------------------------
+// The first design, for measurement only (entry gpqhe_ntt_v1).
+// ---------------------------------------------------------------------------
 
 // One slab (or one SMEM_N sub-block of a larger slab) per block.
 // grid.x = nslab * nsub; src/dst are [nslab, n]; tw/tws are [dim, n].
@@ -173,11 +200,12 @@ static void stage(const u64 *src, u64 *dst, long long nslab, int dim, int logn,
 
 // a_in/a_out: [nslab, n] with slab j on prime j % dim; tw/tws: [dim, n]
 // standard-domain twiddles and Shoup companions (forward or inverse table);
-// primes/scale/scale_s: [dim].  4 <= logn <= 16, primes < 2^61.
-extern "C" int gpqhe_ntt(const void *a_in, void *a_out, long long nslab, int dim,
-                         int logn, const void *tw, const void *tws,
-                         const void *primes, const void *scale,
-                         const void *scale_s, int inverse, void *stream) {
+// primes/scale/scale_s: [dim].  4 <= logn <= 16, primes < 2^61, at most
+// 65,535 slabs for n > 2^14 (grid.y of the stage pass).
+extern "C" int gpqhe_ntt_v1(const void *a_in, void *a_out, long long nslab, int dim,
+                            int logn, const void *tw, const void *tws,
+                            const void *primes, const void *scale,
+                            const void *scale_s, int inverse, void *stream) {
     cudaStream_t st = (cudaStream_t)stream;
     const u64 *in = (const u64 *)a_in;
     u64 *out = (u64 *)a_out;

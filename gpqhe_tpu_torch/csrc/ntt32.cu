@@ -22,23 +22,28 @@
 // Interface: residues are 64-bit words in device memory, as the rest of the
 // package keeps them; the kernel narrows on load and widens on store.
 //
-// What bounds it on the H100: a [4, 31, 2^14] call moves 124 slabs of
-// 128 KiB in and 128 KiB out (64-bit words) plus, once per prime, 2 * n * 4 B
-// of twiddles: 36.6 MB, 10.9 us at 3.35 TB/s.  It does 124 * n/2 * log2(n)
-// = 1.4e7 butterflies of three 32-bit multiplies each (one __umulhi, two low
-// products): 4.3e7 IMAD, 2.5 us at the card's 16.75e12 IMAD/s.  So by the
-// peaks it is bound by bytes.  As written it is latency bound: a
-// __syncthreads() barrier per stage over a block that holds the whole slab.
+// What bounds it on the H100: by the peaks, bytes.  A [4, 31, 2^14] call
+// moves 124 slabs of 128 KiB in and 128 KiB out (64-bit words) plus, once
+// per prime, n pairs of 4-byte twiddles: 36.6 MB, 10.9 us at 3.35 TB/s.  It
+// does 124 * n/2 * log2(n) = 1.4e7 butterflies of three 32-bit multiplies
+// each (one __umulhi, two low products): 4.3e7 IMAD, 2.5 us at the card's
+// 16.75e12 IMAD/s.  A 16-slab call has a byte bound of 1.9 us, below the
+// latency of a launch.
 //
-// Design: one thread block per (poly, prime) slab, the slab as u32 words in
-// dynamic shared memory (64 KiB at n = 2^14, 128 KiB at n = 2^15; opt-in
-// above 48 KB), all log2(n) stages in the block with a barrier between
-// stages, twiddles read from global memory.  n = 2^16 (256 KiB) does not
-// fit: its outer stage (butterfly span 2*len > SMEM_N) runs as one
-// grid-wide pass in global memory on the 64-bit output words; after that
-// every contiguous SMEM_N sub-block is an independent shared-memory NTT with
-// the same global twiddle indexing.  The inverse runs the split in the
-// opposite order and folds the final scaling into its last global stage.
+// Design (gpqhe_ntt32, csrc/ntt_passes.cuh): the slab is split n = n1 * n2
+// and transformed by two kernels of many small blocks, a column pass (tiles
+// of 16 columns: 64 bytes of u32 in shared memory, 128 bytes a row in
+// device memory) and a row pass, with 8 coefficients a thread held in
+// registers through up to 3 stages between exchanges in shared memory,
+// compile-time loop bounds, and one 8-byte load per twiddle pair from the
+// interleaved table.  The lazy intermediate between the passes (< 4p <
+// 2^32) lies in the 64-bit output words.
+//
+// The first design (gpqhe_ntt32_v1: one 1024-thread block per slab with the
+// slab as u32 words in shared memory, a barrier per stage, one grid-wide
+// pass for the outer stage of n = 2^16) is kept below under its own entry
+// point for measurement only: the smoke test times both in turns and holds
+// them equal.  Nothing else calls it.
 //
 // Plain C interface, loaded with ctypes.  Launches on the caller's stream,
 // allocates nothing, does not synchronise, returns cudaGetLastError().
@@ -83,6 +88,29 @@ __device__ __forceinline__ void inv_bf(u32 &x0, u32 &x1, u32 z, u32 zs, u32 p) {
 __device__ __forceinline__ u32 scale_reduce(u32 x, u32 s, u32 ss, u32 p) {
     return csub(shoup_mul(x, s, ss, p), p);
 }
+
+typedef uint2 wpair;
+typedef u32 word;
+#define COL_LOGC 4             // 16 columns of 4 bytes
+
+#include "ntt_passes.cuh"
+
+// a_in/a_out: [nslab, n] 64-bit words (values < p) with slab j on prime
+// j % dim; tw: [dim, n, 2] u32 standard-domain twiddles interleaved with
+// their Shoup companions (forward or inverse table); primes/scale/scale_s:
+// u32[dim].  4 <= logn <= 16, primes < 2^30, a_in and a_out 16-byte aligned.
+extern "C" int gpqhe_ntt32(const void *a_in, void *a_out, long long nslab, int dim,
+                           int logn, const void *tw, const void *primes,
+                           const void *scale, const void *scale_s, int inverse,
+                           void *stream) {
+    return ntt_two_pass((const u64 *)a_in, (u64 *)a_out, nslab, dim, logn,
+                        (const wpair *)tw, (const u32 *)primes, (const u32 *)scale,
+                        (const u32 *)scale_s, inverse, (cudaStream_t)stream);
+}
+
+// ---------------------------------------------------------------------------
+// The first design, for measurement only (entry gpqhe_ntt32_v1).
+// ---------------------------------------------------------------------------
 
 // One slab (or one SMEM_N sub-block of a larger slab) per block.
 // grid.x = nslab * nsub; src/dst are [nslab, n] 64-bit words; tw/tws [dim, n].
@@ -188,11 +216,12 @@ static void stage(const u64 *src, u64 *dst, long long nslab, int dim, int logn,
 // a_in/a_out: [nslab, n] 64-bit words (values < p) with slab j on prime
 // j % dim; tw/tws: [dim, n] u32 standard-domain twiddles and Shoup
 // companions (forward or inverse table); primes/scale/scale_s: u32[dim].
-// 4 <= logn <= 16, primes < 2^30.
-extern "C" int gpqhe_ntt32(const void *a_in, void *a_out, long long nslab, int dim,
-                           int logn, const void *tw, const void *tws,
-                           const void *primes, const void *scale,
-                           const void *scale_s, int inverse, void *stream) {
+// 4 <= logn <= 16, primes < 2^30, at most 65,535 slabs for n = 2^16 (grid.y
+// of the stage pass).
+extern "C" int gpqhe_ntt32_v1(const void *a_in, void *a_out, long long nslab, int dim,
+                              int logn, const void *tw, const void *tws,
+                              const void *primes, const void *scale,
+                              const void *scale_s, int inverse, void *stream) {
     cudaStream_t st = (cudaStream_t)stream;
     const u64 *in = (const u64 *)a_in;
     u64 *out = (u64 *)a_out;

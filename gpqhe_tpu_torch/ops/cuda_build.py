@@ -2,8 +2,9 @@
 
 Each source is compiled with nvcc for sm_90a into a shared library with a
 plain C interface, at first use, into build/kernels/ at the repository
-root; the file name carries the hash of the source and the flags, so an
-unchanged source is not rebuilt.  build() compiles several sources at once,
+root; the file name carries the hash of the source, of the package headers
+it includes (#include "x.cuh") and of the flags, so an unchanged source is
+not rebuilt.  build() compiles several sources at once,
 one nvcc process each, all started together.  The libraries are loaded with
 ctypes by the modules that bind them (ops/ntt_cuda.py, ops/ntt_cuda32.py).
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -38,9 +40,18 @@ def _nvcc() -> str:
     return found
 
 
-def library_path(source: str) -> str:
+def _with_includes(source: str) -> bytes:
+    """The source's bytes followed by those of the headers it includes by
+    quoted name from its own directory."""
     with open(source, "rb") as f:
         src = f.read()
+    for name in re.findall(rb'^#include "([^"]+)"', src, flags=re.M):
+        src += _with_includes(os.path.join(os.path.dirname(source), name.decode()))
+    return src
+
+
+def library_path(source: str) -> str:
+    src = _with_includes(source)
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f"{stem}_{tag}.so")
@@ -76,5 +87,6 @@ def build(sources: list[str]) -> dict[str, str]:
 
 
 def load(source: str) -> ctypes.CDLL:
-    """Build (if the source changed) and load one library."""
+    """Build (if the source or a header it includes changed) and load one
+    library."""
     return ctypes.CDLL(build([source])[source])

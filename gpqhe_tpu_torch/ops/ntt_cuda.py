@@ -1,5 +1,6 @@
-"""Hand-written CUDA NTT (csrc/ntt.cu) with its plan tables, launch counters
-and the dispatch between kernel and plain twin.
+"""Hand-written CUDA NTT (csrc/ntt.cu) with its plan tables, launch counters,
+the schedule of its two passes, and the dispatch between kernel and plain
+twin.
 
 Replaces the TPU kernel gpqhe_tpu/ops/ntt_pallas.py::_ntt_kernel and its
 wrapper ntt_pallas: forward NTT, inverse NTT, and inverse scaled by
@@ -7,11 +8,22 @@ n^-1 * phat^-1 (the CRT reconstruct's fused first step).  The kernel takes
 standard-domain twiddles with Shoup companions floor(z * 2^64 / p), as the
 Pallas plan built them (ntt_pallas.py:418-426); here they are computed once
 per ring for every prime of the chain, vectorised over numpy object arrays,
-and a dim-prime plan points at the first dim rows.
+interleaved as [dimub, n, 2] words (z, companion) so that one load brings
+both, and a dim-prime plan points at the first dim rows.
 
 Dispatch: a CPU tensor goes through the plain twin (ops/ntt.py); a CUDA
 tensor launches the kernel, which raises if it cannot.  There is no other
-fallback.  LAUNCHES counts kernel launches per entry.
+fallback.  LAUNCHES counts calls of the kernel's entry, one per transform.
+
+The schedule (csrc/ntt_passes.cuh): n = n1 * n2 is transformed in a column
+pass (n2 interleaved sequences of n1 elements) and a row pass (n1 contiguous
+sequences of n2), each a kernel of many small blocks in which a thread holds
+eight coefficients in registers through up to three butterfly stages between
+exchanges in shared memory.  The index maps of that schedule (split, stage
+groups, thread -> elements, stage -> twiddle index, shared-memory layout)
+are the small functions below; the .cu follows them, and the CPU tests walk
+them block by block and thread by thread (tests/torch_ntt_schedule.py) to
+hold the schedule against the twin without a card.
 
 The library is built at first use by ops/cuda_build.py and loaded with
 ctypes.  The plan-table builders, the argument check and the launch are
@@ -35,7 +47,7 @@ from .modmath import u64_to_torch
 LAUNCHES = {"fwd": 0, "inv": 0, "inv_scaled": 0}
 
 LOGN_MIN, LOGN_MAX = 4, 16
-_MAX_SLABS = 65535            # grid.y of the global-memory stage pass
+_MAX_SLABS = ((1 << 31) - 1) // 64   # grid.x holds 2^31 - 1 blocks; a pass has at most 64 a slab
 
 SOURCE = os.path.join(cuda_build.CSRC, "ntt.cu")
 PRIME_BITS = 61               # the u64 kernel's lazy < 8p bounds
@@ -48,13 +60,14 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def bind(source: str, symbol: str):
-    """Build and load a kernel library; returns its entry point, which takes
-    (a_in, a_out, nslab, dim, logn, tw, tws, primes, scale, scale_s,
-    inverse, stream) and returns the cudaError of the launch."""
+def bind(source: str, symbol: str, ntables: int = 1):
+    """Build and load a kernel library; returns the entry point `symbol`,
+    which takes (a_in, a_out, nslab, dim, logn, <ntables table pointers>,
+    primes, scale, scale_s, inverse, stream) and returns the cudaError of
+    the launch."""
     fn = getattr(cuda_build.load(source), symbol)
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [vp, vp, i64, i32, i32, vp, vp, vp, vp, vp, i32, vp]
+    fn.argtypes = [vp, vp, i64, i32, i32] + [vp] * ntables + [vp, vp, vp, i32, vp]
     fn.restype = i32
     return fn
 
@@ -65,6 +78,70 @@ def load_library():
     if _lib is None:
         _lib = bind(SOURCE, "gpqhe_ntt")
     return _lib
+
+
+# ---------------------------------------------------------------------------
+# the schedule: index maps that csrc/ntt_passes.cuh follows
+# ---------------------------------------------------------------------------
+
+ONE_PASS_MAX_LOGN = 8         # n <= 2^8: the row pass alone (n1 = 1)
+GROUP_LOG = 3                 # a thread holds 2^3 coefficients
+PASS_LOG_MIN, PASS_LOG_MAX = 4, 8
+
+
+def split_logn(logn: int) -> tuple[int, int]:
+    """log2 of (n1, n2): n = n1 * n2, index i = r * n2 + c."""
+    if logn <= ONE_PASS_MAX_LOGN:
+        return 0, logn
+    return (logn + 1) // 2, logn // 2
+
+
+def stage_groups(L: int) -> tuple[int, ...]:
+    """Widths of the register groups of a 2^L pass, top stages first:
+    4 = 2+2, 5 = 3+2, 6 = 3+3, 7 = 3+2+2, 8 = 3+3+2."""
+    ng = -(-L // GROUP_LOG)
+    return tuple(L // ng + (g < L % ng) for g in range(ng))
+
+
+def group_windows(L: int, groups=None) -> list[tuple[int, int, int]]:
+    """Per register group, top stages first: (lo, width, a).  The group runs
+    stages loglen = lo .. lo+width-1 on the 8 elements whose index differs
+    in bits a .. a+2 (a = min(lo, L-3): the window never leaves the pass)."""
+    groups = stage_groups(L) if groups is None else tuple(groups)
+    if sum(groups) != L or not all(1 <= w <= GROUP_LOG for w in groups):
+        raise ValueError(f"stage groups {groups} do not cover a 2^{L} pass")
+    out, lo = [], L
+    for w in groups:
+        lo -= w
+        out.append((lo, w, min(lo, L - GROUP_LOG)))
+    return out
+
+
+def element_index(t, e, a: int):
+    """Index in its sequence of register e (0..7) of thread t (0..m/8-1)
+    while the window is at bit a: bits a..a+2 are e, the rest are t."""
+    return ((t >> a) << (a + GROUP_LOG)) | (e << a) | (t & ((1 << a) - 1))
+
+
+def twiddle_index(base, L: int, a: int, b: int, t, e0: int):
+    """Row index of the (z, companion) pair of the butterfly of registers
+    (e0, e0 | 1 << b) of thread t in the stage loglen = a + b of a 2^L pass.
+    base is 1 for the column pass and for a one-pass transform, n1 + r for
+    row r of the row pass (the sub-block indexing n/(2 len) + r n2/(2 len) +
+    k of the bit-reversed table)."""
+    return (base << (L - 1 - a - b)) + ((t >> a) << (GROUP_LOG - 1 - b)) + (e0 >> (b + 1))
+
+
+def row_smem_index(s, idx, L: int):
+    """Row pass: word of sequence s, element idx, one pad word per 8 so that
+    neither the stride-8 nor the stride-1 side of an exchange piles on a bank."""
+    return s * ((1 << L) + (1 << (L - GROUP_LOG))) + idx + (idx >> GROUP_LOG)
+
+
+def col_smem_index(j, idx, C: int):
+    """Column pass: column j fastest, so a warp's lanes (neighbouring columns
+    of one row) hit neighbouring words on both sides of an exchange."""
+    return idx * C + j
 
 
 # ---------------------------------------------------------------------------
@@ -90,27 +167,24 @@ def words_to_torch(a: np.ndarray, word: int, device) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class KernelTables:
-    """Twiddle tables of every prime of a ring's chain: [dimub, n] words
-    (u64 bit patterns in int64 for the u64 kernel, u32 in int32 for the u32
-    kernel), rows in chain order."""
+    """Twiddle tables of every prime of a ring's chain, rows in chain order:
+    [dimub, n, 2] words, [..., 0] the standard-domain twiddle in bit-reversed
+    order and [..., 1] its Shoup companion (u64 bit patterns in int64 for
+    the u64 kernel, u32 in int32 for the u32 kernel)."""
     word: int
     primes: torch.Tensor
     tw_f: torch.Tensor
-    tws_f: torch.Tensor
     tw_i: torch.Tensor
-    tws_i: torch.Tensor
 
 
 def make_kernel_tables(pctx, device, word: int = 64) -> KernelTables:
     bits = PRIME_BITS if word == 64 else 30
     if max(pctx.primes) >= 1 << bits:
         raise ValueError(f"the u{word} CUDA NTT's lazy bounds need primes < 2^{bits}")
-    rows = {"tw_f": [], "tws_f": [], "tw_i": [], "tws_i": []}
+    rows = {"tw_f": [], "tw_i": []}
     for pc in pctx.prime_ctx:
-        for key, table in (("f", pc.zetas), ("i", pc.zetas_inv)):
-            z, zs = std_and_shoup(table, pc.p, word)
-            rows["tw_" + key].append(z)
-            rows["tws_" + key].append(zs)
+        for key, table in (("tw_f", pc.zetas), ("tw_i", pc.zetas_inv)):
+            rows[key].append(np.stack(std_and_shoup(table, pc.p, word), axis=-1))
     return KernelTables(
         word=word,
         primes=words_to_torch(np.array(pctx.primes, dtype=np.uint64), word, device),
@@ -120,13 +194,34 @@ def make_kernel_tables(pctx, device, word: int = 64) -> KernelTables:
 @dataclass(frozen=True)
 class NttPlan:
     """One dim-prime basis: the twin's Montgomery tables (from BasisArrays)
-    and, for a CUDA ring, the kernel's tables and scale constants."""
+    and, for a CUDA ring, the kernel's tables and scale constants.  The
+    kernel reads the tables through bare pointers, so their shapes, types
+    and contiguity are checked here, once, when the plan is made."""
     dim: int
     n: int
     ba: object                       # rns.BasisArrays
     tables: KernelTables | None
     scale: torch.Tensor | None       # [2, dim] words: n^-1 and its Shoup companion
     scale_phat: torch.Tensor | None  # [2, dim] words: n^-1 phat^-1 and companion
+
+    def __post_init__(self):
+        t = self.tables
+        if t is None:
+            return
+        dtype = torch.int64 if t.word == 64 else torch.int32
+        for name, x in (("tw_f", t.tw_f), ("tw_i", t.tw_i)):
+            if (x.ndim != 3 or x.shape[0] < self.dim or tuple(x.shape[1:]) != (self.n, 2)
+                    or x.shape[0] != t.primes.shape[0]):
+                raise ValueError(f"NTT table {name} has shape {tuple(x.shape)}, the kernel "
+                                 f"takes [>= {self.dim}, {self.n}, 2] interleaved pairs")
+        for name, x in (("scale", self.scale), ("scale_phat", self.scale_phat)):
+            if tuple(x.shape) != (2, self.dim):
+                raise ValueError(f"NTT {name} has shape {tuple(x.shape)}, not (2, {self.dim})")
+        for x in (t.tw_f, t.tw_i, t.primes, self.scale, self.scale_phat):
+            if x.dtype != dtype or x.device != t.primes.device:
+                raise ValueError(f"the u{t.word} NTT kernel's tables must be {dtype} on one device")
+            if not x.is_contiguous():
+                raise ValueError("the NTT kernel's tables must be contiguous")
 
 
 def make_plan(pctx, dim: int, ba, tables: KernelTables | None) -> NttPlan:
@@ -142,7 +237,8 @@ def make_plan(pctx, dim: int, ba, tables: KernelTables | None) -> NttPlan:
     dev = tables.primes.device
 
     def t(vals):
-        return words_to_torch(np.array(vals, dtype=np.uint64).T, word, dev)
+        return words_to_torch(np.ascontiguousarray(np.array(vals, dtype=np.uint64).T),
+                              word, dev)
     return NttPlan(dim, pctx.n, ba, tables, t(rows["n"]), t(rows["np"]))
 
 
@@ -172,22 +268,21 @@ def check_args(a: torch.Tensor, plan: NttPlan) -> tuple[int, int]:
 
 def launch(loader, word: int, counters: dict, a: torch.Tensor, plan: NttPlan,
            inverse: bool, scaled: bool) -> torch.Tensor:
-    """One kernel launch on int64 residues through the entry point that
-    loader() returns (see bind); adds one to the entry's counter."""
+    """One transform of int64 residues through the entry point that loader()
+    returns (see bind); adds one to the entry's counter."""
     logn, nslab = check_args(a, plan)
-    if plan.tables.word != word:
-        raise ValueError(f"NTT plan holds u{plan.tables.word} tables, the kernel takes u{word}")
+    t = plan.tables
+    if t.word != word:
+        raise ValueError(f"NTT plan holds u{t.word} tables, the kernel takes u{word}")
     a = a.contiguous()
+    if a.data_ptr() % 16:          # the row pass loads 16 bytes a thread
+        a = a.clone()
     out = torch.empty_like(a)
     if nslab == 0:
         return out
-    t = plan.tables
-    tw, tws = (t.tw_i, t.tws_i) if inverse else (t.tw_f, t.tws_f)
     sc = plan.scale_phat if scaled else plan.scale
-    if not all(x.is_contiguous() for x in (tw, tws, t.primes, sc[0], sc[1])):
-        raise ValueError("the NTT kernel's tables must be contiguous")
     rc = loader()(a.data_ptr(), out.data_ptr(), nslab, plan.dim, logn,
-                  tw.data_ptr(), tws.data_ptr(), t.primes.data_ptr(),
+                  (t.tw_i if inverse else t.tw_f).data_ptr(), t.primes.data_ptr(),
                   sc[0].data_ptr(), sc[1].data_ptr(), int(inverse),
                   torch.cuda.current_stream(a.device).cuda_stream)
     if rc != 0:

@@ -5,9 +5,11 @@ Replaces the TPU kernel gpqhe_tpu/ops/ntt_pallas32.py::_ntt32_kernel and its
 wrapper ntt_pallas32: forward NTT, inverse NTT, and inverse scaled by
 n^-1 * phat^-1, on a logp <= 29 chain.  The tables are standard-domain
 twiddles with companions floor(z * 2^32 / p) (ntt_pallas32.py:241-242), u32
-words held in int32 tensors.  Residues go in and come out as int64
-[..., dim, n], like the u64 kernel's: the kernel narrows on load and widens
-on store, so the Pallas wrapper's two cast passes have no counterpart.
+words held in int32 tensors, interleaved [dimub, n, 2] as the u64 kernel's.
+Residues go in and come out as int64 [..., dim, n]: the kernel narrows on
+load and widens on store, so the Pallas wrapper's two cast passes have no
+counterpart.  The two-pass schedule and its index maps are the u64 kernel's
+(csrc/ntt_passes.cuh, ops/ntt_cuda.py) with 16-column tiles.
 
 Dispatch: a CPU tensor goes through the plain twin (ops/ntt.py), which is
 the same Montgomery code for every chain; a CUDA tensor launches the kernel,

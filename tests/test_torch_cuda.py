@@ -1,6 +1,8 @@
 """The port on an NVIDIA GPU: the two CUDA NTT kernels (u64 words for the
-59-bit chain, u32 words for a logp=29 chain) against the plain torch twin,
-and the CUDA engine against the CPU engine, bit for bit, on both chains.
+59-bit chain, u32 words for a logp=29 chain) against the plain torch twin
+and against the first-design kernels kept in the same libraries (entries
+gpqhe_ntt_v1 / gpqhe_ntt32_v1, bound by chip_smoke.py), and the CUDA engine
+against the CPU engine, bit for bit, on both chains.
 
 Every test here needs the card and skips without one.  The file imports
 neither jax nor gpqhe_tpu, so it runs on a machine without them:
@@ -14,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import v1_transform    # the repository root is on sys.path (python -m pytest)
 from gpqhe_tpu_torch import CKKS, HeContext, Surf
 from gpqhe_tpu_torch.algo import linalg
 from gpqhe_tpu_torch.context import PolyContext
@@ -42,23 +45,66 @@ def _twin(a, ba, mode):
     return twin.intt(a, ba.zetas_inv, ba.ps, ba.pinv, scale)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("logn,batch", [(4, (3,)), (11, (4,)), (14, (2,)), (15, ()),
-                                        (16, ())])
-@pytest.mark.parametrize("mode", MODES)
-def test_cuda_kernel_matches_twin(cuda_device, logn, batch, mode):
-    dim = 3
-    ring = RingEngine(PolyContext(logn, q=1 << 20, dim_cap=dim), device=cuda_device)
+LOGNS = [4, 7, 8, 9, 11, 14, 15, 16]
+# (primes, batch): 1 slab, 3 slabs, 132 slabs
+SLABS = [(1, ()), (3, ()), (3, (44,))]
+_rings = {}
+
+
+def _ring(logn, logp, device):
+    if (logn, logp) not in _rings:
+        _rings[logn, logp] = RingEngine(PolyContext(logn, q=1 << 20, logp=logp, dim_cap=3),
+                                        device=device)
+    return _rings[logn, logp]
+
+
+def _check_kernel(device, logn, dim, batch, mode, logp):
+    """One transform through the ring: one more launch of this chain's
+    kernel and none of the other's, torch.equal to the twin and to v1."""
+    ring = _ring(logn, logp, device)
+    kernel, mine, other = (("ntt", ntt_cuda.LAUNCHES, ntt_cuda32.LAUNCHES32) if logp == 59
+                           else ("ntt32", ntt_cuda32.LAUNCHES32, ntt_cuda.LAUNCHES))
+    assert ring.ntt_mod is (ntt_cuda if logp == 59 else ntt_cuda32)
     rng = np.random.default_rng(logn)
     ps = np.array(ring.pctx.primes[:dim], dtype=np.uint64)[:, None]
     host = rng.integers(0, 1 << 62, batch + (dim, 1 << logn), dtype=np.uint64) % ps
-    a = u64_to_torch(host, cuda_device)
-    before = dict(ntt_cuda.LAUNCHES)
+    host[..., :2] = ps - np.uint64(1)                  # p - 1: the largest input
+    a = u64_to_torch(host, device)
+    before, before_other = dict(mine), dict(other)
     got = (ring.ntt_f(a, dim) if mode == "fwd"
            else ring.ntt_i(a, dim, scale_phatinv=mode == "inv_scaled"))
     torch.cuda.synchronize()
-    assert ntt_cuda.LAUNCHES[mode] == before[mode] + 1
+    assert mine[mode] == before[mode] + 1 and other == before_other
     assert torch.equal(got, _twin(a, ring.ba(dim), mode))
+    old = v1_transform(kernel, a, ring.ntt_plan(dim), mode)
+    torch.cuda.synchronize()
+    assert mine[mode] == before[mode] + 1              # v1 is not the package's route
+    assert torch.equal(got, old)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,batch", SLABS)
+@pytest.mark.parametrize("logn", LOGNS)
+@pytest.mark.parametrize("mode", MODES)
+def test_cuda_kernel_matches_twin(cuda_device, logn, dim, batch, mode):
+    _check_kernel(cuda_device, logn, dim, batch, mode, 59)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_takes_an_unaligned_view(cuda_device):
+    """A contiguous view 8 bytes off a 16-byte boundary: the wrapper copies it
+    (the row pass loads 16 bytes a thread)."""
+    ring = _ring(9, 59, cuda_device)
+    ps = np.array(ring.pctx.primes[:3], dtype=np.uint64)[:, None]
+    host = np.random.default_rng(1).integers(0, 1 << 62, (3, 512), dtype=np.uint64) % ps
+    flat = torch.zeros(3 * 512 + 1, dtype=torch.int64, device=cuda_device)
+    flat[1:] = u64_to_torch(host, cuda_device).reshape(-1)
+    a = flat[1:].view(3, 512)
+    assert a.is_contiguous() and a.data_ptr() % 16 == 8
+    for mode in MODES:
+        got = (ring.ntt_f(a, 3) if mode == "fwd"
+               else ring.ntt_i(a, 3, scale_phatinv=mode == "inv_scaled"))
+        assert torch.equal(got, _twin(a, ring.ba(3), mode))
 
 
 @pytest.mark.cuda
@@ -72,26 +118,11 @@ def test_cuda_kernel_rejects_unsupported_n(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("logn,batch", [(4, (3,)), (11, (4,)), (14, (2,)), (15, ()),
-                                        (16, ())])
+@pytest.mark.parametrize("dim,batch", SLABS)
+@pytest.mark.parametrize("logn", LOGNS)
 @pytest.mark.parametrize("mode", MODES)
-def test_cuda_u32_kernel_matches_twin(cuda_device, logn, batch, mode):
-    dim = 3
-    ring = RingEngine(PolyContext(logn, q=1 << 20, logp=29, dim_cap=dim),
-                      device=cuda_device)
-    assert ring.ntt_mod is ntt_cuda32
-    rng = np.random.default_rng(logn)
-    ps = np.array(ring.pctx.primes[:dim], dtype=np.uint64)[:, None]
-    host = rng.integers(0, 1 << 62, batch + (dim, 1 << logn), dtype=np.uint64) % ps
-    host[..., :2] = ps - np.uint64(1)                  # p - 1: the largest input
-    a = u64_to_torch(host, cuda_device)
-    before, before64 = dict(ntt_cuda32.LAUNCHES32), dict(ntt_cuda.LAUNCHES)
-    got = (ring.ntt_f(a, dim) if mode == "fwd"
-           else ring.ntt_i(a, dim, scale_phatinv=mode == "inv_scaled"))
-    torch.cuda.synchronize()
-    assert ntt_cuda32.LAUNCHES32[mode] == before[mode] + 1
-    assert ntt_cuda.LAUNCHES == before64
-    assert torch.equal(got, _twin(a, ring.ba(dim), mode))
+def test_cuda_u32_kernel_matches_twin(cuda_device, logn, dim, batch, mode):
+    _check_kernel(cuda_device, logn, dim, batch, mode, 29)
 
 
 @pytest.mark.cuda
