@@ -42,8 +42,34 @@ non-zero:
              (rot, mul_rs_batch, both gemv routes), and the kernel against
              its twin at the gemv's shapes.  After both: a `chains` line,
              mul_rs on each chain in turns (59, 29, 29, 59).
-Then: the nvidia-smi line, the per-kernel JSON line (six entries), and last
-{"ok": true, "device": {...}}.  --phases a,b,c runs a subset (the last line
+  nonlinear — algo/nonlinear.py at logn=14/logq=438/slots=4/Delta=2^30 from
+             Surf(), the op sequence of tests/test_golden_algo.py: m0 bit-equal
+             to tests/golden/golden_algo_nonlinear.json, and he_inv(5),
+             he_exp(5), he_sigmoid, he_log, he_sqrt(6) each within 1e-4 of the
+             reference binary's decoded output; then the same five ops on the
+             logp=29 chain against the plaintext functions at the per-op
+             CLI's tolerances.  ms per op, levels consumed, NTT launches.
+  cmp      — he_cmp at logn=15/logq=881/slots=4/Delta=2^30, iter=5, alpha=2:
+             within 1e-4 of golden_algo_cmp.json, decision bits equal to the
+             plaintext comparison.
+  bootstrap — the deep-circuit main path, tests/test_bootstrap_refscale.py:
+             HeContext(15, 1<<881, 4, 1<<30), keypair, rlk, ck, 16 rotation
+             keys, m0 = sample_z01vec * 0.1, enc_pk, moddown to l=1,
+             bootstrap(iter=None) (derives 9).  Gates: l >= 10, decode within
+             1e-2 of m0, every u64 launch counter > 0 (counters zeroed just
+             before the gated encrypt-bootstrap-decrypt and read just after).  Keygen seconds, the
+             bootstrap median, seconds per stage, plan.fallbacks, one call
+             under torch.profiler, one under op_trace, peak memory; before it
+             the kernel against its twin at the shapes this ring launches.
+  serialize — at the bootstrap context: save the ciphertext, rlk and the
+             rotation bank, load them onto the card, torch.equal on every
+             tensor, bit-equal mul_rs and rot from the loaded keys.
+  cli      — `python -m gpqhe_tpu_torch mul pk` and `... exp` as
+             subprocesses at their defaults on the card: exit code 0, an
+             [ok] line, NTT launches > 0.
+Then: the nvidia-smi line, the per-kernel JSON line (nine entries: the six
+of the logn=14 path and the u64 kernel's three at the bootstrap's logn=15
+shapes), and last {"ok": true, "device": {...}}.  --phases a,b,c runs a subset (the last line
 then says "partial"); --iters N sets the timed runs per median.
 
 Without a CUDA device, or without the repository beside it, it fails
@@ -80,6 +106,10 @@ KERNELS = {
     "ntt32": {"source": "gpqhe_tpu_torch/csrc/ntt32.cu", "word": 32, "logp": 29,
               "replaces": "gpqhe_tpu/ops/ntt_pallas32.py:183"},
 }
+# the u64 kernel again, reported at the shapes of the bootstrap's ring
+# (logn=15/logq=881; the shapes come from the context, see bootstrap_cases)
+KERNELS["ntt15"] = dict(KERNELS["ntt"], lib="ntt")
+LOGQ = {14: 438, 15: 881}      # the rings the paths run at, by logn
 MODES = ("fwd", "inv", "inv_scaled")
 ITERS = 20      # timed runs per median
 CALLS = 40      # launches between one pair of events in a device-time run
@@ -193,6 +223,7 @@ def v1_transform(kernel: str, a, plan, mode: str):
     interleaved one."""
     import torch
     from gpqhe_tpu_torch.ops import ntt_cuda, ntt_cuda32
+    kernel = KERNELS[kernel].get("lib", kernel)
     symbol = "gpqhe_ntt_v1" if kernel == "ntt" else "gpqhe_ntt32_v1"
     if kernel not in _V1:
         mod = ntt_cuda if kernel == "ntt" else ntt_cuda32
@@ -341,15 +372,15 @@ _RINGS = {}
 
 def kernel_ring(kernel: str, logn: int, dim: int):
     """A RingEngine on the card over a chain of the kernel's prime width with
-    >= dim primes (at logn=14: the main path's ring, logq=438)."""
+    >= dim primes (at logn=14 and 15: the paths' rings, logq=438 and 881)."""
     import torch
     from gpqhe_tpu_torch.context import PolyContext
     from gpqhe_tpu_torch.ring.poly import RingEngine
     logp = KERNELS[kernel]["logp"]
-    key = (kernel, logn) if logn == 14 else (kernel, logn, dim)
+    key = (logp, logn) if logn in LOGQ else (logp, logn, dim)
     if key not in _RINGS:
-        if logn == 14:
-            pctx = PolyContext(14, 1 << 438, logp=logp)
+        if logn in LOGQ:
+            pctx = PolyContext(logn, 1 << LOGQ[logn], logp=logp)
         else:
             pctx = PolyContext(logn, 1 << (logp * dim), logp=logp, dim_cap=dim)
         _RINGS[key] = RingEngine(pctx, device=torch.device("cuda"))
@@ -368,7 +399,7 @@ def compare_kernel(kernel: str, mode: str, shape, iters: int, rng,
     from gpqhe_tpu_torch.ops import ntt_cuda
 
     n, dim = shape[-1], shape[-2]
-    ring = kernel_ring(kernel, n.bit_length() - 1, dim)
+    ring = kernel_ring(KERNELS[kernel].get("lib", kernel), n.bit_length() - 1, dim)
     plan = ring.ntt_plan(dim)
     ps = np.array(ring.pctx.primes[:dim], dtype=np.uint64)
     host = (rng.integers(0, 1 << 62, size=shape, dtype=np.uint64)
@@ -413,13 +444,27 @@ def compare_kernel(kernel: str, mode: str, shape, iters: int, rng,
     return out
 
 
-def phase_kernels(iters: int) -> dict:
-    """Every kernel entry against its twin and v1 at CASES; returns, per
-    entry name, the numbers of its main-path shape."""
+def bootstrap_cases(eng) -> dict:
+    """The NTT shapes that the bootstrap's engine launches at its top level,
+    read from it (logn=15, logq=881, slots=4, Delta=2^30): the four forward
+    and three scaled inverse transforms of he_mul, the key switch's one and
+    two, keygen's forward over the extended key basis, and the plain inverse
+    of encryption and decryption.  First of each mode: he_mul's."""
+    ctx = eng.ctx
+    n, L = ctx.poly.n, ctx.L
+    dim_m, dim_s = ctx.dim_mul(L), ctx.dim_swk(L)
+    return {"ntt15": [("fwd", (4, dim_m, n)), ("fwd", (dim_s, n)), ("fwd", (eng.dimswk_h, n)),
+                      ("inv_scaled", (3, dim_m, n)), ("inv_scaled", (2, dim_s, n)),
+                      ("inv", (ctx.dim, n))]}
+
+
+def phase_kernels(iters: int, cases: dict = CASES, tag: str = "kernels") -> dict:
+    """Every kernel entry against its twin and v1 at the given cases;
+    returns, per entry name, the numbers of its main-path shape."""
     import numpy as np
     rng = np.random.default_rng(2024)
     result = {}
-    for kernel, cases in CASES.items():
+    for kernel, cases in cases.items():
         for mode, shape in cases:
             name = f"{kernel}_{mode}"
             main = name not in result          # the first case is the main shape
@@ -430,7 +475,7 @@ def phase_kernels(iters: int) -> dict:
                                                   "plain_ms", "bound_ms", "bound_by")}
                 result[name]["shape"] = list(shape)
             result[name]["max_abs_err"] = max(result[name]["max_abs_err"], r["max_abs_err"])
-    emit({"phase": "kernels", "summary": "device ms per launch, new vs v1, main-path shapes",
+    emit({"phase": tag, "summary": "device ms per launch, new vs v1, main-path shapes",
           "faster_than_v1": {k: v["ms"] < v["prev_ms"] for k, v in result.items()},
           "speedup": {k: v["prev_ms"] / v["ms"] for k, v in result.items()}})
     return result
@@ -480,16 +525,18 @@ def phase_golden():
     emit({"phase": "golden", "diffs": diffs, "seconds": time.time() - t0})
 
 
-def profile_op(op: str, fn, **tags) -> None:
+def profile_op(op: str, fn, host_ops: bool = True, **tags) -> None:
     """One call of fn under torch.profiler: device busy time, the NTT
     kernels' share of it, the number of device kernels, and the device idle
-    share of the host wall time."""
+    share of the host wall time.  host_ops=False records the device only (a
+    call of some 10^5 launches would otherwise log every host operator)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -713,7 +760,376 @@ def phase_linalg(name: str, logp: int, iters: int, earlier: dict | None) -> dict
             "mul_rs": lambda: eng.mul_rs(ct, ct2, rlk)}
 
 
-PHASES = ("build", "kernels", "golden", "mul_rs", "linalg59", "linalg29")
+def load_golden(name: str) -> dict:
+    import numpy as np
+    with open(os.path.join(ROOT, "tests", "golden", name)) as f:
+        return {k: np.array([complex(a, b) for a, b in v]) for k, v in json.load(f).items()}
+
+
+def wall_s(fn, iters: int) -> float:
+    """Median seconds of fn() on the host's clock, each run ended by a
+    device synchronise (for calls of seconds, where events add nothing)."""
+    import torch
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return median(times)
+
+
+def chain_counters(logp: int):
+    """(this chain's launch counters, the other kernel's)."""
+    from gpqhe_tpu_torch.ops import ntt_cuda, ntt_cuda32
+    ntt_cuda.reset_launches()
+    ntt_cuda32.reset_launches()
+    return ((ntt_cuda.LAUNCHES, ntt_cuda32.LAUNCHES32) if logp > 29
+            else (ntt_cuda32.LAUNCHES32, ntt_cuda.LAUNCHES))
+
+
+def require_launches(name: str, mine: dict, other: dict) -> None:
+    if any(c <= 0 for c in mine.values()) or any(other.values()):
+        raise AssertionError(f"{name}: NTT launches {dict(mine)}, other kernel {dict(other)}")
+
+
+def phase_nonlinear(iters: int) -> None:
+    """algo/nonlinear.py at logn=14/logq=438/slots=4/Delta=2^30 on each
+    chain: the reference binary's KAT on the 59-bit chain (its op sequence,
+    tests/test_golden_algo.py), the plaintext functions on logp=29."""
+    import numpy as np
+    import torch
+    from gpqhe_tpu_torch.algo import nonlinear as nl
+    from gpqhe_tpu_torch.context import HeContext
+    from gpqhe_tpu_torch.ring import sample as smp
+    from gpqhe_tpu_torch.scheme.engine import CKKS
+    from gpqhe_tpu_torch.substrate.surf import Surf
+
+    g = load_golden("golden_algo_nonlinear.json")
+    a = 2j * np.pi / float(1 << 30)
+    for logp in (59, 29):
+        t0 = time.time()
+        ctx = HeContext(logn=14, q=1 << 438, slots=4, Delta=1 << 30, logp=logp)
+        eng = CKKS(ctx, rng=Surf())
+        mine, other = chain_counters(logp)
+        pk, sk = eng.keypair()
+        rlk = eng.genrlk(sk)
+        torch.cuda.synchronize()
+        keygen_s = time.time() - t0
+        # the binary's message: the surf stream yields it here on the 59-bit
+        # chain (the other chain's keys draw another number of bytes)
+        m0 = smp.sample_z01vec(eng.rng, ctx.slots)
+        if logp == 59 and not np.array_equal(m0, g["m0"]):
+            raise AssertionError("surf stream diverged from the golden message m0")
+        m0 = g["m0"]
+        msgs = {"inv": m0.real + 0.5, "exp": m0 * a, "sigmoid": m0 / 10,
+                "log": m0.real / 100000, "sqrt": m0.real + 0j}
+        cts = {k: eng.enc_pk(eng.ecd(np.asarray(v, dtype=np.complex128)), pk)
+               for k, v in msgs.items()}
+        ops = {"inv": lambda: nl.he_inv(eng, cts["inv"], rlk, 5),
+               "exp": lambda: nl.he_exp(eng, a, cts["exp"], rlk, 5),
+               "sigmoid": lambda: nl.he_sigmoid(eng, cts["sigmoid"], rlk),
+               "log": lambda: nl.he_log(eng, cts["log"], rlk),
+               "sqrt": lambda: nl.he_sqrt(eng, cts["sqrt"], rlk, 6)}
+        # the plaintext functions and the per-op CLI's tolerances (cli.py);
+        # inv by the evaluator's own Goldschmidt recurrence, as there
+        an, bn = 2 - msgs["inv"], 1 - msgs["inv"]
+        for _ in range(5):
+            bn = bn * bn
+            an = an * (bn + 1)
+        plain = {"inv": (an, 1e-4), "exp": (np.exp(a * msgs["exp"]), 1e-4),
+                 "sigmoid": (1 / (1 + np.exp(-msgs["sigmoid"])), 1e-3),
+                 "log": (np.log(1 + msgs["log"]), 1e-2), "sqrt": (np.sqrt(msgs["sqrt"]), 1e-2)}
+        outs = {k: fn() for k, fn in ops.items()}
+        got = {k: eng.dcd(eng.dec(c, sk)) for k, c in outs.items()}
+        torch.cuda.synchronize()
+        launches, foreign = dict(mine), dict(other)
+        # the reference binary ran the 59-bit chain: its outputs gate that
+        # chain at 1e-4 (tests/test_golden_algo.py) and are reported beside
+        # the other; logp=29 is gated by the plaintext functions
+        golden = {k: float(np.max(np.abs(got[k] - g[k]))) for k in ops}
+        model = {k: float(np.max(np.abs(got[k] - plain[k][0]))) for k in ops}
+        ms = {k: wall_s(fn, max(1, iters // 10)) * 1e3 for k, fn in ops.items()}
+        for k, fn in ops.items():
+            profile_op("he_" + k, fn, host_ops=False, logp=logp)
+        emit({"phase": "nonlinear", "logp": logp, "logn": 14, "logq": 438, "slots": 4,
+              "logDelta": 30, "L": ctx.L, "keygen_s": keygen_s, "op_ms": ms,
+              "levels_used": {k: ctx.L - c.l for k, c in outs.items()},
+              "golden_diffs": golden, "plain_diffs": model, "launches": launches,
+              "other_kernel_launches": foreign,
+              "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20})
+        if logp == 59:
+            bad = {k: d for k, d in golden.items() if not d < 1e-4}
+        else:
+            bad = {k: d for k, d in model.items() if not d < plain[k][1]}
+        if bad:
+            raise AssertionError(f"nonlinear logp={logp}: diffs {bad} over the gate")
+        require_launches(f"nonlinear logp={logp}", launches, foreign)
+
+
+def phase_cmp(iters: int) -> None:
+    """he_cmp at logn=15/logq=881/slots=4/Delta=2^30, iter=5, alpha=2
+    (tests/test_golden_algo.py::test_golden_algo_cmp)."""
+    import numpy as np
+    import torch
+    from gpqhe_tpu_torch.algo import nonlinear as nl
+    from gpqhe_tpu_torch.context import HeContext
+    from gpqhe_tpu_torch.ring import sample as smp
+    from gpqhe_tpu_torch.scheme.engine import CKKS
+    from gpqhe_tpu_torch.substrate.surf import Surf
+
+    g = load_golden("golden_algo_cmp.json")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    ctx = HeContext(logn=15, q=1 << LOGQ[15], slots=4, Delta=1 << 30)
+    eng = CKKS(ctx, rng=Surf())
+    mine, other = chain_counters(59)
+    pk, sk = eng.keypair()
+    rlk = eng.genrlk(sk)
+    torch.cuda.synchronize()
+    keygen_s = time.time() - t0
+    m0 = smp.sample_z01vec(eng.rng, ctx.slots)
+    m0 = smp.sample_z01vec(eng.rng, ctx.slots)      # sampled twice (ref: tests/gpqhe.c:1041)
+    if not np.array_equal(m0, g["m0"]):
+        raise AssertionError("surf stream diverged from the golden message m0")
+    ma, mb = m0.real + 0.5, m0.imag + 0.5
+    ct1 = eng.enc_pk(eng.ecd(np.asarray(ma, dtype=np.complex128)), pk)
+    ct2 = eng.enc_pk(eng.ecd(np.asarray(mb, dtype=np.complex128)), pk)
+
+    def run():
+        return nl.he_cmp(eng, ct1, ct2, rlk, iter=5, alpha=2)
+    out = run()
+    got = eng.dcd(eng.dec(out, sk))
+    torch.cuda.synchronize()
+    launches, foreign = dict(mine), dict(other)
+    diff = float(np.max(np.abs(got - g["cmp"])))
+    bits_ok = bool(np.array_equal(np.round(got.real), (ma > mb).astype(float)))
+    profile_op("he_cmp", run, host_ops=False)
+    emit({"phase": "cmp", "logn": 15, "logq": LOGQ[15], "slots": 4, "logDelta": 30, "iter": 5,
+          "alpha": 2, "L": ctx.L, "levels_used": ctx.L - out.l, "keygen_s": keygen_s,
+          "cmp_s": wall_s(run, max(1, iters // 10)), "golden_diff": diff,
+          "decision_bits_equal": bits_ok, "launches": launches,
+          "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20})
+    if not diff < 1e-4:
+        raise AssertionError(f"cmp is {diff} from the reference binary's (gate 1e-4)")
+    if not bits_ok:
+        raise AssertionError("cmp decision bits differ from the plaintext comparison")
+    require_launches("cmp", launches, foreign)
+
+
+class StageClock:
+    """Seconds per bootstrap stage of one call: wraps the bootstrap module's
+    stage functions for the duration so that each synchronises the device
+    and notes the host clock on entry and exit."""
+    NAMES = ("raise_modulus", "subsum", "coeff2slot", "_exp_small_a", "slot2coeff")
+
+    def __init__(self, module):
+        self.module, self.marks, self._saved = module, [], {}
+
+    def __enter__(self):
+        import torch
+        for name in self.NAMES:
+            fn = self._saved[name] = getattr(self.module, name)
+
+            def timed(*args, _fn=fn, _name=name, **kw):
+                torch.cuda.synchronize()
+                self.marks.append((_name, "in", time.perf_counter()))
+                out = _fn(*args, **kw)
+                torch.cuda.synchronize()
+                self.marks.append((_name, "out", time.perf_counter()))
+                return out
+            setattr(self.module, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self.module, name, fn)
+
+    def stages(self, t_end: float) -> dict:
+        """raise, SubSum, coeff2slot without its SubSum, each mod_reduce
+        (from its exp's entry to the next stage's), slot2coeff."""
+        t = {}
+        for name, edge, at in self.marks:
+            t.setdefault((name, edge), []).append(at)
+
+        def span(name, i=0):
+            return t[name, "out"][i] - t[name, "in"][i]
+        exp_in = t["_exp_small_a", "in"]
+        return {"raise": span("raise_modulus"), "subsum": span("subsum"),
+                "coeff2slot": span("coeff2slot") - span("subsum"),
+                "mod_reduce": [exp_in[1] - exp_in[0], t["slot2coeff", "in"][0] - exp_in[1]],
+                "exp_of_mod_reduce": [span("_exp_small_a", 0), span("_exp_small_a", 1)],
+                "slot2coeff": span("slot2coeff"),
+                "end": t_end - t["slot2coeff", "out"][0]}
+
+
+def phase_bootstrap(iters: int) -> dict:
+    """The deep-circuit main path at full width
+    (tests/test_bootstrap_refscale.py).  Returns the kernel numbers at this
+    ring's shapes, the launches of the gated call, and the context's
+    objects for the serialize phase."""
+    import numpy as np
+    import torch
+    from gpqhe_tpu_torch import bootstrap as bs
+    from gpqhe_tpu_torch.context import HeContext
+    from gpqhe_tpu_torch.ring import sample as smp
+    from gpqhe_tpu_torch.scheme.engine import CKKS
+    from gpqhe_tpu_torch.substrate.surf import Surf
+    from gpqhe_tpu_torch.utils import trace
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    ctx = HeContext(logn=15, q=1 << LOGQ[15], slots=4, Delta=1 << 30)
+    eng = CKKS(ctx, rng=Surf())
+    eng.ring.ntt_plan(ctx.dim)                   # kernel tables, outside the keygen time
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    kernels = phase_kernels(iters, bootstrap_cases(eng), tag="kernels15")
+
+    mine, other = chain_counters(59)
+    t1 = time.time()
+    pk, sk = eng.keypair()
+    rlk = eng.genrlk(sk)
+    ck = eng.genck(sk)
+    rots = bs.bootstrap_rotations(ctx)
+    rk = eng.genrk(sk, rots)
+    torch.cuda.synchronize()
+    keygen_s = time.time() - t1
+    keygen_launches = dict(mine)
+    m0 = smp.sample_z01vec(eng.rng, ctx.slots) * 0.1
+    bctx = bs.BootstrapContext(eng)
+    # the gated run, encrypt -> moddown to l=1 -> bootstrap -> decrypt:
+    # counters zeroed just before it and read just after
+    mine, other = chain_counters(59)
+    ct_top = eng.enc_pk(eng.ecd(m0), pk)
+    ct = ct_top
+    while ct.l > 1:
+        ct = eng.moddown(ct)
+
+    def run():
+        return bs.bootstrap(eng, bctx, ct, rlk, ck, rk)      # iter derived from h: 9
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    boot = run()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t2
+    got = eng.dcd(eng.dec(boot, sk))
+    launches, foreign = dict(mine), dict(other)
+    diff = float(np.max(np.abs(got - m0)))
+    ok_shape = (got.shape == (ctx.slots,) and bool(np.all(np.isfinite(got)))
+                and tuple(boot.c0.shape) == (ctx.poly.n, eng.kl(boot.l)))
+
+    few = max(1, iters // 5)
+    boot_s = wall_s(run, few)
+    with StageClock(bs) as clock:
+        run()
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+    with trace.op_trace() as tr:
+        run()
+    profile_op("bootstrap", run, host_ops=False)
+    emit({"phase": "bootstrap", "logn": 15, "logq": LOGQ[15], "slots": 4, "logDelta": 30,
+          "iter": bs.min_bootstrap_iter(ctx), "L": ctx.L, "kq": eng.kq, "dim": ctx.dim,
+          "dim_mul": ctx.dim_mul(ctx.L), "dim_swk": ctx.dim_swk(ctx.L), "dimswk": ctx.dimswk,
+          "dimswk_h": eng.dimswk_h, "dimub": ctx.poly.dimub, "rotation_keys": len(rots),
+          "setup_s": setup_s, "keygen_s": keygen_s, "keygen_launches": keygen_launches,
+          "first_bootstrap_s": first_s, "bootstrap_s": boot_s, "timed_runs": few,
+          "stage_s": clock.stages(t_end), "level_in": ct.l, "level_out": boot.l,
+          "decode_diff": diff,
+          "fallbacks": {name: plan.fallbacks for name, plan in bctx._plans.items()},
+          "launches": launches, "other_kernel_launches": foreign,
+          "op_trace": {"counts": tr.counts,
+                       "seconds": {k: round(v, 4) for k, v in tr.seconds.items()}},
+          "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20})
+    if not ok_shape:
+        raise AssertionError("bootstrap output has the wrong shape or non-finite slots")
+    if not boot.l >= 10:
+        raise AssertionError(f"bootstrap came back at level {boot.l} < 10")
+    if not diff < 1e-2:
+        raise AssertionError(f"bootstrap decode diff {diff} >= 1e-2")
+    require_launches("bootstrap", launches, foreign)
+    return {"kernels": kernels, "launches": launches,
+            "objects": dict(ctx=ctx, eng=eng, sk=sk, rlk=rlk, rk=rk, ct=ct_top, boot=boot)}
+
+
+def phase_serialize(o: dict) -> None:
+    """save / load at the bootstrap context: the bootstrapped ciphertext,
+    rlk and the 16-key rotation bank through .npz files and back onto the
+    card (load's default device)."""
+    import tempfile
+
+    import torch
+    from gpqhe_tpu_torch.utils import serialize
+
+    ctx, eng = o["ctx"], o["eng"]
+    mine, other = chain_counters(59)
+    sizes, secs = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        loaded = {}
+        for name in ("boot", "rlk", "rk"):
+            path = os.path.join(d, name + ".npz")
+            t0 = time.perf_counter()
+            serialize.save(path, ctx, o[name])
+            t1 = time.perf_counter()
+            loaded[name] = serialize.load(path, ctx)        # no device given: the card
+            torch.cuda.synchronize()
+            secs[name] = {"save_s": t1 - t0, "load_s": time.perf_counter() - t1}
+            sizes[name] = os.path.getsize(path) / 2**20
+
+    def tensors(x):
+        if isinstance(x, dict):
+            return [t for r in sorted(x) for t in tensors(x[r])]
+        return [v for v in vars(x).values() if isinstance(v, torch.Tensor)]
+    equal = {}
+    for name in loaded:
+        a, b = tensors(o[name]), tensors(loaded[name])
+        equal[name] = (len(a) == len(b) > 0 and all(y.is_cuda and torch.equal(x, y)
+                                                     for x, y in zip(a, b)))
+    meta_ok = (loaded["boot"].l, loaded["boot"].nu, loaded["boot"].B) == \
+        (o["boot"].l, o["boot"].nu, o["boot"].B) and sorted(loaded["rk"]) == sorted(o["rk"])
+    ct = o["ct"]
+    a, b = eng.mul_rs(ct, ct, o["rlk"]), eng.mul_rs(ct, ct, loaded["rlk"])
+    r = max(o["rk"])
+    c, e = eng.rot(ct, r, o["rk"]), eng.rot(ct, r, loaded["rk"])
+    same = all(torch.equal(x, y) for x, y in ((a.c0, b.c0), (a.c1, b.c1), (c.c0, e.c0),
+                                              (c.c1, e.c1)))
+    torch.cuda.synchronize()
+    launches = dict(mine)
+    emit({"phase": "serialize", "file_mb": sizes, "seconds": secs, "tensors_equal": equal,
+          "ledger_equal": meta_ok, "ops_from_loaded_keys_equal": same, "rotation": r,
+          "launches": launches})
+    if not (all(equal.values()) and meta_ok):
+        raise AssertionError(f"serialize: loaded objects differ: {equal}, ledger {meta_ok}")
+    if not same:
+        raise AssertionError("serialize: mul_rs / rot from the loaded keys differ")
+    if launches["fwd"] <= 0 or launches["inv_scaled"] <= 0 or any(other.values()):
+        raise AssertionError(f"serialize: NTT launches {launches}")
+
+
+def phase_cli() -> None:
+    """The per-op CLI as a user runs it, at its defaults, on the card."""
+    import re
+    for argv in (["mul", "pk"], ["exp"]):
+        t0 = time.time()
+        out = subprocess.run([sys.executable, "-m", "gpqhe_tpu_torch"] + argv, cwd=ROOT,
+                             capture_output=True, text=True, timeout=900)
+        lines = out.stdout.splitlines()
+        oks = [ln for ln in lines if ln.startswith("[ok] ")]
+        m = re.search(r"^device (.*): NTT kernel launches (\{.*\})$", out.stdout, re.M)
+        counts = json.loads(m.group(2).replace("'", '"')) if m else {}
+        emit({"phase": "cli", "argv": argv, "returncode": out.returncode, "ok_lines": oks,
+              "device": m.group(1) if m else None, "launches": counts,
+              "seconds": time.time() - t0})
+        if out.returncode != 0 or not oks or any(ln.startswith("[FAIL]") for ln in lines):
+            raise AssertionError(f"cli {argv}: exit {out.returncode}\n{out.stdout[-2000:]}"
+                                 f"\n{out.stderr[-2000:]}")
+        if not counts or any(c <= 0 for c in counts.values()):
+            raise AssertionError(f"cli {argv}: NTT launches {counts}")
+
+
+PHASES = ("build", "kernels", "golden", "mul_rs", "linalg59", "linalg29", "nonlinear", "cmp",
+          "bootstrap", "serialize", "cli")
 
 
 def main(argv=None) -> int:
@@ -728,6 +1144,8 @@ def main(argv=None) -> int:
     unknown = [p for p in phases if p not in PHASES]
     if unknown:
         ap.error(f"unknown phases {unknown}")
+    if "serialize" in phases and "bootstrap" not in phases:
+        ap.error("the serialize phase runs on the bootstrap phase's objects: add bootstrap")
 
     import torch
     if not torch.cuda.is_available():
@@ -759,6 +1177,20 @@ def main(argv=None) -> int:
         order = (59, 29, 29, 59)
         emit({"phase": "chains", "order": list(order),
               "mul_rs_ms": [cuda_ms(chains[logp]["mul_rs"], args.iters) for logp in order]})
+
+    if "nonlinear" in phases:
+        phase_nonlinear(args.iters)
+    if "cmp" in phases:
+        phase_cmp(args.iters)
+    if "bootstrap" in phases:
+        boot = phase_bootstrap(args.iters)
+        kernels.update(boot["kernels"])
+        launches.update({f"ntt15_{k}": v for k, v in boot["launches"].items()})
+        if "serialize" in phases:
+            phase_serialize(boot["objects"])
+        del boot
+    if "cli" in phases:
+        phase_cli()
 
     print(gpu_line(), flush=True)
     if set(phases) != set(PHASES):

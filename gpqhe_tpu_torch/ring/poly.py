@@ -24,6 +24,7 @@ from ..ops import limbs as lb
 from ..ops import ntt_cuda, ntt_cuda32
 from ..ops import rns as rns_ops
 from ..ops.modmath import mulmod, u64_to_torch
+from ..utils import trace
 
 
 class RingEngine:
@@ -142,36 +143,53 @@ class RingEngine:
             return self._decompose_unsigned(a, dim)
         return self._decompose_signed(a, dim, signed_bits)
 
-    # -- composites ---------------------------------------------------------
+    def mulmod(self, ahat, bhat, dim: int):
+        """Pointwise product of NTT-domain residues over the dim basis."""
+        ba = self.ba(dim)
+        return mulmod(ahat, bhat, ba.ps[:, None], ba.pinv[:, None], self.r2(dim))
 
-    def fwd_ntt(self, a, dim: int, signed_bits: int | None = None):
-        """limbs [n, K] -> NTT-domain residues [dim, n]."""
-        return self.ntt_f(self.decompose(a, dim, signed_bits), dim)
-
-    def inv_ntt_recon(self, chat, dim: int, mask_to_bits: int, k_out: int):
-        """NTT-domain residues -> centered limbs mod 2^mask_to_bits, resized
-        to k_out."""
+    def _inv_recon(self, chat, dim: int, mask_to_bits: int, k_out: int):
         res = self.ntt_i(chat, dim)
         c = rns_ops.reconstruct(res, self.ba(dim), self.recon(dim))
         return lb.fit_signed(c, mask_to_bits, k_out)
 
+    # -- composites ---------------------------------------------------------
+    # Each is one program of the JAX ring engine and is counted by an op
+    # trace under that program's cache-key head (utils/trace.py); inside,
+    # they and the scheme engine's programs call decompose / ntt_f / mulmod
+    # / _inv_recon, which no trace counts.
+
+    def fwd_ntt(self, a, dim: int, signed_bits: int | None = None):
+        """limbs [n, K] -> NTT-domain residues [dim, n]."""
+        return trace.maybe_wrap(("fwd",), lambda x: self.ntt_f(
+            self.decompose(x, dim, signed_bits), dim))(a)
+
+    def inv_ntt_recon(self, chat, dim: int, mask_to_bits: int, k_out: int):
+        """NTT-domain residues -> centered limbs mod 2^mask_to_bits, resized
+        to k_out."""
+        return trace.maybe_wrap(("invrec",), lambda ch: self._inv_recon(
+            ch, dim, mask_to_bits, k_out))(chat)
+
     def pointwise_mul(self, ahat, bhat, dim: int):
-        ba = self.ba(dim)
-        return mulmod(ahat, bhat, ba.ps[:, None], ba.pinv[:, None], self.r2(dim))
+        return trace.maybe_wrap(("pw",), lambda x, y: self.mulmod(x, y, dim))(ahat, bhat)
 
     def poly_mul(self, a, b, dim: int, mask_to_bits: int, k_out: int,
                  signed_a: int | None = None, signed_b: int | None = None):
         """Full negacyclic product (ref: src/poly.c:84-107) with final smod as
         a power-of-two mask.  Returns [n, k_out] limbs."""
-        xh = self.fwd_ntt(a, dim, signed_a)
-        yh = self.fwd_ntt(b, dim, signed_b)
-        return self.inv_ntt_recon(self.pointwise_mul(xh, yh, dim), dim,
-                                  mask_to_bits, k_out)
+        def f(x, y):
+            xh = self.ntt_f(self.decompose(x, dim, signed_a), dim)
+            yh = self.ntt_f(self.decompose(y, dim, signed_b), dim)
+            return self._inv_recon(self.mulmod(xh, yh, dim), dim, mask_to_bits, k_out)
+        return trace.maybe_wrap(("mul",), f)(a, b)
 
     def galois(self, a, rot: int | None, q_bits: int):
         """Apply the rot/conj automorphism to limbs [n, K] mod 2^q_bits: a row
         gather, then negation of the rows that wrapped past X^n = -1."""
         src, negf = self.galois_map(rot)
-        g = a[src, :]
-        return torch.where(negf[:, None], lb.mask_bits(lb.neg(g), q_bits),
-                           lb.mask_bits(g, q_bits))
+
+        def f(x):
+            g = x[src, :]
+            return torch.where(negf[:, None], lb.mask_bits(lb.neg(g), q_bits),
+                               lb.mask_bits(g, q_bits))
+        return trace.maybe_wrap(("gal",), f)(a)

@@ -41,6 +41,7 @@ from ..ring.canemb import canemb, invcanemb
 from ..ring.poly import RingEngine
 from ..substrate import bigint
 from ..substrate.surf import Surf, default_rng
+from ..utils import trace
 from .types import (Ciphertext, Plaintext, PublicKey, SecretKey, SwitchKey,
                     limbs_to_numpy, limbs_to_torch)
 
@@ -56,6 +57,9 @@ class CKKS:
         self.device = self.ring.device
         self.rng = rng if rng is not None else default_rng()
         self._fns: dict = {}
+        # engine-scoped scale override (bootstrap.raised_delta); the shared
+        # HeContext itself is never mutated
+        self._delta_override: float | None = None
         # fixed widths
         self.kq = bigint.nlimbs(ctx.q[ctx.L].bit_length())        # ct limbs at top
         self.pinv16 = bigint.digits16(
@@ -79,7 +83,10 @@ class CKKS:
 
     @property
     def Delta(self) -> float:
-        return self.ctx.Delta
+        """Active encode scale: the context's Delta unless an engine-scoped
+        override (bootstrap.raised_delta) is in effect."""
+        return self.ctx.Delta if self._delta_override is None \
+            else self._delta_override
 
     def qbits(self, l: int) -> int:
         return self.ctx.q[l].bit_length()
@@ -91,10 +98,31 @@ class CKKS:
         """Host u32 limbs -> device limb tensor."""
         return limbs_to_torch(limbs_u32, self.device)
 
-    def _cached(self, key, build):
+    def _built(self, key, build):
+        """The program cached under key, built at first use."""
         if key not in self._fns:
             self._fns[key] = build()
         return self._fns[key]
+
+    def _cached(self, key, build):
+        """_built, handed out through the op trace: the cache keeps the bare
+        program, so a trace that has ended leaves no timing wrapper behind."""
+        return trace.maybe_wrap(key, self._built(key, build))
+
+    def _traced(self, name: str, fn):
+        """An uncached program under the JAX engine's cache-key head."""
+        return trace.maybe_wrap((name,), fn)
+
+    # the add family's programs, named as the JAX engine caches them
+
+    def _add2_mask(self, a, b, qb):
+        return self._traced("add2", lambda x, y: lb.mask_bits(lb.add(x, y), qb))(a, b)
+
+    def _sub2_mask(self, a, b, qb):
+        return self._traced("sub2", lambda x, y: lb.mask_bits(lb.sub(x, y), qb))(a, b)
+
+    def _neg_mask(self, a, qb):
+        return self._traced("negm", lambda x: lb.mask_bits(lb.neg(x), qb))(a)
 
     # ------------------------------------------------------------------
     # encode / decode (host <-> device boundary)
@@ -198,7 +226,8 @@ class CKKS:
         prod = self.ring.poly_mul(sk, p1, ctx.dim, qL.bit_length(), self.kq,
                                   signed_a=32, signed_b=None)
         e_l = self._t(bigint.i64_to_limbs(e, self.kq))
-        p0 = lb.mask_bits(lb.add(lb.neg(prod), e_l), qL.bit_length())
+        p0 = self._traced("negadd", lambda x, y: lb.mask_bits(
+            lb.add(lb.neg(x), y), qL.bit_length()))(prod, e_l)
         return PublicKey(p0=p0, p1=p1), SecretKey(s=sk)
 
     def genswk(self, sp_ints, sk: SecretKey) -> SwitchKey:
@@ -283,8 +312,9 @@ class CKKS:
         e0_l = self._t(bigint.i64_to_limbs(e0, self.kq))
         e1_l = self._t(bigint.i64_to_limbs(e1, self.kq))
         m_l = lb.resize(pt.m, self.kq)
-        c0 = lb.mask_bits(lb.add(lb.add(c0, m_l), e0_l), qb)
-        c1 = lb.mask_bits(lb.add(c1, e1_l), qb)
+        c0 = self._traced("add3", lambda x, y, z: lb.mask_bits(
+            lb.add(lb.add(x, y), z), qb))(c0, m_l, e0_l)
+        c1 = self._add2_mask(c1, e1_l, qb)
         nu = pt.nu if pt.nu >= self.Delta else self.Delta
         return Ciphertext(l=ctx.L, nu=nu, B=ctx.bounds.Bclean, c0=c0, c1=c1)
 
@@ -302,7 +332,8 @@ class CKKS:
                                   signed_a=None, signed_b=32)
         e_l = self._t(bigint.i64_to_limbs(e, self.kq))
         m_l = lb.resize(pt.m, self.kq)
-        c0 = lb.mask_bits(lb.add(lb.add(lb.neg(prod), m_l), e_l), qb)
+        c0 = self._traced("negadd3", lambda x, y, z: lb.mask_bits(
+            lb.add(lb.add(lb.neg(x), y), z), qb))(prod, m_l, e_l)
         nu = pt.nu if pt.nu >= self.Delta else self.Delta
         return Ciphertext(l=ctx.L, nu=nu, B=ctx.bounds.Bclean, c0=c0, c1=c1)
 
@@ -312,7 +343,7 @@ class CKKS:
         klv = self.kl(ct.l)
         prod = self.ring.poly_mul(ct.c1, sk.s, self.ctx.dim_dec(ct.l), qb, klv,
                                   signed_a=None, signed_b=32)
-        m = lb.mask_bits(lb.add(prod, lb.resize(ct.c0, klv)), qb)
+        m = self._add2_mask(prod, lb.resize(ct.c0, klv), qb)
         return Plaintext(nu=ct.nu, m=m, mod_bits=qb - 1)
 
     # ------------------------------------------------------------------
@@ -324,32 +355,32 @@ class CKKS:
         qb = self.qbits(ct1.l)
         return Ciphertext(
             l=ct1.l, nu=max(ct1.nu, ct2.nu), B=ct1.B + ct2.B,
-            c0=lb.mask_bits(lb.add(ct1.c0, ct2.c0), qb),
-            c1=lb.mask_bits(lb.add(ct1.c1, ct2.c1), qb))
+            c0=self._add2_mask(ct1.c0, ct2.c0, qb),
+            c1=self._add2_mask(ct1.c1, ct2.c1, qb))
 
     def sub(self, ct1: Ciphertext, ct2: Ciphertext) -> Ciphertext:
         assert ct1.l == ct2.l
         qb = self.qbits(ct1.l)
         return Ciphertext(
             l=ct1.l, nu=max(ct1.nu, ct2.nu), B=ct1.B + ct2.B,
-            c0=lb.mask_bits(lb.sub(ct1.c0, ct2.c0), qb),
-            c1=lb.mask_bits(lb.sub(ct1.c1, ct2.c1), qb))
+            c0=self._sub2_mask(ct1.c0, ct2.c0, qb),
+            c1=self._sub2_mask(ct1.c1, ct2.c1, qb))
 
     def neg(self, ct: Ciphertext) -> Ciphertext:
         qb = self.qbits(ct.l)
         return Ciphertext(l=ct.l, nu=ct.nu, B=ct.B,
-                          c0=lb.mask_bits(lb.neg(ct.c0), qb),
-                          c1=lb.mask_bits(lb.neg(ct.c1), qb))
+                          c0=self._neg_mask(ct.c0, qb),
+                          c1=self._neg_mask(ct.c1, qb))
 
     def addpt(self, ct: Ciphertext, pt: Plaintext) -> Ciphertext:
         qb = self.qbits(ct.l)
-        c0 = lb.mask_bits(lb.add(ct.c0, lb.resize(pt.m, self.kl(ct.l))), qb)
+        c0 = self._add2_mask(ct.c0, lb.resize(pt.m, self.kl(ct.l)), qb)
         return Ciphertext(l=ct.l, nu=max(ct.nu, pt.nu), B=ct.B,
                           c0=c0, c1=lb.mask_bits(ct.c1, qb))
 
     def subpt(self, ct: Ciphertext, pt: Plaintext) -> Ciphertext:
         qb = self.qbits(ct.l)
-        c0 = lb.mask_bits(lb.sub(ct.c0, lb.resize(pt.m, self.kl(ct.l))), qb)
+        c0 = self._sub2_mask(ct.c0, lb.resize(pt.m, self.kl(ct.l)), qb)
         return Ciphertext(l=ct.l, nu=max(ct.nu, pt.nu), B=ct.B,
                           c0=c0, c1=lb.mask_bits(ct.c1, qb))
 
@@ -416,6 +447,11 @@ class CKKS:
         pairs ride the same NTT launches ([4, B, dim_m, n] forward,
         [3, B, dim_m, n] and [2, B, dim_s, n] inverse)."""
         return self._cached(("he_mul", l), lambda: self._build_mul_step(l))
+
+    def _mul_step(self, l: int):
+        """mul_step_fn's program outside the op trace, for the programs that
+        contain it (he_mul_rs, he_mul_rs_batch)."""
+        return self._built(("he_mul", l), lambda: self._build_mul_step(l))
 
     def _build_mul_step(self, l: int):
         ctx = self.ctx
@@ -486,13 +522,20 @@ class CKKS:
                rlk: SwitchKey) -> Ciphertext:
         """Fused multiply + relinearize + rescale: the main path."""
         assert ct1.l == ct2.l
-        lnew = ct1.l - 1
-        c0, c1 = self.mul_step_fn(ct1.l)(ct1.c0, ct1.c1, ct2.c0, ct2.c1,
-                                         rlk.p0hat, rlk.p1hat)
+        l, lnew = ct1.l, ct1.l - 1
+
+        def build():
+            mul_f = self._mul_step(l)
+
+            def f(c10, c11, c20, c21, ek0, ek1):
+                c0, c1 = mul_f(c10, c11, c20, c21, ek0, ek1)
+                return self._rs_limbs(c0, lnew), self._rs_limbs(c1, lnew)
+            return f
+        c0, c1 = self._cached(("he_mul_rs", l), build)(
+            ct1.c0, ct1.c1, ct2.c0, ct2.c1, rlk.p0hat, rlk.p1hat)
         nu, B = self._mul_meta(ct1, ct2)
         return Ciphertext(l=lnew, nu=nu / self.Delta,
-                          B=B / self.Delta + self.ctx.bounds.Brs,
-                          c0=self._rs_limbs(c0, lnew), c1=self._rs_limbs(c1, lnew))
+                          B=B / self.Delta + self.ctx.bounds.Brs, c0=c0, c1=c1)
 
     def mul_rs_batch_fn(self, l: int, B: int):
         """Batched fused multiply + relinearize + rescale: B independent
@@ -504,13 +547,15 @@ class CKKS:
         f(c10, c11, c20, c21, ek0, ek1) with ct args [B, n, klv]
         -> (c0, c1) [B, n, kl(l-1)].  Same math as mul_step_fn per element.
         """
-        mul_f = self.mul_step_fn(l)
+        def build():
+            mul_f = self._mul_step(l)
 
-        def f(c10, c11, c20, c21, ek0, ek1):
-            assert c10.shape[0] == B
-            c0, c1 = mul_f(c10, c11, c20, c21, ek0, ek1)
-            return self._rs_limbs(c0, l - 1), self._rs_limbs(c1, l - 1)
-        return f
+            def f(c10, c11, c20, c21, ek0, ek1):
+                assert c10.shape[0] == B
+                c0, c1 = mul_f(c10, c11, c20, c21, ek0, ek1)
+                return self._rs_limbs(c0, l - 1), self._rs_limbs(c1, l - 1)
+            return f
+        return self._cached(("he_mul_rs_batch", l, B), build)
 
     def mul_rs_batch(self, cts1: list, cts2: list, rlk: SwitchKey) -> list:
         """Batched mul_rs over aligned ciphertext lists (one level)."""
@@ -543,16 +588,19 @@ class CKKS:
         ring = self.ring
         ba = ring.ba(dim)
         plan = ring.recon(dim)
-        pthat = ring.fwd_ntt(pt.m, dim, signed_bits=32 * pt.m.shape[-1])
 
-        def one(cx):
-            ch = ring.pointwise_mul(ring.fwd_ntt(cx, dim), pthat, dim)
-            res = ring.ntt_i(ch, dim, scale_phatinv=True)
-            c = rns_ops.reconstruct(res, ba, plan, center=True, k_out=klv,
-                                    bound_bits=bits_pt, pre_scaled=True)
-            return lb.resize(lb.mask_bits(c, qb), klv)
-        return Ciphertext(l=l, nu=ct.nu * pt.nu, B=ct.B * pt.nu,
-                          c0=one(ct.c0), c1=one(ct.c1))
+        def f(c0, c1, ptm):
+            pthat = ring.ntt_f(ring.decompose(ptm, dim, 32 * ptm.shape[-1]), dim)
+
+            def one(cx):
+                ch = ring.mulmod(ring.ntt_f(ring.decompose(cx, dim), dim), pthat, dim)
+                res = ring.ntt_i(ch, dim, scale_phatinv=True)
+                c = rns_ops.reconstruct(res, ba, plan, center=True, k_out=klv,
+                                        bound_bits=bits_pt, pre_scaled=True)
+                return lb.resize(lb.mask_bits(c, qb), klv)
+            return one(c0), one(c1)
+        c0, c1 = self._traced("he_mulpt", f)(ct.c0, ct.c1, pt.m)
+        return Ciphertext(l=l, nu=ct.nu * pt.nu, B=ct.B * pt.nu, c0=c0, c1=c1)
 
     # ------------------------------------------------------------------
     # rescale / moddown (ref: src/he-rescale.c)
@@ -561,19 +609,18 @@ class CKKS:
     def rs(self, ct: Ciphertext) -> Ciphertext:
         """Divide-round by Delta, drop one level (ref: src/he-rescale.c:33-54)."""
         lnew = ct.l - 1
+        f = self._traced("rs", lambda x: self._rs_limbs(x, lnew))
         return Ciphertext(l=lnew, nu=ct.nu / self.Delta,
                           B=ct.B / self.Delta + self.ctx.bounds.Brs,
-                          c0=self._rs_limbs(ct.c0, lnew),
-                          c1=self._rs_limbs(ct.c1, lnew))
+                          c0=f(ct.c0), c1=f(ct.c1))
 
     def moddown(self, ct: Ciphertext) -> Ciphertext:
         """Re-center mod q_{l-1} only (ref: src/he-rescale.c:56-70)."""
         lnew = ct.l - 1
         qb = self.qbits(lnew)
         klv = self.kl(lnew)
-        return Ciphertext(l=lnew, nu=ct.nu, B=ct.B,
-                          c0=lb.resize(lb.mask_bits(ct.c0, qb), klv),
-                          c1=lb.resize(lb.mask_bits(ct.c1, qb), klv))
+        f = self._traced("moddown", lambda x: lb.resize(lb.mask_bits(x, qb), klv))
+        return Ciphertext(l=lnew, nu=ct.nu, B=ct.B, c0=f(ct.c0), c1=f(ct.c1))
 
     # ------------------------------------------------------------------
     # automorphisms (ref: src/he-automorphism.c)
@@ -584,12 +631,19 @@ class CKKS:
         (ref: src/he-automorphism.c:40-85)."""
         dim_s = self.ctx.dim_swk(l)
         ring = self.ring
-        ks_pair = self._cached(("swk", l), lambda: self._keyswitch_core(dim_s, l))
-        dhat = ring.fwd_ntt(d1, dim_s)
-        # the keys hold dimswk_h rows; the slices are views
-        u0, u1 = ks_pair(ring.pointwise_mul(dhat, swk.p0hat[:dim_s], dim_s),
-                         ring.pointwise_mul(dhat, swk.p1hat[:dim_s], dim_s))
-        return lb.mask_bits(lb.add(u0, d0), self.qbits(l)), u1
+        qb = self.qbits(l)
+
+        def build():
+            ks_pair = self._keyswitch_core(dim_s, l)
+
+            def f(dd0, dd1, ek0, ek1):
+                dhat = ring.ntt_f(ring.decompose(dd1, dim_s), dim_s)
+                # the keys hold dimswk_h rows; the slices are views
+                u0, u1 = ks_pair(ring.mulmod(dhat, ek0[:dim_s], dim_s),
+                                 ring.mulmod(dhat, ek1[:dim_s], dim_s))
+                return lb.mask_bits(lb.add(u0, dd0), qb), u1
+            return f
+        return self._cached(("swk", l), build)(d0, d1, swk.p0hat, swk.p1hat)
 
     def conj(self, ct: Ciphertext, ck: SwitchKey) -> Ciphertext:
         """Complex conjugation (ref: src/he-automorphism.c:87-100)."""
@@ -648,8 +702,8 @@ class CKKS:
         ).to(self.device)
 
         def f(c0, c1):
-            c1h = ring.fwd_ntt(c1, dims_h)
-            c0h = ring.fwd_ntt(c0, dimc)
+            c1h = ring.ntt_f(ring.decompose(c1, dims_h), dims_h)
+            c0h = ring.ntt_f(ring.decompose(c0, dimc), dimc)
             # [dim, n1, n] -> [n1, dim, n]
             return (c1h[:, perm].transpose(0, 1), c0h[:, perm].transpose(0, 1))
         return f
@@ -701,10 +755,10 @@ class CKKS:
         def f(c1p, c0p, ptx_i, ptb_i, rk0, rk1):
             # all n1 baby steps as one batched product each; the key slices
             # are views of the stacked bank
-            t = ring.pointwise_mul(c1p, ptx_i, dims_h)
-            acc0 = modsum(ring.pointwise_mul(t, rk0[:, :dims_h], dims_h), ps)
-            acc1 = modsum(ring.pointwise_mul(t, rk1[:, :dims_h], dims_h), ps)
-            accb = modsum(ring.pointwise_mul(c0p, ptb_i, dimc), pc)
+            t = ring.mulmod(c1p, ptx_i, dims_h)
+            acc0 = modsum(ring.mulmod(t, rk0[:, :dims_h], dims_h), ps)
+            acc1 = modsum(ring.mulmod(t, rk1[:, :dims_h], dims_h), ps)
+            accb = modsum(ring.mulmod(c0p, ptb_i, dimc), pc)
             k0, k1 = ks_pair(acc0, acc1)
             res = ring.ntt_i(accb, dimc, scale_phatinv=True)
             db = rns_ops.reconstruct(res, bac, planc, center=True, k_out=klv,

@@ -7,9 +7,9 @@ Switch keys are the only objects kept in the NTT/RNS domain: [dimswk_h, n]
 residues in the butterfly NTT order that both packages share.
 
 from_numpy / to_numpy convert to and from the array layout that
-gpqhe_tpu/utils/serialize.py writes (u32 limbs, u64 NTT-resident keys, a
-rotation-key bank as 'rots' plus one p0hat_r / p1hat_r pair per rotation),
-so keys and ciphertexts cross between the JAX package and this one.
+utils/serialize.py writes, here and in the JAX package (u32 limbs, u64
+NTT-resident keys, a rotation-key bank as 'rots' plus one p0hat_r / p1hat_r
+pair per rotation), so keys and ciphertexts cross between the two packages.
 """
 
 from __future__ import annotations
@@ -84,10 +84,11 @@ def limbs_to_numpy(t: torch.Tensor) -> np.ndarray:
 _LIMB_FIELDS = {"ct": ("c0", "c1"), "pt": ("m",), "pk": ("p0", "p1"), "sk": ("s",)}
 
 
-def from_numpy(kind: str, arrays: dict, device=None):
-    """Arrays in the serialize.py layout -> object on device.  kind is one of
-    'ct', 'pt', 'pk', 'sk', 'swk', 'rk' (a rotation-key bank, returned as
-    {rotation: SwitchKey}); 'ct' and 'pt' also take 'meta'."""
+def from_numpy(kind: str, arrays: dict, device):
+    """Arrays in the serialize.py layout -> object on device (the caller
+    names it: utils/serialize.py's load owns the default, the GPU).  kind is
+    one of 'ct', 'pt', 'pk', 'sk', 'swk', 'rk' (a rotation-key bank, returned
+    as {rotation: SwitchKey}); 'ct' and 'pt' also take 'meta'."""
     if kind == "swk":
         return SwitchKey(p0hat=u64_to_torch(arrays["p0hat"], device),
                          p1hat=u64_to_torch(arrays["p1hat"], device))

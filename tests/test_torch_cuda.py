@@ -16,9 +16,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import v1_transform    # the repository root is on sys.path (python -m pytest)
-from gpqhe_tpu_torch import CKKS, HeContext, Surf
-from gpqhe_tpu_torch.algo import linalg
+from chip_smoke import bootstrap_cases, v1_transform    # the repository root is on sys.path
+from gpqhe_tpu_torch import CKKS, HeContext, Surf         # (python -m pytest)
+from gpqhe_tpu_torch import bootstrap as bs
+from gpqhe_tpu_torch.algo import linalg, nonlinear
 from gpqhe_tpu_torch.context import PolyContext
 from gpqhe_tpu_torch.ops import ntt as twin
 from gpqhe_tpu_torch.ops import ntt_cuda, ntt_cuda32
@@ -210,3 +211,70 @@ def test_cuda_keyswitch_path_matches_cpu(cuda_device, logp):
 def test_default_device_is_cuda(cuda_device):
     eng = CKKS(HeContext(logn=9, q=1 << 120, slots=4, Delta=1 << 30), rng=Surf())
     assert eng.device.type == "cuda" and eng.ring.device.type == "cuda"
+
+
+# -- the deep-circuit path: the bootstrap ring's shapes, and its ops ----------
+
+BOOT_CASES = ["mul fwd", "swk fwd", "key fwd", "mul inv_scaled", "swk inv_scaled", "dec inv"]
+_boot = {}
+
+
+def _boot_engine(device):
+    if "eng" not in _boot:
+        _boot["eng"] = CKKS(HeContext(15, 1 << 881, 4, 1 << 30), rng=Surf(), device=device)
+    return _boot["eng"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BOOT_CASES)
+def test_cuda_kernel_at_the_bootstrap_rings_shapes(cuda_device, case):
+    """logn=15/logq=881: the shapes he_mul, the key switch, keygen and
+    decryption launch at the top level, read from the engine."""
+    eng = _boot_engine(cuda_device)
+    assert (eng.ctx.L, eng.kq, eng.ctx.dim, eng.ctx.dimswk, eng.dimswk_h) == (29, 28, 16, 47, 48)
+    mode, shape = bootstrap_cases(eng)["ntt15"][BOOT_CASES.index(case)]
+    assert case.split()[1] == mode and shape[-1] == 1 << 15
+    dim = shape[-2]
+    ring = eng.ring
+    ps = np.array(ring.pctx.primes[:dim], dtype=np.uint64)[:, None]
+    host = np.random.default_rng(dim).integers(0, 1 << 62, shape, dtype=np.uint64) % ps
+    host[..., :2] = ps - np.uint64(1)
+    a = u64_to_torch(host, cuda_device)
+    before = dict(ntt_cuda.LAUNCHES)
+    got = (ring.ntt_f(a, dim) if mode == "fwd"
+           else ring.ntt_i(a, dim, scale_phatinv=mode == "inv_scaled"))
+    torch.cuda.synchronize()
+    assert ntt_cuda.LAUNCHES[mode] == before[mode] + 1
+    assert torch.equal(got, _twin(a, ring.ba(dim), mode))
+
+
+def _run_deep(device, logp):
+    """he_inv, SubSum and a modulus raise from l=1 on a ring with a deep
+    ladder (logn=9/logq=250/slots=4/Delta=2^30: L=8, q_0=2^10)."""
+    ctx = HeContext(logn=9, q=1 << 250, slots=4, Delta=1 << 30, logp=logp)
+    eng = CKKS(ctx, rng=Surf(), device=device)
+    pk, sk = eng.keypair()
+    rlk = eng.genrlk(sk)
+    rk = eng.genrk(sk, bs.subsum_rotations(ctx))
+    m = np.random.default_rng(15).random(4) * 0.5 + 0.5
+    ct = eng.enc_pk(eng.ecd(m + 0j), pk)
+    low = ct
+    while low.l > 1:
+        low = eng.moddown(low)
+    out = dict(inv=nonlinear.he_inv(eng, ct, rlk, 3), subsum=bs.subsum(eng, ct, rk),
+               raised=bs.raise_modulus(eng, low, nu=eng.Delta))
+    return out, eng.dcd(eng.dec(out["inv"], sk)), 1 / m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logp", [59, 29])
+def test_cuda_deep_circuit_ops_match_cpu(cuda_device, logp):
+    c, got, want = _run_deep(cuda_device, logp)
+    t, got_cpu, _ = _run_deep(torch.device("cpu"), logp)
+    for name in c:
+        assert c[name].c0.is_cuda and c[name].l == t[name].l
+        assert torch.equal(c[name].c0.cpu(), t[name].c0), name
+        assert torch.equal(c[name].c1.cpu(), t[name].c1), name
+    assert c["raised"].l == 8 and c["raised"].c0.shape[-1] == 8
+    assert np.array_equal(got, got_cpu)
+    assert np.max(np.abs(got - want)) < 1e-3       # Goldschmidt, 3 iterations, x in [0.5, 1]

@@ -34,7 +34,9 @@ PORT = os.path.join(ROOT, "gpqhe_tpu_torch")
 
 COPIED = ["params.py", "context.py", "substrate/__init__.py", "substrate/bigint.py",
           "substrate/surf.py", "substrate/fips202.py", "substrate/native/__init__.py",
-          "substrate/native/substrate.c", "ring/sample.py", "ring/canemb.py"]
+          "substrate/native/substrate.c", "ring/sample.py", "ring/canemb.py",
+          "algo/nonlinear.py", "utils/__init__.py", "utils/info.py",
+          "substrate/rng_backends.py"]
 
 
 @pytest.mark.parametrize("rel", COPIED)
@@ -155,6 +157,11 @@ def test_port_imports_with_jax_blocked():
         "from gpqhe_tpu_torch import CKKS, HeContext, Surf\n"
         "import gpqhe_tpu_torch.ops.ntt_cuda, gpqhe_tpu_torch.ops.ntt_cuda32\n"
         "import gpqhe_tpu_torch.scheme.types, gpqhe_tpu_torch.algo.linalg\n"
+        "import gpqhe_tpu_torch.algo.nonlinear, gpqhe_tpu_torch.bootstrap\n"
+        "import gpqhe_tpu_torch.utils.serialize, gpqhe_tpu_torch.utils.trace\n"
+        "import gpqhe_tpu_torch.utils.pmu, gpqhe_tpu_torch.utils.info\n"
+        "import gpqhe_tpu_torch.cli, gpqhe_tpu_torch.__main__\n"
+        "import gpqhe_tpu_torch.substrate.rng_backends\n"
         "eng = CKKS(HeContext(11, 1 << 48, 4, 1 << 22), rng=Surf(), device='cpu')\n"
         "pk, sk = eng.keypair()\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'gpqhe_tpu.'))\n"
