@@ -42,6 +42,29 @@ non-zero:
              (rot, mul_rs_batch, both gemv routes), and the kernel against
              its twin at the gemv's shapes.  After both: a `chains` line,
              mul_rs on each chain in turns (59, 29, 29, 59).
+  mesh     — the mesh engine (parallel/mesh.py, parallel/engine.py) on a
+             virtual mesh that names the one card several times, or on
+             distinct GPUs where torch.cuda.device_count() covers the mesh
+             (the line says which).  Kernel check: the NTT kernels on
+             per-shard plans (n/S = 2^13 and 2^12 of logn=14, both word
+             sizes, forward and inverse) torch.equal to the twin on the same
+             local tables, with device time, host time and bound; the
+             coefficient-sharded NTT over S = 2, 4, 8 torch.equal to the
+             single-device kernel at [16, 2^14], its inverse giving the
+             input back.  Full width, logn=14/logq=438/slots=16/Delta=2^50 on
+             a (2,2,2) mesh, each chain: mul_rs, rot(1), conj and the fully
+             hoisted gemv on MeshCKKS torch.equal in c0 and c1 to the
+             single-device CKKS on the same keys; plan.fallbacks == 0;
+             decodes within 1e-5; sharded programs built; the NTT launch
+             counters, zeroed before one call of each mesh op and read after,
+             equal to the local transforms expected.  Medians of each mesh
+             op beside the single-device op, one profiled call, the
+             collectives' transfers and bytes per op, peak memory.  The CLI
+             with --mesh=2x2x1:virtual ([ok]) and without :virtual (exit 2
+             where the machine has fewer than 4 GPUs).  After the bootstrap
+             phase, on its keys (or on keys of its own when that phase is
+             not run): bootstrap.coeff2slot at logn=15/logq=881 on a (2,4,1)
+             mesh torch.equal to the single-device result.
   nonlinear — algo/nonlinear.py at logn=14/logq=438/slots=4/Delta=2^30 from
              Surf(), the op sequence of tests/test_golden_algo.py: m0 bit-equal
              to tests/golden/golden_algo_nonlinear.json, and he_inv(5),
@@ -67,9 +90,10 @@ non-zero:
   cli      — `python -m gpqhe_tpu_torch mul pk` and `... exp` as
              subprocesses at their defaults on the card: exit code 0, an
              [ok] line, NTT launches > 0.
-Then: the nvidia-smi line, the per-kernel JSON line (nine entries: the six
-of the logn=14 path and the u64 kernel's three at the bootstrap's logn=15
-shapes), and last {"ok": true, "device": {...}}.  --phases a,b,c runs a subset (the last line
+Then: the nvidia-smi line, the per-kernel JSON line (fifteen entries: the six
+of the logn=14 path, the u64 kernel's three at the bootstrap's logn=15
+shapes, and forward and inverse on per-shard plans for the u64 kernel, the
+u32 kernel and the u64 kernel on the logn=15 mesh), and last {"ok": true, "device": {...}}.  --phases a,b,c runs a subset (the last line
 then says "partial"); --iters N sets the timed runs per median.
 
 Without a CUDA device, or without the repository beside it, it fails
@@ -109,9 +133,14 @@ KERNELS = {
 # the u64 kernel again, reported at the shapes of the bootstrap's ring
 # (logn=15/logq=881; the shapes come from the context, see bootstrap_cases)
 KERNELS["ntt15"] = dict(KERNELS["ntt"], lib="ntt")
+# both kernels again on the per-shard plans of the mesh programs (local
+# length n/S, tables of one coefficient shard, the ring's n^-1)
+KERNELS["nttmesh"] = dict(KERNELS["ntt"], lib="ntt")
+KERNELS["ntt32mesh"] = dict(KERNELS["ntt32"], lib="ntt32")
+KERNELS["ntt15mesh"] = dict(KERNELS["ntt"], lib="ntt")
 LOGQ = {14: 438, 15: 881}      # the rings the paths run at, by logn
 MODES = ("fwd", "inv", "inv_scaled")
-ITERS = 20      # timed runs per median
+ITERS = 10      # timed runs per median
 CALLS = 40      # launches between one pair of events in a device-time run
 SLEEP_CYCLES = 10_000_000          # the sleep such a run starts behind: ~5 ms
 MAX_SLEEP_CYCLES = 1_000_000_000   # ~0.5 s: past this the host is not ahead
@@ -256,19 +285,20 @@ def pass_breakdown(fn, calls: int = 20) -> dict:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(SLEEP_CYCLES)
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and "ntt" in e.name:
-            key = short_kernel_name(e.name)
-            out[key] = out.get(key, 0.0) + e.time_range.elapsed_us() / calls
-    if not out:
-        raise RuntimeError("the profiler saw no NTT pass kernel: no time per pass")
-    return out
+    for attempt in range(2):        # a capture now and then comes back without device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(SLEEP_CYCLES)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA and "ntt" in e.name:
+                key = short_kernel_name(e.name)
+                out[key] = out.get(key, 0.0) + e.time_range.elapsed_us() / calls
+        if out:
+            return out
+    raise RuntimeError("the profiler saw no NTT pass kernel in two captures: no time per pass")
 
 
 def ntt_bound(word: int, mode: str, shape) -> dict:
@@ -389,51 +419,64 @@ def kernel_ring(kernel: str, logn: int, dim: int):
 
 def compare_kernel(kernel: str, mode: str, shape, iters: int, rng,
                    breakdown: bool = False) -> dict:
-    """One kernel entry against the plain twin and against the first-design
-    kernel on random residues on the card: torch.equal of all three, then
-    the device time per launch of v1 and of the kernel in turns (v1, new,
-    new, v1), the wrapper's host time and the twin's median.  Raises if any
-    two differ."""
+    """One kernel entry at a ring's own plan of shape[-2] primes against the
+    plain twin and against the first-design kernel (compare_plan)."""
+    n, dim = shape[-1], shape[-2]
+    ring = kernel_ring(KERNELS[kernel].get("lib", kernel), n.bit_length() - 1, dim)
+    return compare_plan(kernel, ring.ntt_mod, ring.ntt_plan(dim), mode, shape, iters, rng,
+                        breakdown=breakdown)
+
+
+def compare_plan(kernel: str, ntt_mod, plan, mode: str, shape, iters: int, rng,
+                 breakdown: bool = False, v1: bool = True, timed: bool = True,
+                 tag: str = "kernels", **note) -> dict:
+    """One kernel entry on one plan against the plain twin (and, with v1,
+    against the first-design kernel) on random residues on the card:
+    torch.equal, then (with timed) the device time per launch of v1 and of
+    the kernel in turns (v1, new, new, v1), the wrapper's host time and the
+    twin's median.  Raises if any two differ."""
     import numpy as np
     import torch
     from gpqhe_tpu_torch.ops import ntt_cuda
+    from gpqhe_tpu_torch.ops.modmath import torch_to_u64
 
-    n, dim = shape[-1], shape[-2]
-    ring = kernel_ring(KERNELS[kernel].get("lib", kernel), n.bit_length() - 1, dim)
-    plan = ring.ntt_plan(dim)
-    ps = np.array(ring.pctx.primes[:dim], dtype=np.uint64)
+    ps = torch_to_u64(plan.ba.ps)
     host = (rng.integers(0, 1 << 62, size=shape, dtype=np.uint64)
             % ps[:, None]).astype(np.int64)
-    a = torch.from_numpy(host).to(ring.device)
+    a = torch.from_numpy(host).to(plan.ba.ps.device)
     scaled = mode == "inv_scaled"
     if mode == "fwd":
         def kern():
-            return ring.ntt_mod.ntt(a, plan)
+            return ntt_mod.ntt(a, plan)
 
         def plain():
             return ntt_cuda.plain_ntt(a, plan)
     else:
         def kern():
-            return ring.ntt_mod.intt(a, plan, scaled=scaled)
+            return ntt_mod.intt(a, plan, scaled=scaled)
 
         def plain():
             return ntt_cuda.plain_intt(a, plan, scaled)
 
     def prev():
         return v1_transform(kernel, a, plan, mode)
-    got, old, want = kern(), prev(), plain()
+    got, want = kern(), plain()
+    old = prev() if v1 else got
     torch.cuda.synchronize()
     equal = bool(torch.equal(got, want))
     equal_v1 = bool(torch.equal(got, old))
     err = int((got - want).abs().max().item())
-    runs = [device_ms_runs(fn, iters) for fn in (prev, kern, kern, prev)]
-    out = {"phase": "kernels", "kernel": kernel, "entry": mode, "shape": list(shape),
-           "equal": equal, "equal_v1": equal_v1, "max_abs_err": err,
-           "ms": median(runs[1] + runs[2]), "prev_ms": median(runs[0] + runs[3]),
-           "turn_ms": [median(r) for r in runs],
-           "host_us": host_us(kern), "prev_host_us": host_us(prev),
-           "plain_ms": cuda_ms(plain, max(3, iters // 4)),
-           **ntt_bound(KERNELS[kernel]["word"], mode, shape)}
+    out = {"phase": tag, "kernel": kernel, "entry": mode, "shape": list(shape), **note,
+           "equal": equal, "equal_v1": equal_v1 if v1 else None, "max_abs_err": err}
+    if timed:
+        runs = [device_ms_runs(fn, iters)
+                for fn in ((prev, kern, kern, prev) if v1 else (kern, kern))]
+        mine = runs[1] + runs[2] if v1 else runs[0] + runs[1]
+        out.update({"ms": median(mine), "prev_ms": median(runs[0] + runs[3]) if v1 else None,
+                    "turn_ms": [median(r) for r in runs],
+                    "host_us": host_us(kern), "prev_host_us": host_us(prev) if v1 else None,
+                    "plain_ms": cuda_ms(plain, max(3, iters // 4)),
+                    **ntt_bound(KERNELS[kernel]["word"], mode, shape)})
     if breakdown:
         out["pass_us"] = pass_breakdown(kern)
     emit(out)
@@ -525,15 +568,17 @@ def phase_golden():
     emit({"phase": "golden", "diffs": diffs, "seconds": time.time() - t0})
 
 
-def profile_op(op: str, fn, host_ops: bool = True, **tags) -> None:
+def profile_op(op: str, fn, host_ops: bool = True, warm: bool = True, **tags) -> None:
     """One call of fn under torch.profiler: device busy time, the NTT
     kernels' share of it, the number of device kernels, and the device idle
     share of the host wall time.  host_ops=False records the device only (a
-    call of some 10^5 launches would otherwise log every host operator)."""
+    call of some 10^5 launches would otherwise log every host operator);
+    warm=False skips the call before the capture (fn has just run)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
     with profile(activities=acts) as prof:
@@ -760,6 +805,309 @@ def phase_linalg(name: str, logp: int, iters: int, earlier: dict | None) -> dict
             "mul_rs": lambda: eng.mul_rs(ct, ct2, rlk)}
 
 
+def mesh_devices(n: int):
+    """(devices for an n-position mesh, what they are): distinct GPUs where
+    the machine has n, else the first card n times (a virtual mesh)."""
+    import torch
+    have = torch.cuda.device_count()
+    if have >= n:
+        return None, f"{n} distinct GPUs"
+    return [torch.device("cuda", 0)] * n, f"virtual: cuda:0 x {n} ({have} GPU visible)"
+
+
+def mesh_kernel_entry(kernel: str, pctx, mesh, dim: int, klv: int, cases, iters: int,
+                      rng, report: bool = True, breakdown: bool = True) -> dict:
+    """The NTT kernel on the per-shard plans of a mesh over a basis of dim
+    primes: every coefficient shard of the last limb shard (the last
+    dim/limb rows of the basis, tables of that coefficient shard, the ring's
+    n^-1) against the twin on the same local tables.  cases: (mode, leading
+    shape) pairs; the last shard's first case of each mode is also timed
+    and, with report, returned (with breakdown: split by pass)."""
+    from gpqhe_tpu_torch.parallel import mesh as pm
+    limb, coeff = mesh.shape["limb"], mesh.shape["coeff"]
+    shape3 = (limb, coeff, mesh.shape["batch"])
+    splan, C = pm._basis_consts(mesh, pctx, dim, klv, "a")
+    result = {}
+    for s in range(coeff):
+        plan = C[limb - 1, s, 0]["a_ntt"]
+        if (plan.n, plan.dim) != (pctx.n // coeff, dim // limb) or plan.scale_phat is not None:
+            raise AssertionError(f"shard plan is [{plan.dim}, {plan.n}], not the local shape")
+        for mode, lead in cases:
+            main = s == coeff - 1 and mode not in result
+            r = compare_plan(kernel, splan["ntt"], plan, mode, tuple(lead) + (plan.dim, plan.n),
+                             iters, rng, v1=False, timed=main,
+                             breakdown=main and report and breakdown,
+                             tag="mesh_kernels", mesh=list(shape3), coeff_shard=s)
+            if main:
+                result[mode] = {k: r[k] for k in ("max_abs_err", "ms", "prev_ms", "host_us",
+                                                  "plain_ms", "bound_ms", "bound_by", "shape")}
+            if mode in result:
+                result[mode]["max_abs_err"] = max(result[mode]["max_abs_err"], r["max_abs_err"])
+    return result if report else {}
+
+
+def mesh_coeff_ntt_check(logp: int, devices) -> dict:
+    """_ntt_coeff_sharded over S = 2, 4, 8 coefficient shards at [16, 2^14]
+    against the single-device kernel NTT; the inverse gives the input back."""
+    import numpy as np
+    import torch
+    from gpqhe_tpu_torch.parallel import mesh as pm
+    kernel = "ntt" if logp > 29 else "ntt32"
+    ring = kernel_ring(kernel, 14, 16)
+    pctx, dim = ring.pctx, 16
+    ps = np.array(pctx.primes[:dim], dtype=np.uint64)
+    host = (np.random.default_rng(logp).integers(0, 1 << 62, (dim, N14), dtype=np.uint64)
+            % ps[:, None]).astype(np.int64)
+    a = torch.from_numpy(host).to(ring.device)
+    want = ring.ntt_f(a, dim)
+    out = {}
+    for S in (2, 4, 8):
+        mesh = pm.make_he_mesh3(S, limb=1, coeff=S,
+                                devices=None if devices is None else devices[:S])
+        splan, C = pm._basis_consts(mesh, pctx, dim, 14, "a")
+        hat = pm._ntt_coeff_sharded(mesh, pm._scatter(mesh, a, (None, "coeff")), C, "a", splan)
+        back = pm._gather(mesh, pm._intt_coeff_sharded(mesh, hat, C, "a", splan),
+                          (None, "coeff"))
+        torch.cuda.synchronize()
+        out[S] = {"forward_equal": bool(torch.equal(pm._gather(mesh, hat, (None, "coeff")), want)),
+                  "roundtrip_equal": bool(torch.equal(back, a)),
+                  "block_swaps": mesh.traffic["ppermute"][0]}
+    emit({"phase": "mesh_coeff_ntt", "logp": logp, "shape": [dim, N14], "shards": out})
+    if not all(v["forward_equal"] and v["roundtrip_equal"] for v in out.values()):
+        raise AssertionError(f"coefficient-sharded NTT, logp={logp}: {out}")
+    return out
+
+
+def mesh_chain(logp: int, iters: int, devices, what: str) -> dict:
+    """mul_rs, rot(1), conj and the fully hoisted gemv at logn=14/logq=438/
+    slots=16/Delta=2^50 on a (2,2,2) mesh against the single-device engine
+    on the same keys.  Returns the NTT launches of one call of each mesh op."""
+    import numpy as np
+    import torch
+    from gpqhe_tpu_torch.algo import linalg
+    from gpqhe_tpu_torch.context import HeContext
+    from gpqhe_tpu_torch.parallel.engine import MeshCKKS
+    from gpqhe_tpu_torch.parallel.mesh import make_he_mesh3
+    from gpqhe_tpu_torch.scheme.engine import CKKS
+    from gpqhe_tpu_torch.substrate.surf import Surf
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    ctx = HeContext(logn=14, q=1 << 438, slots=16, Delta=1 << 50, logp=logp)
+    eng = CKKS(ctx, rng=Surf())
+    mesh = make_he_mesh3(8, limb=2, coeff=2, devices=devices)
+    meng = MeshCKKS(ctx, mesh, rng=Surf())
+    if meng.device.type != "cuda":
+        raise AssertionError(f"MeshCKKS chose {meng.device}, not the GPU")
+    pk, sk = eng.keypair()
+    rlk = eng.genrlk(sk)
+    ck = eng.genck(sk)
+    rk = eng.genrk(sk)
+    torch.cuda.synchronize()
+    keygen_s = time.time() - t0
+    rng = np.random.default_rng(438)
+    v = rng.random(ctx.slots) + 1j * rng.random(ctx.slots)
+    m2 = rng.random(ctx.slots) + 1j * rng.random(ctx.slots)
+    A = rng.random(ctx.slots * ctx.slots) + 1j * rng.random(ctx.slots * ctx.slots)
+    ct, ct2 = eng.enc_pk(eng.ecd(v), pk), eng.enc_pk(eng.ecd(m2), pk)
+    plans = {e: linalg.HoistedGemvPlan(e, A) for e in (eng, meng)}
+
+    def ops(e):
+        return {"mul_rs": lambda: e.mul_rs(ct, ct2, rlk), "rot": lambda: e.rot(ct, 1, rk),
+                "conj": lambda: e.conj(ct, ck),
+                "gemv_full": lambda: linalg.gemv_hoisted_full(e, plans[e], ct, rk)}
+    want = {"mul_rs": v * m2, "rot": np.roll(v, -1), "conj": np.conj(v),
+            "gemv_full": A.reshape(ctx.slots, ctx.slots) @ v}
+    t1 = time.time()
+    single = {k: fn() for k, fn in ops(eng).items()}
+    sharded = {k: fn() for k, fn in ops(meng).items()}        # builds the sharded programs
+    torch.cuda.synchronize()
+    first_s = time.time() - t1
+    equal = {k: bool(torch.equal(single[k].c0, sharded[k].c0)
+                     and torch.equal(single[k].c1, sharded[k].c1)
+                     and (single[k].l, single[k].nu, single[k].B)
+                     == (sharded[k].l, sharded[k].nu, sharded[k].B)) for k in single}
+    diffs = {k: float(np.max(np.abs(eng.dcd(eng.dec(c, sk)) - want[k])))
+             for k, c in sharded.items()}
+
+    # the mesh engine's main path: one call of each mesh op, programs built,
+    # the counters zeroed just before and read just after
+    mine, other = chain_counters(logp)
+    traffic = {}
+    for k, fn in ops(meng).items():
+        mesh.reset_traffic()
+        fn()
+        traffic[k] = {kind: list(c) for kind, c in mesh.traffic.items()}
+    torch.cuda.synchronize()
+    launches, foreign = dict(mine), dict(other)
+    P = len(mesh.positions)
+    # a position: mul_rs 2 forward (four ciphertext polys in one launch, d2) and
+    # 2 inverse (three cross terms, two key-switch halves); rot and conj 1 + 1;
+    # the gemv step 2 inverse, its prologue 2 forward on the first device
+    expected = {"fwd": 2 * P + P + P + 2, "inv": 2 * P + P + P + 2 * P, "inv_scaled": 0}
+
+    few = max(3, iters // 4)
+    ms = {"single": {k: cuda_ms(fn, few) for k, fn in ops(eng).items()},
+          "mesh": {k: cuda_ms(fn, few, warmup=1) for k, fn in ops(meng).items()}}
+    for k, fn in ops(meng).items():
+        profile_op(k, fn, host_ops=False, warm=False, logp=logp, mesh=[2, 2, 2])
+    l = ct.l
+    emit({"phase": "mesh", "logp": logp, "logn": 14, "logq": 438, "slots": 16, "logDelta": 50,
+          "mesh": dict(mesh.shape), "devices": what, "L": ctx.L,
+          "dim_mul_padded": meng._pad_limb(ctx.dim_mul(l)),
+          "dim_swk_padded": meng._pad_limb(ctx.dim_swk(l)), "dimswk_h": eng.dimswk_h,
+          "gemv_dims": list(meng.gemv_dims(l, plans[meng].bound_max_full(meng) * ctx.slots)),
+          "keygen_s": keygen_s, "first_calls_s": first_s, "ms": ms,
+          "slowdown": {k: ms["mesh"][k] / ms["single"][k] for k in ms["mesh"]},
+          "equal_to_single_device": equal, "decode_diffs": diffs,
+          "fallbacks": {"single": plans[eng].fallbacks, "mesh": plans[meng].fallbacks},
+          "programs": sorted(str(k) for k in meng._mesh_jit),
+          "launches": launches, "expected_launches": expected,
+          "other_kernel_launches": foreign, "transfers_and_bytes": traffic,
+          "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20})
+    if not all(equal.values()):
+        raise AssertionError(f"mesh logp={logp}: differs from the single-device engine: {equal}")
+    bad = {k: d for k, d in diffs.items() if not d < 1e-5}
+    if bad:
+        raise AssertionError(f"mesh logp={logp}: decode diffs {bad} >= 1e-5")
+    if plans[eng].fallbacks or plans[meng].fallbacks or not meng._mesh_jit:
+        raise AssertionError(f"mesh logp={logp}: gemv fell back, or no sharded program was built")
+    if launches != expected or any(foreign.values()):
+        raise AssertionError(f"mesh logp={logp}: NTT launches {launches}, expected {expected}; "
+                             f"other kernel {foreign}")
+    return launches
+
+
+def mesh_cli() -> None:
+    """`mul pk --mesh=2x2x1:virtual` at its defaults on the card, and the
+    same mesh without :virtual (at a small ring: the answer does not depend
+    on it), which a machine with fewer than 4 GPUs must refuse."""
+    import torch
+    small = ["--logn=9", "--logq=120", "--slots=4", "--logDelta=30"]
+    for argv, want_rc in ((["mul", "pk", "--mesh=2x2x1:virtual"], 0),
+                          (["mul", "pk", "--mesh=2x2x1"] + small,
+                           0 if torch.cuda.device_count() >= 4 else 2)):
+        t0 = time.time()
+        out = subprocess.run([sys.executable, "-m", "gpqhe_tpu_torch"] + argv, cwd=ROOT,
+                             capture_output=True, text=True, timeout=900)
+        lines = out.stdout.splitlines()
+        oks = [ln for ln in lines if ln.startswith("[ok] ")]
+        said = [ln for ln in lines if ln.startswith(("mesh mode: ", "--mesh="))]
+        emit({"phase": "mesh_cli", "argv": argv, "returncode": out.returncode,
+              "ok_lines": oks, "said": said, "seconds": time.time() - t0})
+        good = (out.returncode == 0 and oks and said[:1] == ["mesh mode: {'limb': 2, "
+                "'coeff': 2, 'batch': 1}"]) if want_rc == 0 else (
+            out.returncode == 2 and not oks and said and "needs 4 devices" in said[0])
+        if not good:
+            raise AssertionError(f"cli {argv}: exit {out.returncode}\n{out.stdout[-2000:]}"
+                                 f"\n{out.stderr[-2000:]}")
+
+
+def phase_mesh(iters: int) -> dict:
+    """The logn=14 part of the mesh phase.  Returns the kernel numbers on
+    the per-shard plans and the launches of the mesh ops' main-path run."""
+    import numpy as np
+    from gpqhe_tpu_torch.context import HeContext
+    from gpqhe_tpu_torch.parallel.mesh import make_he_mesh3
+    devices, what = mesh_devices(8)
+    rng = np.random.default_rng(5)
+    kernels, launches = {}, {}
+    for kernel, logp in (("nttmesh", 59), ("ntt32mesh", 29)):
+        meshes = {S: make_he_mesh3(2 * S, limb=2, coeff=S,
+                                   devices=None if devices is None else devices[:2 * S])
+                  for S in (2, 4)}
+        ctx = HeContext(logn=14, q=1 << 438, slots=16, Delta=1 << 50, logp=logp)
+        pctx = kernel_ring(KERNELS[kernel]["lib"], 14, 16).pctx
+        dim_m = ctx.dim_mul(ctx.L) + ctx.dim_mul(ctx.L) % 2      # padded to the limb axis
+        dim_s = ctx.dim_swk(ctx.L) + ctx.dim_swk(ctx.L) % 2
+        # n/S = 2^13: the shapes mul_rs launches on the (2,2,2) mesh
+        r = mesh_kernel_entry(kernel, pctx, meshes[2], dim_m, 14,
+                              [("fwd", (4, 1)), ("inv", (3, 1))], iters, rng)
+        mesh_kernel_entry(kernel, pctx, meshes[2], dim_s, 14,
+                          [("fwd", (1,)), ("inv", (2, 1))], iters, rng, report=False)
+        # n/S = 2^12
+        mesh_kernel_entry(kernel, pctx, meshes[4], dim_m, 14,
+                          [("fwd", (4, 1)), ("inv", (3, 1))], iters, rng, report=False)
+        kernels.update({f"{kernel}_{mode}": v for mode, v in r.items()})
+        mesh_coeff_ntt_check(logp, devices)
+        got = mesh_chain(logp, iters, devices, what)
+        launches.update({f"{kernel}_{mode}": got[mode] for mode in r})
+    mesh_cli()
+    return {"kernels": kernels, "launches": launches}
+
+
+def phase_mesh_compose(iters: int, o: dict | None) -> dict:
+    """bootstrap.coeff2slot at logn=15/logq=881/slots=4/Delta=2^30 on a
+    (2,4,1) mesh against the single-device engine, on the bootstrap phase's
+    engine and keys (o), or on its own where that phase did not run; before
+    it the u64 kernel on this mesh's per-shard plans (n/S = 2^13)."""
+    import numpy as np
+    import torch
+    from gpqhe_tpu_torch import bootstrap as bs
+    from gpqhe_tpu_torch.context import HeContext
+    from gpqhe_tpu_torch.parallel.engine import MeshCKKS
+    from gpqhe_tpu_torch.parallel.mesh import make_he_mesh3
+    from gpqhe_tpu_torch.ring import sample as smp
+    from gpqhe_tpu_torch.scheme.engine import CKKS
+    from gpqhe_tpu_torch.substrate.surf import Surf
+
+    torch.cuda.reset_peak_memory_stats()
+    devices, what = mesh_devices(8)
+    if o is None:
+        ctx = HeContext(logn=15, q=1 << LOGQ[15], slots=4, Delta=1 << 30)
+        eng = CKKS(ctx, rng=Surf())
+        pk, sk = eng.keypair()
+        o = dict(ctx=ctx, eng=eng, sk=sk, ck=eng.genck(sk),
+                 rk=eng.genrk(sk, bs.bootstrap_rotations(ctx)),
+                 ct=eng.enc_pk(eng.ecd(smp.sample_z01vec(eng.rng, ctx.slots) * 0.1), pk))
+    ctx, eng, ct, ck, rk = o["ctx"], o["eng"], o["ct"], o["ck"], o["rk"]
+    l = ct.l
+    dim_s = ctx.dim_swk(l) + ctx.dim_swk(l) % 2
+    mesh = make_he_mesh3(8, limb=2, coeff=4, devices=devices)      # batch=1: one ciphertext
+    # no split by pass here: after the bootstrap phase's captures of some
+    # 10^5 kernels the profiler returns only part of a short capture's events
+    kernels = mesh_kernel_entry("ntt15mesh", ctx.poly, mesh, dim_s, eng.kl(l),
+                                [("fwd", (1,)), ("inv", (2, 1))], iters,
+                                np.random.default_rng(15), breakdown=False)
+    meng = MeshCKKS(ctx, mesh, rng=Surf())
+
+    def run(e, bctx):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = bs.coeff2slot(e, bctx, ct, ck, rk)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+    bctx_s, bctx_m = bs.BootstrapContext(eng), bs.BootstrapContext(meng)
+    (s0, s1), _ = run(eng, bctx_s)
+    mine, other = chain_counters(59)
+    (m0, m1), first_s = run(meng, bctx_m)                 # builds tables and programs
+    launches, foreign = dict(mine), dict(other)
+    equal = all(torch.equal(a, b) for a, b in ((s0.c0, m0.c0), (s0.c1, m0.c1),
+                                               (s1.c0, m1.c0), (s1.c1, m1.c1)))
+    mesh.reset_traffic()
+    _, mesh_s = run(meng, bctx_m)
+    traffic = {kind: list(c) for kind, c in mesh.traffic.items()}
+    _, single_s = run(eng, bctx_s)
+    profile_op("coeff2slot", lambda: bs.coeff2slot(meng, bctx_m, ct, ck, rk), host_ops=False,
+               warm=False, mesh=[2, 4, 1])
+    emit({"phase": "mesh_compose", "logn": 15, "logq": LOGQ[15], "slots": 4, "logDelta": 30,
+          "mesh": dict(mesh.shape), "devices": what, "level": l,
+          "equal_to_single_device": equal, "first_call_s": first_s, "mesh_s": mesh_s,
+          "single_s": single_s, "slowdown": mesh_s / single_s,
+          "programs": sorted(str(k) for k in meng._mesh_jit),
+          "fallbacks": {name: plan.fallbacks for name, plan in bctx_m._plans.items()},
+          "launches_first_call": launches, "other_kernel_launches": foreign,
+          "transfers_and_bytes": traffic,
+          "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20})
+    if not equal:
+        raise AssertionError("coeff2slot on the mesh differs from the single-device engine")
+    if not meng._mesh_jit or launches["fwd"] <= 0 or launches["inv"] <= 0 or any(foreign.values()):
+        raise AssertionError(f"coeff2slot on the mesh: programs {list(meng._mesh_jit)}, "
+                             f"NTT launches {launches}, other kernel {foreign}")
+    return {"kernels": {f"ntt15mesh_{mode}": v for mode, v in kernels.items()},
+            "launches": {f"ntt15mesh_{mode}": launches[mode] for mode in kernels}}
+
+
 def load_golden(name: str) -> dict:
     import numpy as np
     with open(os.path.join(ROOT, "tests", "golden", name)) as f:
@@ -852,7 +1200,7 @@ def phase_nonlinear(iters: int) -> None:
         model = {k: float(np.max(np.abs(got[k] - plain[k][0]))) for k in ops}
         ms = {k: wall_s(fn, max(1, iters // 10)) * 1e3 for k, fn in ops.items()}
         for k, fn in ops.items():
-            profile_op("he_" + k, fn, host_ops=False, logp=logp)
+            profile_op("he_" + k, fn, host_ops=False, warm=False, logp=logp)
         emit({"phase": "nonlinear", "logp": logp, "logn": 14, "logq": 438, "slots": 4,
               "logDelta": 30, "L": ctx.L, "keygen_s": keygen_s, "op_ms": ms,
               "levels_used": {k: ctx.L - c.l for k, c in outs.items()},
@@ -905,7 +1253,7 @@ def phase_cmp(iters: int) -> None:
     launches, foreign = dict(mine), dict(other)
     diff = float(np.max(np.abs(got - g["cmp"])))
     bits_ok = bool(np.array_equal(np.round(got.real), (ma > mb).astype(float)))
-    profile_op("he_cmp", run, host_ops=False)
+    profile_op("he_cmp", run, host_ops=False, warm=False)
     emit({"phase": "cmp", "logn": 15, "logq": LOGQ[15], "slots": 4, "logDelta": 30, "iter": 5,
           "alpha": 2, "L": ctx.L, "levels_used": ctx.L - out.l, "keygen_s": keygen_s,
           "cmp_s": wall_s(run, max(1, iters // 10)), "golden_diff": diff,
@@ -1028,7 +1376,7 @@ def phase_bootstrap(iters: int) -> dict:
         t_end = time.perf_counter()
     with trace.op_trace() as tr:
         run()
-    profile_op("bootstrap", run, host_ops=False)
+    profile_op("bootstrap", run, host_ops=False, warm=False)
     emit({"phase": "bootstrap", "logn": 15, "logq": LOGQ[15], "slots": 4, "logDelta": 30,
           "iter": bs.min_bootstrap_iter(ctx), "L": ctx.L, "kq": eng.kq, "dim": ctx.dim,
           "dim_mul": ctx.dim_mul(ctx.L), "dim_swk": ctx.dim_swk(ctx.L), "dimswk": ctx.dimswk,
@@ -1050,7 +1398,7 @@ def phase_bootstrap(iters: int) -> dict:
         raise AssertionError(f"bootstrap decode diff {diff} >= 1e-2")
     require_launches("bootstrap", launches, foreign)
     return {"kernels": kernels, "launches": launches,
-            "objects": dict(ctx=ctx, eng=eng, sk=sk, rlk=rlk, rk=rk, ct=ct_top, boot=boot)}
+            "objects": dict(ctx=ctx, eng=eng, sk=sk, rlk=rlk, ck=ck, rk=rk, ct=ct_top, boot=boot)}
 
 
 def phase_serialize(o: dict) -> None:
@@ -1128,8 +1476,8 @@ def phase_cli() -> None:
             raise AssertionError(f"cli {argv}: NTT launches {counts}")
 
 
-PHASES = ("build", "kernels", "golden", "mul_rs", "linalg59", "linalg29", "nonlinear", "cmp",
-          "bootstrap", "serialize", "cli")
+PHASES = ("build", "kernels", "golden", "mul_rs", "linalg59", "linalg29", "mesh", "nonlinear",
+          "cmp", "bootstrap", "serialize", "cli")
 
 
 def main(argv=None) -> int:
@@ -1155,15 +1503,22 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.time()
+
+    def clock(after: str) -> None:
+        emit({"phase": "clock", "after": after, "elapsed_s": round(time.time() - t_start, 1)})
+
     kernels, launches = {}, {}
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
         kernels = phase_kernels(args.iters)
+        clock("kernels")
     if "golden" in phases:
         phase_golden()
     if "mul_rs" in phases:
         phase_mul_rs(max(3, args.iters // 4))
+        clock("mul_rs")
     chains = {}
     for name, logp, kernel in (("linalg59", 59, "ntt"), ("linalg29", 29, "ntt32")):
         if name in phases:
@@ -1177,20 +1532,36 @@ def main(argv=None) -> int:
         order = (59, 29, 29, 59)
         emit({"phase": "chains", "order": list(order),
               "mul_rs_ms": [cuda_ms(chains[logp]["mul_rs"], args.iters) for logp in order]})
+    clock("linalg")
 
+    if "mesh" in phases:
+        r = phase_mesh(args.iters)
+        kernels.update(r["kernels"])
+        launches.update(r["launches"])
+        clock("mesh")
     if "nonlinear" in phases:
         phase_nonlinear(args.iters)
+        clock("nonlinear")
     if "cmp" in phases:
         phase_cmp(args.iters)
+        clock("cmp")
     if "bootstrap" in phases:
         boot = phase_bootstrap(args.iters)
         kernels.update(boot["kernels"])
         launches.update({f"ntt15_{k}": v for k, v in boot["launches"].items()})
         if "serialize" in phases:
             phase_serialize(boot["objects"])
-        del boot
+        clock("bootstrap and serialize")
+    if "mesh" in phases:
+        # the mesh phase's composition, on the bootstrap phase's keys
+        r = phase_mesh_compose(args.iters, boot["objects"] if "bootstrap" in phases else None)
+        kernels.update(r["kernels"])
+        launches.update(r["launches"])
+        clock("mesh_compose")
+    boot = None
     if "cli" in phases:
         phase_cli()
+    clock("all phases")
 
     print(gpu_line(), flush=True)
     if set(phases) != set(PHASES):

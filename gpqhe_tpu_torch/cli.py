@@ -4,9 +4,13 @@ binary surface (ref: tests/gpqhe.c:1277-1408) and gpqhe_tpu/cli.py:
     python -m gpqhe_tpu_torch <op> [sk|pk] [--logn=..] [--logq=..] [--slots=..]
                              [--logDelta=..] [--iter=..] [--alpha=..] [--idx=..]
                              [--logp=29] [--device=cuda|cpu]
+                             [--mesh=LxSxB[:virtual]]
 
 --device defaults to cuda, and the engine raises where there is no card;
 --logp=29 selects the 30-bit prime chain (and with it the u32 NTT kernel).
+--mesh=LxSxB runs the key-switch-heavy ops on a (limb, coeff, batch) mesh of
+L*S*B distinct GPUs (parallel/engine.py) and returns 2 where the machine has
+fewer; --mesh=LxSxB:virtual makes the mesh on the one --device, repeated.
 
 Ops and default parameters match the reference (ref: tests/gpqhe.c:1296-1322);
 each op samples a message from the deterministic surf stream, runs the
@@ -34,7 +38,7 @@ NONLINEAR_OPS = ("exp", "log", "sigmoid", "inv", "sqrt", "cmp", "rlsin")
 def set_params(op: str, args: list[str]) -> dict:
     """Default parameter selection (ref: tests/gpqhe.c:1277-1345)."""
     p = dict(logn=14, logq=438, slots=16, logDelta=50, iter=5, alpha=2, idx=0,
-             logp=params.LOGP, device="cuda", mesh=None)
+             logp=params.LOGP, device="cuda", mesh=None, mesh_virtual=False)
     if op in NONLINEAR_OPS or op in ("coeff2slot", "bootstrap"):
         p.update(slots=4, logDelta=30)
     if op == "sqrt":
@@ -56,7 +60,13 @@ def set_params(op: str, args: list[str]) -> dict:
         if a.startswith("--device="):
             p["device"] = a.split("=", 1)[1]
         if a.startswith("--mesh="):
-            p["mesh"] = a.split("=", 1)[1]
+            # LxSxB over (limb, coeff, batch), ":virtual" for a mesh that
+            # repeats the one device
+            dims, _, mode = a.split("=", 1)[1].partition(":")
+            p["mesh"] = tuple(int(x) for x in dims.split("x"))
+            p["mesh_virtual"] = mode == "virtual"
+            if len(p["mesh"]) != 3 or min(p["mesh"]) < 1 or mode not in ("", "virtual"):
+                raise ValueError(f"{a}: expected --mesh=LIMBxCOEFFxBATCH[:virtual]")
     return p
 
 
@@ -72,17 +82,12 @@ def main(argv: list[str] | None = None) -> int:
     if not argv or argv[0] not in OPS:
         print(f"usage: python -m gpqhe_tpu_torch <{'/'.join(OPS)}> [sk/pk] "
               f"--logn=num --logq=num --slots=num --logDelta=num --iter=num "
-              f"--logp=29 --device=cuda|cpu")
+              f"--logp=29 --device=cuda|cpu --mesh=LxSxB[:virtual]")
         return 1
     op = argv[0]
     key = argv[1] if len(argv) > 1 and argv[1] in ("sk", "pk") else "sk"
     p = set_params(op, argv[1:])
 
-    if p["mesh"]:
-        # no silent single-device run
-        print(f"--mesh={p['mesh']} is refused: the torch port has no multi-device "
-              f"engine yet (parallel/ is ROADMAP item 14)")
-        return 2
     if p["device"] not in ("cuda", "cpu"):
         print(f"--device={p['device']}: expected cuda or cpu")
         return 1
@@ -97,8 +102,28 @@ def main(argv: list[str] | None = None) -> int:
     t0 = time.time()
     ctx = HeContext(p["logn"], 1 << p["logq"], p["slots"], 1 << p["logDelta"],
                     logp=p["logp"])
-    # "cuda" is the engine's own default: it raises where there is no card
-    eng = CKKS(ctx, rng=Surf(), device=None if p["device"] == "cuda" else "cpu")
+    if p["mesh"]:
+        import torch
+        from .parallel.engine import MeshCKKS
+        from .parallel.mesh import make_he_mesh3
+        L, S, B = p["mesh"]
+        if p["mesh_virtual"]:
+            devices = [torch.device(p["device"])] * (L * S * B)
+        else:
+            ndev = torch.cuda.device_count() if p["device"] == "cuda" else 1
+            if ndev < L * S * B:
+                # no silent single-device run
+                print(f"--mesh={L}x{S}x{B} needs {L*S*B} devices; this session has "
+                      f"{ndev}.  For a virtual mesh on the one device run with\n"
+                      f"  --mesh={L}x{S}x{B}:virtual")
+                return 2
+            devices = None if p["device"] == "cuda" else ["cpu"]
+        mesh = make_he_mesh3(L * S * B, limb=L, coeff=S, devices=devices)
+        print(f"mesh mode: {dict(mesh.shape)}")
+        eng = MeshCKKS(ctx, mesh, rng=Surf())
+    else:
+        # "cuda" is the engine's own default: it raises where there is no card
+        eng = CKKS(ctx, rng=Surf(), device=None if p["device"] == "cuda" else "cpu")
     show_ctx_params(ctx)
     m0 = smp.sample_z01vec(eng.rng, ctx.slots)
 
@@ -221,6 +246,8 @@ def main(argv: list[str] | None = None) -> int:
                   else ntt_cuda.LAUNCHES)
         print(f"device {torch.cuda.get_device_name(eng.device)}: "
               f"NTT kernel launches {dict(counts)}")
+    if p["mesh"]:
+        print(f"mesh programs built: {sorted(eng._mesh_jit, key=str)}")
     print(f"total {time.time()-t0:.1f}s")
     return 0 if ok else 2
 

@@ -199,6 +199,20 @@ def to_digits16_f64(a):
         a.shape[:-1] + (2 * a.shape[-1],)).to(torch.float64)
 
 
+def to_f64_centered(a, q_bits: int):
+    """Centered value (smod 2^q_bits) of a as f64 (ref: src/types.c:77-106 +
+    mpi_smod semantics).  Exact for |value| < 2^53; relative error 2^-53 above."""
+    am = mask_bits(a, q_bits)
+    hb_limb, hb_bit = divmod(q_bits - 1, 32)
+    negmask = ((am[..., hb_limb] >> hb_bit) & 1) == 1
+    # magnitude of the negative branch: 2^q_bits - am, re-masked to q_bits
+    mag = select(negmask, mask_bits(neg(am), q_bits), am)
+    val = torch.zeros(mag.shape[:-1], dtype=torch.float64, device=a.device)
+    for i in range(mag.shape[-1] - 1, -1, -1):
+        val = val * 4294967296.0 + mag[..., i].to(torch.float64)
+    return torch.where(negmask, -val, val)
+
+
 def toeplitz16(c16: np.ndarray, k_in: int, k_out: int) -> np.ndarray:
     """f64[2 k_in, 2 k_out] band M[u, s] = c16[s - u]: the digit convolution
     of a [2 k_in]-digit operand with the constant c, truncated to 2 k_out

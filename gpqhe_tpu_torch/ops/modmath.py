@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
+_SIGN = -(1 << 63)
 
 
 def u64_to_torch(a, device=None) -> torch.Tensor:
@@ -78,6 +79,38 @@ def to_mont(a, p, pinv, r2):
     return mont_mul(a, r2, p, pinv)
 
 
+def _ult(a, b):
+    """a < b for full u64 words held in int64: flipping the sign bit maps the
+    unsigned order onto the signed one."""
+    return (a ^ _SIGN) < (b ^ _SIGN)
+
+
+def barrett_inv(q: int) -> int:
+    """Host: 2^(2*nbits(q)) / q (ref: src/reduce.c:75-78)."""
+    return (1 << (2 * q.bit_length())) // q
+
+
+def barrett_reduce(hi, lo, q, qinv, qbits: int):
+    """(hi,lo) 128-bit value mod q via Barrett (ref: src/reduce.c:88-106).
+
+    qinv = floor(2^(2*qbits)/q); requires 2*qbits >= 64.  Semantically equal
+    to the Montgomery-pair mulmod used on the hot path; kept for parity and
+    for callers that have values (not products) to reduce.  All words are
+    u64 bit patterns: the 128-bit carry and the final compare are unsigned."""
+    t_hi1, _ = mulhilo64(lo, qinv)
+    t2_hi, t2_lo = mulhilo64(hi, qinv)
+    # t = (lo*qinv >> 64) + hi*qinv  as a 128-bit value
+    t_lo = t_hi1 + t2_lo
+    t_hi = t2_hi + _ult(t_lo, t2_lo).to(torch.int64)
+    shift = 2 * qbits - 64
+    if shift > 0:
+        t_shifted = ((t_lo >> shift) & ((1 << (64 - shift)) - 1)) | (t_hi << (64 - shift))
+    else:
+        t_shifted = t_lo
+    r = lo - t_shifted * q
+    return torch.where(_ult(r, q), r, r - q)
+
+
 def addmod(a, b, p):
     """(a + b) mod p for a, b in [0, p) with p < 2^62."""
     s = a + b
@@ -88,3 +121,15 @@ def submod(a, b, p):
     """(a - b) mod p for a, b in [0, p)."""
     d = a - b
     return torch.where(a < b, d + p, d)
+
+
+def summod(x, p):
+    """Sum over the leading axis mod p of residues in [0, p).  Every partial
+    stays in [0, p), so any order gives the same words; each addition is a
+    two-operand addmod (a plain sum of residues of a 60-bit prime overflows
+    the word), taken pairwise: log2 of the axis in depth."""
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
+        head = addmod(x[:h], x[h:2 * h], p)
+        x = torch.cat([head, x[2 * h:]]) if x.shape[0] % 2 else head
+    return x[0]

@@ -43,6 +43,7 @@ import torch
 from . import cuda_build
 from . import ntt as twin
 from .modmath import u64_to_torch
+from .rns import BasisArrays
 
 LAUNCHES = {"fwd": 0, "inv": 0, "inv_scaled": 0}
 
@@ -177,18 +178,40 @@ class KernelTables:
     tw_i: torch.Tensor
 
 
-def make_kernel_tables(pctx, device, word: int = 64) -> KernelTables:
+def kernel_tables(primes, zetas, zetas_inv, device, word: int = 64) -> KernelTables:
+    """Kernel tables of the given primes from their Montgomery-domain
+    bit-reversed twiddle tables (u64 host arrays [dim, n], one row a prime)."""
     bits = PRIME_BITS if word == 64 else 30
-    if max(pctx.primes) >= 1 << bits:
+    if max(primes) >= 1 << bits:
         raise ValueError(f"the u{word} CUDA NTT's lazy bounds need primes < 2^{bits}")
-    rows = {"tw_f": [], "tw_i": []}
-    for pc in pctx.prime_ctx:
-        for key, table in (("tw_f", pc.zetas), ("tw_i", pc.zetas_inv)):
-            rows[key].append(np.stack(std_and_shoup(table, pc.p, word), axis=-1))
+
+    def pairs(table):
+        # np.stack copies into a fresh C-ordered array: the kernel reads
+        # the pairs through a bare pointer
+        return words_to_torch(np.stack([np.stack(std_and_shoup(row, p, word), axis=-1)
+                                        for row, p in zip(table, primes)]), word, device)
     return KernelTables(
         word=word,
-        primes=words_to_torch(np.array(pctx.primes, dtype=np.uint64), word, device),
-        **{k: words_to_torch(np.stack(v), word, device) for k, v in rows.items()})
+        primes=words_to_torch(np.array(primes, dtype=np.uint64), word, device),
+        tw_f=pairs(zetas), tw_i=pairs(zetas_inv))
+
+
+def make_kernel_tables(pctx, device, word: int = 64) -> KernelTables:
+    return kernel_tables(pctx.primes, [pc.zetas for pc in pctx.prime_ctx],
+                         [pc.zetas_inv for pc in pctx.prime_ctx], device, word)
+
+
+def scale_words(primes, n: int, word: int, device, phat_invmp=None) -> torch.Tensor:
+    """[2, dim] words: n^-1 mod p (times phat^-1 where phat_invmp is given)
+    and its Shoup companion, the inverse transform's final multiplier."""
+    rows = []
+    for d, p in enumerate(primes):
+        s = pow(n, -1, p)
+        if phat_invmp is not None:
+            s = s * phat_invmp[d] % p
+        rows.append((s, (s << word) // p))
+    return words_to_torch(np.ascontiguousarray(np.array(rows, dtype=np.uint64).T),
+                          word, device)
 
 
 @dataclass(frozen=True)
@@ -202,7 +225,8 @@ class NttPlan:
     ba: object                       # rns.BasisArrays
     tables: KernelTables | None
     scale: torch.Tensor | None       # [2, dim] words: n^-1 and its Shoup companion
-    scale_phat: torch.Tensor | None  # [2, dim] words: n^-1 phat^-1 and companion
+    scale_phat: torch.Tensor | None  # [2, dim] words: n^-1 phat^-1 and companion;
+    #                                  None on a plan that has no scaled inverse
 
     def __post_init__(self):
         t = self.tables
@@ -214,10 +238,12 @@ class NttPlan:
                     or x.shape[0] != t.primes.shape[0]):
                 raise ValueError(f"NTT table {name} has shape {tuple(x.shape)}, the kernel "
                                  f"takes [>= {self.dim}, {self.n}, 2] interleaved pairs")
-        for name, x in (("scale", self.scale), ("scale_phat", self.scale_phat)):
+        scales = [(name, x) for name, x in (("scale", self.scale),
+                                            ("scale_phat", self.scale_phat)) if x is not None]
+        for name, x in scales:
             if tuple(x.shape) != (2, self.dim):
                 raise ValueError(f"NTT {name} has shape {tuple(x.shape)}, not (2, {self.dim})")
-        for x in (t.tw_f, t.tw_i, t.primes, self.scale, self.scale_phat):
+        for x in [t.tw_f, t.tw_i, t.primes] + [x for _, x in scales]:
             if x.dtype != dtype or x.device != t.primes.device:
                 raise ValueError(f"the u{t.word} NTT kernel's tables must be {dtype} on one device")
             if not x.is_contiguous():
@@ -228,18 +254,55 @@ def make_plan(pctx, dim: int, ba, tables: KernelTables | None) -> NttPlan:
     if tables is None:
         return NttPlan(dim, pctx.n, ba, None, None, None)
     b = pctx.basis(dim)
-    word = tables.word
-    rows = {"n": [], "np": []}
-    for d, p in enumerate(b.primes):
-        ninv = pow(pctx.n, -1, p)
-        for key, s in (("n", ninv), ("np", ninv * b.phat_invmp[d] % p)):
-            rows[key].append((s, (s << word) // p))
-    dev = tables.primes.device
+    word, dev = tables.word, tables.primes.device
+    return NttPlan(dim, pctx.n, ba, tables, scale_words(b.primes, pctx.n, word, dev),
+                   scale_words(b.primes, pctx.n, word, dev, b.phat_invmp))
 
-    def t(vals):
-        return words_to_torch(np.ascontiguousarray(np.array(vals, dtype=np.uint64).T),
-                              word, dev)
-    return NttPlan(dim, pctx.n, ba, tables, t(rows["n"]), t(rows["np"]))
+
+class ShardTables:
+    """Tables of one shard of a coefficient-sharded transform (parallel/
+    mesh.py), for every prime of the chain, on one device.  The shard's
+    local stages are the unmodified transforms at length L = n/S over
+    tables laid out like the chain's own (rows 1..L-1 of a bit-reversed
+    table), so they take an ordinary plan; only the inverse's scale is the
+    ring's n^-1, not L^-1, and there is no n^-1 phat^-1 form.
+
+    zetas, zetas_inv: the shard's Montgomery-domain tables, u64 host arrays
+    [dimub, L].  A CUDA device gets the kernel's tables beside the twin's
+    and needs L >= 2^LOGN_MIN; the twin on the CPU has no such limit."""
+
+    def __init__(self, pctx, zetas: np.ndarray, zetas_inv: np.ndarray, device, word: int):
+        self.length = zetas.shape[-1]
+        device = torch.device(device)
+        pcs = pctx.prime_ctx
+        self.ps = u64_to_torch(np.array(pctx.primes, dtype=np.uint64), device)
+        self.pinv = u64_to_torch(np.array([pc.pinv_mont for pc in pcs], dtype=np.uint64), device)
+        self.ninv_mont = u64_to_torch(np.array([pc.ninv_mont for pc in pcs], dtype=np.uint64),
+                                      device)
+        self.zetas = u64_to_torch(zetas, device)
+        self.zetas_inv = u64_to_torch(zetas_inv, device)
+        self.kernel = self.scale = None
+        if device.type == "cuda":
+            if self.length < 1 << LOGN_MIN:
+                raise ValueError(
+                    f"a coefficient shard of {self.length} coefficients is below the CUDA "
+                    f"NTT's n = 2^{LOGN_MIN}: use fewer coefficient shards on this ring")
+            self.kernel = kernel_tables(pctx.primes, zetas, zetas_inv, device, word)
+            self.scale = scale_words(pctx.primes, pctx.n, word, device)
+
+    def plan(self, r0: int, r1: int) -> NttPlan:
+        """The plan of primes r0..r1-1 of the chain (a limb shard's rows):
+        views of the chain-wide tables, which are contiguous row by row."""
+        ba = BasisArrays(dim=r1 - r0, ps=self.ps[r0:r1], pinv=self.pinv[r0:r1],
+                         ninv_mont=self.ninv_mont[r0:r1], r2=None, phatinv_mont=None,
+                      ninvphat_mont=None, zetas=self.zetas[r0:r1],
+                      zetas_inv=self.zetas_inv[r0:r1])
+        if self.kernel is None:
+            return NttPlan(r1 - r0, self.length, ba, None, None, None)
+        k = self.kernel
+        tables = KernelTables(k.word, k.primes[r0:r1], k.tw_f[r0:r1], k.tw_i[r0:r1])
+        return NttPlan(r1 - r0, self.length, ba, tables,
+                       self.scale[:, r0:r1].contiguous(), None)
 
 
 # ---------------------------------------------------------------------------
@@ -281,6 +344,8 @@ def launch(loader, word: int, counters: dict, a: torch.Tensor, plan: NttPlan,
     if nslab == 0:
         return out
     sc = plan.scale_phat if scaled else plan.scale
+    if sc is None:
+        raise ValueError("this NTT plan has no n^-1 phat^-1 scale: no scaled inverse")
     rc = loader()(a.data_ptr(), out.data_ptr(), nslab, plan.dim, logn,
                   (t.tw_i if inverse else t.tw_f).data_ptr(), t.primes.data_ptr(),
                   sc[0].data_ptr(), sc[1].data_ptr(), int(inverse),
@@ -303,6 +368,8 @@ def plain_ntt(a: torch.Tensor, plan: NttPlan) -> torch.Tensor:
 
 def plain_intt(a: torch.Tensor, plan: NttPlan, scaled: bool = False) -> torch.Tensor:
     ba = plan.ba
+    if scaled and ba.ninvphat_mont is None:
+        raise ValueError("this NTT plan has no n^-1 phat^-1 scale: no scaled inverse")
     return twin.intt(a, ba.zetas_inv, ba.ps, ba.pinv,
                      ba.ninvphat_mont if scaled else ba.ninv_mont)
 

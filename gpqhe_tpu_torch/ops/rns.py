@@ -85,7 +85,15 @@ def phat_digit_table(phat16: np.ndarray, nd: int) -> np.ndarray:
     return out.reshape(nd * dim, ds)
 
 
-def make_recon_plan(poly_ctx, dim: int, device) -> ReconPlan:
+def make_recon_plan(poly_ctx, dim: int, device,
+                    rows: tuple[int, int] | None = None) -> ReconPlan:
+    """The plan over the first dim primes.  rows=(r0, r1) gives the plan of a
+    limb shard that holds primes r0..r1-1 of a residue stack: phat_digits and
+    inv_p carry those rows only, digit-major over the local rows as
+    reconstruct_sharded stacks the shard's digits, and are zero for a prime
+    outside the basis (row >= dim), whose share of the digit sums and of the
+    alpha estimate then vanishes under the limb sum (the sub-basis
+    reconstruct r = c mod P of the key switch)."""
     b = poly_ctx.basis(dim)
     ds = (b.P.bit_length() + 15) // 16 + 2
     if ds % 2:
@@ -93,7 +101,13 @@ def make_recon_plan(poly_ctx, dim: int, device) -> ReconPlan:
     ks = ds // 2
     M = 1 << (16 * ds)
     phat16 = np.stack([bigint.digits16(ph, ds) for ph in b.phat]).astype(np.uint64)
+    inv_p = np.array([1.0 / p for p in b.primes], dtype=np.float64)
     nd = (max(b.primes).bit_length() + 15) // 16
+    if rows is not None:
+        r0, r1 = rows
+        pad = max(r1 - dim, 0)
+        phat16 = np.pad(phat16, ((0, pad), (0, 0)))[r0:r1]
+        inv_p = np.pad(inv_p, (0, pad))[r0:r1]
 
     def t(x):
         return torch.from_numpy(np.asarray(x)).to(device)
@@ -103,7 +117,7 @@ def make_recon_plan(poly_ctx, dim: int, device) -> ReconPlan:
     return ReconPlan(
         dim=dim, ds=ds, ks=ks, logP=b.P.bit_length(), nd=nd,
         phat_digits=t(phat_digit_table(phat16, nd)),
-        inv_p=t(np.array([1.0 / p for p in b.primes], dtype=np.float64)),
+        inv_p=t(inv_p),
         negP16=t(bigint.digits16(M - b.P, ds).astype(np.int64)),
         P_limbs=limbs(b.P), Phalf_limbs=limbs(b.P_half),
         MminusP_limbs=limbs((1 << (32 * ks)) - b.P),
@@ -167,21 +181,35 @@ def reconstruct_core(res, ps, pinv, phatinv_mont, plan: ReconPlan,
     fast = k_out is not None
     y = res if pre_scaled else mont_mul(res, phatinv_mont[:, None], ps[:, None],
                                         pinv[:, None])
+    kd = min(2 * k_out, plan.ds) if fast else plan.ds
+    s_digits, af = _digit_partials(y, plan, kd)
+    return _lift(s_digits, af, plan, center, k_out)
+
+
+def _digit_partials(y, plan: ReconPlan, kd: int):
+    """(digit sums int64[..., n, kd] of S = sum_d y_d * phat_d over the low kd
+    16-bit digit columns, f64[..., n] estimate of S / P) from the y_d of the
+    primes whose rows plan.phat_digits and plan.inv_p hold."""
     dim = y.shape[-2]
     n = y.shape[-1]
     nd = plan.nd
-    kd = min(2 * k_out, plan.ds) if fast else plan.ds
     # 16-bit digits of y: [..., nd, dim, n] -> [..., n, nd*dim]
     y16 = torch.stack([(y >> (16 * t)) & 0xFFFF for t in range(nd)], dim=-3)
     Y = y16.reshape(y.shape[:-2] + (nd * dim, n)).transpose(-1, -2)
     s_digits = torch.matmul(Y.to(torch.float64),
                             plan.phat_digits[:, :kd]).to(torch.int64)
-    # alpha = floor(S / P) estimated in f64, corrected exactly below
     af = (y.to(torch.float64) * plan.inv_p[:, None]).sum(-2)
+    return s_digits, af
+
+
+def _lift(s_digits, af, plan: ReconPlan, center: bool, k_out: int | None):
+    """Digit sums and the S / P estimate -> limbs (see reconstruct_core)."""
+    kd = s_digits.shape[-1]
+    # alpha = floor(S / P) estimated in f64, corrected exactly below
     alpha = torch.clamp(torch.floor(af), 0.0, float(plan.dim))
     # S - alpha*P == S + alpha*(M - P) mod M
     s_digits = s_digits + alpha.to(torch.int64)[..., None] * plan.negP16[:kd]
-    if not fast:
+    if k_out is None:
         r = lb.from_digits16(s_digits, plan.ks)
         # correct alpha off-by-one: E in (-P, 2P)
         P = plan.P_limbs.expand(r.shape)
@@ -194,6 +222,30 @@ def reconstruct_core(res, ps, pinv, phatinv_mont, plan: ReconPlan,
     r = lb.from_digits16(s_digits, k_out)
     frac = af - alpha
     return lb.select(frac > 0.5, lb.sub(r, plan.P_limbs[:k_out].expand(r.shape)), r)
+
+
+def reconstruct_sharded(res: dict, consts: dict, psum, center: bool = True) -> dict:
+    """CRT reconstruction of a residue stack whose primes are spread over
+    shards (the torch form of the JAX reconstruct_core's axis_name).
+
+    res[k]: shard k's residues [..., dim_k, n]; consts[k]: its (ps, pinv,
+    phatinv_mont, plan), plan from make_recon_plan(..., rows=...) on the
+    shard's device; psum: {k: tensor} -> {k: sum over the shards that
+    reconstruct together}, the one place where data crosses shards.  Every
+    shard gets the limbs [..., n, ks].
+
+    Always the exact full-width path: the digit partials are integers far
+    below 2^53, so their int64 sum is exact in any order, and the +-1 limb
+    compares make the result independent of the last bits of the f64 sum
+    of the alpha estimate.  The output therefore equals reconstruct()'s
+    whatever the number of shards."""
+    s_part, af_part = {}, {}
+    for k, r in res.items():
+        ps, pinv, phatinv_mont, plan = consts[k]
+        y = mont_mul(r, phatinv_mont[:, None], ps[:, None], pinv[:, None])
+        s_part[k], af_part[k] = _digit_partials(y, plan, plan.ds)
+    s_sum, af_sum = psum(s_part), psum(af_part)
+    return {k: _lift(s_sum[k], af_sum[k], consts[k][3], center, None) for k in res}
 
 
 def reconstruct(res, ba: BasisArrays, plan: ReconPlan, center: bool = True,

@@ -27,6 +27,12 @@ from ..ops.modmath import mulmod, u64_to_torch
 from ..utils import trace
 
 
+def ntt_module(pctx: PolyContext):
+    """The NTT binding that serves a chain: the single-word u32 kernel where
+    the largest prime is below 2^30 (4p fits a u32 word), else the u64 one."""
+    return ntt_cuda32 if pctx.primes[pctx.dimub - 1] < (1 << 30) else ntt_cuda
+
+
 class RingEngine:
     """Per-PolyContext plan caches and composites on one torch device.
 
@@ -42,10 +48,7 @@ class RingEngine:
                     "default; pass device=\"cpu\" to run on the CPU")
             device = "cuda"
         self.device = torch.device(device)
-        # the single-word u32 kernel serves a chain whose largest prime is
-        # below 2^30 (4p fits a u32 word); every other chain the u64 kernel
-        self.ntt_mod = (ntt_cuda32 if pctx.primes[pctx.dimub - 1] < (1 << 30)
-                        else ntt_cuda)
+        self.ntt_mod = ntt_module(pctx)
         self._ba: dict[int, rns_ops.BasisArrays] = {}
         self._recon: dict[int, rns_ops.ReconPlan] = {}
         self._weights: dict[tuple[int, int], torch.Tensor] = {}
@@ -184,12 +187,12 @@ class RingEngine:
         return trace.maybe_wrap(("mul",), f)(a, b)
 
     def galois(self, a, rot: int | None, q_bits: int):
-        """Apply the rot/conj automorphism to limbs [n, K] mod 2^q_bits: a row
-        gather, then negation of the rows that wrapped past X^n = -1."""
+        """Apply the rot/conj automorphism to limbs [..., n, K] mod 2^q_bits: a
+        row gather, then negation of the rows that wrapped past X^n = -1."""
         src, negf = self.galois_map(rot)
 
         def f(x):
-            g = x[src, :]
+            g = x[..., src, :]
             return torch.where(negf[:, None], lb.mask_bits(lb.neg(g), q_bits),
                                lb.mask_bits(g, q_bits))
         return trace.maybe_wrap(("gal",), f)(a)

@@ -34,7 +34,7 @@ from .. import params
 from ..context import HeContext
 from ..ops import limbs as lb
 from ..ops import rns as rns_ops
-from ..ops.modmath import addmod, mulmod, u64_to_torch
+from ..ops.modmath import addmod, mulmod, summod, u64_to_torch
 from ..ops.ntt import ntt_galois_perm
 from ..ring import sample
 from ..ring.canemb import canemb, invcanemb
@@ -741,24 +741,13 @@ class CKKS:
         pc = bac.ps[:, None]
         ks_pair = self._keyswitch_core(dims_h, l, bound_bits=bits_h)
 
-        def modsum(x, p):
-            # sum over the baby-step axis mod p: every partial stays in
-            # [0, p), so any order gives the same words; each addition is a
-            # two-operand addmod (a plain sum of residues of a 60-bit prime
-            # overflows the word)
-            while x.shape[0] > 1:
-                h = x.shape[0] // 2
-                head = addmod(x[:h], x[h:2 * h], p)
-                x = torch.cat([head, x[2 * h:]]) if x.shape[0] % 2 else head
-            return x[0]
-
         def f(c1p, c0p, ptx_i, ptb_i, rk0, rk1):
             # all n1 baby steps as one batched product each; the key slices
             # are views of the stacked bank
             t = ring.mulmod(c1p, ptx_i, dims_h)
-            acc0 = modsum(ring.mulmod(t, rk0[:, :dims_h], dims_h), ps)
-            acc1 = modsum(ring.mulmod(t, rk1[:, :dims_h], dims_h), ps)
-            accb = modsum(ring.mulmod(c0p, ptb_i, dimc), pc)
+            acc0 = summod(ring.mulmod(t, rk0[:, :dims_h], dims_h), ps)
+            acc1 = summod(ring.mulmod(t, rk1[:, :dims_h], dims_h), ps)
+            accb = summod(ring.mulmod(c0p, ptb_i, dimc), pc)
             k0, k1 = ks_pair(acc0, acc1)
             res = ring.ntt_i(accb, dimc, scale_phatinv=True)
             db = rns_ops.reconstruct(res, bac, planc, center=True, k_out=klv,

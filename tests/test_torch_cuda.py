@@ -278,3 +278,130 @@ def test_cuda_deep_circuit_ops_match_cpu(cuda_device, logp):
     assert c["raised"].l == 8 and c["raised"].c0.shape[-1] == 8
     assert np.array_equal(got, got_cpu)
     assert np.max(np.abs(got - want)) < 1e-3       # Goldschmidt, 3 iterations, x in [0.5, 1]
+
+
+# -- the mesh engine: per-shard plans on the kernels, virtual meshes of the card --
+
+from gpqhe_tpu_torch.parallel import mesh as pmesh           # noqa: E402
+from gpqhe_tpu_torch.parallel.engine import MeshCKKS         # noqa: E402
+
+
+def _virtual(device, limb, coeff, batch=1):
+    n = limb * coeff * batch
+    return pmesh.make_he_mesh3(n, limb=limb, coeff=coeff, devices=[device] * n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logp", [59, 29])
+@pytest.mark.parametrize("logn,S", [(8, 2), (8, 4), (8, 16), (11, 8), (14, 2)])
+def test_cuda_kernel_on_shard_plans_matches_twin(cuda_device, logn, S, logp):
+    """The local stages of the coefficient-sharded NTT: both kernels at
+    length n/S (down to the kernel's minimum, 16) on the tables of every
+    coefficient shard, for limb shard 1's rows, forward and inverse with the
+    ring's n^-1: one launch each, torch.equal to the twin on the same tables."""
+    pctx = _ring(logn, logp, cuda_device).pctx
+    mod, mine = ((ntt_cuda, ntt_cuda.LAUNCHES) if logp == 59
+                 else (ntt_cuda32, ntt_cuda32.LAUNCHES32))
+    mesh = _virtual(cuda_device, 3, S)
+    splan, C = pmesh._basis_consts(mesh, pctx, 3, 2, "a")
+    assert splan["ntt"] is mod and splan["L"] == (1 << logn) // S
+    rng = np.random.default_rng(logn * S)
+    for s in range(S):
+        plan = C[1, s, 0]["a_ntt"]
+        assert (plan.dim, plan.n, plan.scale_phat) == (1, (1 << logn) // S, None)
+        assert plan.tables.tw_f.is_contiguous() and plan.tables.word == (64 if logp == 59 else 32)
+        p = np.uint64(pctx.primes[1])
+        host = rng.integers(0, 1 << 62, (2, 1, plan.n), dtype=np.uint64) % p
+        host[..., :2] = p - np.uint64(1)
+        a = u64_to_torch(host, cuda_device)
+        before = dict(mine)
+        hat = mod.ntt(a, plan)
+        back = mod.intt(hat, plan)
+        torch.cuda.synchronize()
+        assert (mine["fwd"], mine["inv"]) == (before["fwd"] + 1, before["inv"] + 1)
+        assert torch.equal(hat, ntt_cuda.plain_ntt(a, plan))
+        assert torch.equal(back, ntt_cuda.plain_intt(hat, plan))
+        with pytest.raises(ValueError, match="no scaled inverse"):
+            mod.intt(hat, plan, scaled=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logp", [59, 29])
+@pytest.mark.parametrize("S", [2, 4, 8])
+def test_cuda_coeff_sharded_ntt_matches_single_device(cuda_device, S, logp):
+    ring = _ring(11, logp, cuda_device)
+    pctx, dim = ring.pctx, 3
+    ps = np.array(pctx.primes[:dim], dtype=np.uint64)[:, None]
+    a = u64_to_torch(np.random.default_rng(S).integers(0, 1 << 62, (dim, 2048),
+                                                       dtype=np.uint64) % ps, cuda_device)
+    mesh = _virtual(cuda_device, 1, S)
+    splan, C = pmesh._basis_consts(mesh, pctx, dim, 2, "a")
+    hat = pmesh._ntt_coeff_sharded(mesh, pmesh._scatter(mesh, a, (None, "coeff")), C, "a", splan)
+    assert torch.equal(pmesh._gather(mesh, hat, (None, "coeff")), ring.ntt_f(a, dim))
+    back = pmesh._intt_coeff_sharded(mesh, hat, C, "a", splan)
+    assert torch.equal(pmesh._gather(mesh, back, (None, "coeff")), a)
+
+
+@pytest.mark.cuda
+def test_cuda_shard_below_the_kernels_minimum_raises(cuda_device):
+    pctx = PolyContext(6, q=1 << 20, dim_cap=2)
+    with pytest.raises(ValueError, match="below the CUDA NTT's n = 2\\^4"):
+        pmesh._basis_consts(_virtual(cuda_device, 1, 8), pctx, 2, 2, "a")
+    pmesh._basis_consts(_virtual(torch.device("cpu"), 1, 8), pctx, 2, 2, "a")    # the twin has no minimum
+
+
+@pytest.mark.cuda
+def test_mesh_of_more_gpus_than_there_are_raises(cuda_device):
+    have = torch.cuda.device_count()
+    with pytest.raises(RuntimeError, match=f"has {have} CUDA devices"):
+        pmesh.make_he_mesh3(have + 1, limb=have + 1)
+    assert pmesh.make_he_mesh3(have, limb=have).first_device == torch.device("cuda", 0)
+
+
+def _run_mesh(eng, keys_from):
+    """mul_rs, rot, conj and both hoisted gemv routes; the keys are made by
+    the single-device engine and shared."""
+    A = np.random.default_rng(16).random(16) + 0j
+    k = keys_from
+    plan = linalg.HoistedGemvPlan(eng, A)
+    bank = {r: k["rk"][r] for r in k["rk"] if r < plan.n1 or r % plan.n1 == 0}
+    ct = k["ct"]
+    out = dict(mul_rs=eng.mul_rs(ct, ct, k["rlk"]), rot=eng.rot(ct, 1, k["rk"]),
+               conj=eng.conj(ct, k["ck"]), full=linalg.gemv_hoisted_full(eng, plan, ct, k["rk"]),
+               bsgs=linalg.gemv_hoisted(eng, plan, ct, bank))
+    assert plan.fallbacks == 0
+    return out, A.reshape(4, 4) @ k["m"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logp", [59, 29])
+@pytest.mark.parametrize("shape", [(2, 2, 2), (2, 4, 1), (1, 8, 1)])
+def test_cuda_mesh_engine_matches_single_device(cuda_device, shape, logp):
+    """MeshCKKS on a virtual mesh of the card against CKKS on the card, on
+    the same keys: bit-equal ciphertexts, the local stages on this chain's
+    kernel and none of the scaled-inverse form in the sharded programs."""
+    ctx = HeContext(logn=9, q=1 << 120, slots=4, Delta=1 << 30, logp=logp)
+    eng = CKKS(ctx, rng=Surf(), device=cuda_device, hoist_bits=100)
+    pk, sk = eng.keypair()
+    m = np.random.default_rng(9).random(4) + 0j
+    keys = dict(rlk=eng.genrlk(sk), ck=eng.genck(sk), rk=eng.genrk(sk), m=m,
+                ct=eng.enc_pk(eng.ecd(m), pk))
+    want, Av = _run_mesh(eng, keys)
+    mesh = _virtual(cuda_device, *shape[:2], shape[2])
+    meng = MeshCKKS(ctx, mesh, rng=Surf(), hoist_bits=100)
+    assert meng.device == mesh.first_device and meng.device.type == "cuda"
+    mine, other = ((ntt_cuda.LAUNCHES, ntt_cuda32.LAUNCHES32) if logp == 59
+                   else (ntt_cuda32.LAUNCHES32, ntt_cuda.LAUNCHES))
+    before, before_other = dict(mine), dict(other)
+    got, _ = _run_mesh(meng, keys)
+    torch.cuda.synchronize()
+    assert mine["fwd"] > before["fwd"] and mine["inv"] >= before["inv"] + 8 * 6
+    assert other == before_other
+    assert {key[0] for key in meng._mesh_jit} == {"mul_rs", "rot", "gemvstep"}
+    for name in want:
+        assert got[name].c0.is_cuda
+        assert torch.equal(got[name].c0, want[name].c0), name
+        assert torch.equal(got[name].c1, want[name].c1), name
+    assert np.max(np.abs(eng.dcd(eng.dec(got["full"], sk)) - Av)) < 1e-5
+    assert (mesh.traffic["psum"][0] > 0) == (shape[0] > 1)     # one limb shard sums nothing
+    assert mesh.traffic["ppermute"][0] > 0

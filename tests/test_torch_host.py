@@ -128,6 +128,19 @@ def test_canemb_roundtrip_equal():
                           tcan.canemb(ub, 4, b.poly.cyc_group, b.poly.ring_zetas, b.poly.m))
 
 
+@pytest.mark.parametrize("S", [1, 4])
+def test_coeff_ntt_plan_equals_the_original(S):
+    """parallel/mesh.py::make_coeff_ntt_plan is host numpy carried over
+    unchanged: its four tables at the main-path ring's width."""
+    from gpqhe_tpu.parallel.mesh import make_coeff_ntt_plan as jplan
+    from gpqhe_tpu_torch.parallel.mesh import make_coeff_ntt_plan as tplan
+    a = jplan(jctx.PolyContext(10, 1 << 27, dim_cap=3), 3, S)
+    b = tplan(tctx.PolyContext(10, 1 << 27, dim_cap=3), 3, S)
+    assert a.keys() == b.keys()
+    for k in a:
+        assert np.array_equal(a[k], b[k]) if isinstance(a[k], np.ndarray) else a[k] == b[k], k
+
+
 def _imported_modules(path):
     with open(path) as f:
         tree = ast.parse(f.read(), path)
@@ -162,8 +175,15 @@ def test_port_imports_with_jax_blocked():
         "import gpqhe_tpu_torch.utils.pmu, gpqhe_tpu_torch.utils.info\n"
         "import gpqhe_tpu_torch.cli, gpqhe_tpu_torch.__main__\n"
         "import gpqhe_tpu_torch.substrate.rng_backends\n"
+        "import gpqhe_tpu_torch.parallel, gpqhe_tpu_torch.parallel.mesh\n"
+        "from gpqhe_tpu_torch.parallel.engine import MeshCKKS\n"
+        "from gpqhe_tpu_torch.parallel.mesh import make_he_mesh3\n"
         "eng = CKKS(HeContext(11, 1 << 48, 4, 1 << 22), rng=Surf(), device='cpu')\n"
         "pk, sk = eng.keypair()\n"
+        "mesh = make_he_mesh3(4, limb=2, coeff=2, devices=['cpu'] * 4)\n"
+        "meng = MeshCKKS(eng.ctx, mesh, rng=Surf())\n"
+        "ct = meng.enc_pk(meng.ecd([0.5, 0.25, 0.125, 1.0]), pk)\n"
+        "assert meng.conj(ct, meng.genck(sk)).l == ct.l and meng._mesh_jit\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'gpqhe_tpu.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n"
         "print('ok', eng.device)\n")

@@ -139,3 +139,24 @@ def test_mul_const_mod2k(k, k_out):
         want = [(v * c) % (1 << (32 * k_out)) for v in bigint.limbs_to_ints(a)]
         assert np.array_equal(_t(tl.mul_const_mod2k, a, c16=c16, k_out=k_out),
                               bigint.ints_to_limbs(want, k_out).astype(np.int64))
+
+
+@pytest.mark.parametrize("k", [1, 2, 7, 14])
+def test_to_f64_centered(k):
+    """Equal f64, value for value: rows with the top bit of the window set
+    (negative), the most negative value, -1, zero, and small values that are
+    exact in f64."""
+    a = _limbs(k, 9 * k)
+    a[5] = 0
+    a[5, 0] = 12345                 # exact in f64
+    a[6] = 0
+    for q_bits in sorted({1, 31, 32, 32 * k - 1, 32 * k}):
+        hb_limb, hb_bit = divmod(q_bits - 1, 32)
+        a[7] = 0
+        a[7, hb_limb] = 1 << hb_bit     # -2^(q_bits-1)
+        jout = _j(jl.to_f64_centered, a, q_bits=q_bits)
+        tout = _t(tl.to_f64_centered, a, q_bits=q_bits)
+        assert tout.dtype == np.float64 and np.array_equal(jout, tout)
+        assert tout[0] == -1.0 and tout[6] == 0.0 and tout[7] == -float(2 ** (q_bits - 1))
+        if q_bits > 15:
+            assert tout[5] == 12345.0

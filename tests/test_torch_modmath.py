@@ -79,3 +79,32 @@ def test_u64_roundtrip_keeps_bit_patterns():
     t = tm.u64_to_torch(x)
     assert t.dtype == torch.int64
     assert np.array_equal(tm.torch_to_u64(t), x)
+
+
+def test_barrett_inv_equals_the_original():
+    for p in CHAINS[59].primes + CHAINS[29].primes + [3, (1 << 61) - 1]:
+        assert tm.barrett_inv(p) == jm.barrett_inv(p) == (1 << (2 * p.bit_length())) // p
+
+
+@pytest.mark.parametrize("i", range(4))
+def test_barrett_reduce_bit_equal_to_jnp(i):
+    """128-bit products of residues (0, 1, p-1 among them) of a 60-bit prime
+    (2 * qbits >= 64, as the function requires): equal to jnp's words and to
+    the Python-integer remainder; and on arbitrary words, where the value is
+    out of the function's range, still equal to jnp's, word for word (the
+    128-bit carry and the last compare are unsigned)."""
+    p = CHAINS[59].primes[i]
+    rng = np.random.default_rng(7 + i)
+    a, b = _residues(rng, p), _residues(rng, p)[::-1].copy()
+    prod = [int(x) * int(y) for x, y in zip(a, b)]
+    hi = np.array([v >> 64 for v in prod], dtype=np.uint64)
+    lo = np.array([v & (2**64 - 1) for v in prod], dtype=np.uint64)
+    q, qinv = (np.array(v, dtype=np.uint64) for v in (p, tm.barrett_inv(p)))
+    qbits = p.bit_length()
+    for h, l in ((hi, lo), (_full(rng, 510), _full(rng, 510)[::-1].copy())):
+        jout = jm.barrett_reduce(jnp.asarray(h), jnp.asarray(l), jnp.asarray(q),
+                                 jnp.asarray(qinv), qbits)
+        tout = tm.barrett_reduce(_t(h), _t(l), _t(q), _t(qinv), qbits)
+        assert _eq(jout, tout), p
+    got = tm.torch_to_u64(tm.barrett_reduce(_t(hi), _t(lo), _t(q), _t(qinv), qbits))
+    assert [int(v) for v in got] == [v % p for v in prod]
