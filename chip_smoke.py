@@ -59,12 +59,33 @@ non-zero:
              counters, zeroed before one call of each mesh op and read after,
              equal to the local transforms expected.  Medians of each mesh
              op beside the single-device op, one profiled call, the
-             collectives' transfers and bytes per op, peak memory.  The CLI
+             collectives' transfers and bytes per op, peak memory.  The copy
+             path, each chain at logn=9/logq=120/slots=4/Delta=2^30: the same
+             four ops on a (2,2,2) mesh whose position (l, c, b) is on the card
+             when l + c is even and on the host otherwise, torch.equal to
+             CKKS on the card (the first differing index where not), with
+             device-copy bytes > 0 in psum, ppermute, scatter and gather and
+             no view in psum or ppermute.  The CLI
              with --mesh=2x2x1:virtual ([ok]) and without :virtual (exit 2
              where the machine has fewer than 4 GPUs).  After the bootstrap
              phase, on its keys (or on keys of its own when that phase is
              not run): bootstrap.coeff2slot at logn=15/logq=881 on a (2,4,1)
              mesh torch.equal to the single-device result.
+  mesh_mp  — one mesh over two processes: `python -m
+             gpqhe_tpu_torch.parallel.mp_mul_rs` at logn=14/logq=438/slots=16/
+             Delta=2^50, both chains in one run, 2 ranks x 4 positions on
+             (2,2,2) (the limb psum crosses the ranks) and (1,4,2) (the
+             coefficient swap at distance 2 does); both ranks on the one card
+             over gloo (messages staged through host memory), or one card a
+             rank over nccl where there are two (the lines say which and
+             why).  Gates: the launcher's PASS (every rank's mul_rs, rot(1),
+             conj and hoisted gemv torch.equal to the single-device engine,
+             decodes within 1e-5), every rank's launches of its chain's
+             kernel > 0 and of the other 0, bytes across the processes > 0 on
+             each layout, staged bytes > 0 over gloo.  Per rank ms per op,
+             the device busy ms of one mul_rs, bytes by kind, seconds of
+             set-up and of each layout, and rank 0's one-process virtual mesh
+             of the same layout (mul_rs).
   nonlinear — algo/nonlinear.py at logn=14/logq=438/slots=4/Delta=2^30 from
              Surf(), the op sequence of tests/test_golden_algo.py: m0 bit-equal
              to tests/golden/golden_algo_nonlinear.json, and he_inv(5),
@@ -978,6 +999,151 @@ def mesh_chain(logp: int, iters: int, devices, what: str) -> dict:
     return launches
 
 
+def mixed_devices(card, limb: int, coeff: int, batch: int) -> list:
+    """Devices of a (limb, coeff, batch) mesh whose position (l, c, b) is on
+    the card when l + c is even and on the host otherwise: every limb psum
+    and every coefficient swap (partners differ by one in l or in c) is a
+    copy between the two, and so is half of every scatter and gather."""
+    import torch
+    return [card if (l + c) % 2 == 0 else torch.device("cpu")
+            for l in range(limb) for c in range(coeff) for _ in range(batch)]
+
+
+def first_difference(a, b):
+    """The first index at which two tensors differ (None where equal)."""
+    import torch
+    if a.shape != b.shape:
+        return f"shapes {tuple(a.shape)} and {tuple(b.shape)}"
+    diff = torch.nonzero(a.cpu() != b.cpu())
+    return tuple(diff[0].tolist()) if len(diff) else None
+
+
+def mesh_mixed(logp: int) -> None:
+    """The copy path: mul_rs, rot(1), conj and the fully hoisted gemv at
+    logn=9/logq=120/slots=4/Delta=2^30 on a (2,2,2) mesh of the card and the
+    host (mixed_devices) against CKKS on the card, on the same keys."""
+    import numpy as np
+    import torch
+    from gpqhe_tpu_torch.algo import linalg
+    from gpqhe_tpu_torch.context import HeContext
+    from gpqhe_tpu_torch.parallel.engine import MeshCKKS
+    from gpqhe_tpu_torch.parallel.mesh import make_he_mesh3
+    from gpqhe_tpu_torch.scheme.engine import CKKS
+    from gpqhe_tpu_torch.substrate.surf import Surf
+
+    t0 = time.time()
+    ctx = HeContext(logn=9, q=1 << 120, slots=4, Delta=1 << 30, logp=logp)
+    eng = CKKS(ctx, rng=Surf(), hoist_bits=100)
+    pk, sk = eng.keypair()
+    rlk, ck, rk = eng.genrlk(sk), eng.genck(sk), eng.genrk(sk)
+    rng = np.random.default_rng(9)
+    v, m2 = (rng.random(4) + 1j * rng.random(4) for _ in range(2))
+    A = rng.random(16) + 1j * rng.random(16)
+    ct, ct2 = eng.enc_pk(eng.ecd(v), pk), eng.enc_pk(eng.ecd(m2), pk)
+    mesh = make_he_mesh3(8, limb=2, coeff=2,
+                         devices=mixed_devices(torch.device("cuda", 0), 2, 2, 2))
+    meng = MeshCKKS(ctx, mesh, rng=Surf(), hoist_bits=100)
+
+    def ops(e):
+        plan = linalg.HoistedGemvPlan(e, A)
+        return {"mul_rs": lambda: e.mul_rs(ct, ct2, rlk), "rot": lambda: e.rot(ct, 1, rk),
+                "conj": lambda: e.conj(ct, ck),
+                "gemv_full": lambda: linalg.gemv_hoisted_full(e, plan, ct, rk)}
+    single = {k: fn() for k, fn in ops(eng).items()}
+    got, traffic = {}, {}
+    for k, fn in ops(meng).items():
+        mesh.reset_traffic()
+        got[k] = fn()
+        traffic[k] = {c: {kind: list(n) for kind, n in kinds.items()}
+                      for c, kinds in mesh.traffic_by_kind.items()}
+    torch.cuda.synchronize()
+    differ = {f"{k} {half}": first_difference(getattr(got[k], half), getattr(single[k], half))
+              for k in single if got[k] is not None for half in ("c0", "c1")}
+    equal = {k: got[k] is not None and differ[f"{k} c0"] is None and differ[f"{k} c1"] is None
+             and (got[k].l, got[k].nu, got[k].B) == (single[k].l, single[k].nu, single[k].B)
+             for k in single}
+    copies = {c: sum(t[c]["device"][1] for t in traffic.values()) for c in traffic["mul_rs"]}
+    views_due_copies = {c: sum(t[c]["view"][0] for t in traffic.values())
+                        for c in ("psum", "ppermute")}
+    emit({"phase": "mesh_mixed", "logp": logp, "logn": 9, "logq": 120, "slots": 4,
+          "logDelta": 30, "mesh": dict(mesh.shape),
+          "devices": [str(mesh.device(p)) for p in mesh.positions],
+          "equal_to_single_device": equal, "first_difference": differ,
+          "device_copy_bytes": copies, "views_in_psum_and_ppermute": views_due_copies,
+          "traffic": traffic, "seconds": time.time() - t0})
+    if not all(equal.values()):
+        raise AssertionError(f"mixed mesh logp={logp}: differs from the card: {differ}")
+    if not all(copies.values()) or any(views_due_copies.values()):
+        raise AssertionError(f"mixed mesh logp={logp}: copies {copies}, views where a copy "
+                             f"was due {views_due_copies}")
+
+
+MP_RING = ["--logn=14", "--logq=438", "--slots=16", "--logDelta=50"]
+MP_LAYOUTS = ("2x2x2", "1x4x2")
+
+
+def phase_mesh_mp(iters: int) -> None:
+    """The mesh across two processes (gpqhe_tpu_torch.parallel.mp_mul_rs) at
+    logn=14/logq=438/slots=16/Delta=2^50 on both chains and both layouts in
+    one launcher run: 2 ranks x 4 positions, both on the one card over gloo
+    (or one card a rank over nccl where there are two).  One line a chain."""
+    import torch
+    cards = torch.cuda.device_count()
+    backend, why = (("nccl", f"{cards} cards: one a rank") if cards >= 2 else
+                    ("gloo", "one card: both ranks share it, which nccl refuses; gloo "
+                             "stages every message through host memory"))
+    t0 = time.time()
+    argv = [sys.executable, "-m", "gpqhe_tpu_torch.parallel.mp_mul_rs", "--device=cuda",
+            f"--backend={backend}", *MP_RING, "--logp=59,29",
+            f"--mesh={','.join(MP_LAYOUTS)}", f"--iters={iters}", "--timeout=600"]
+    out = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=900)
+    stdout = out.stdout.splitlines()
+    lines = [json.loads(t) for t in stdout if t.startswith("{")]
+    problems = []
+    if out.returncode != 0 or not stdout or not stdout[-1].startswith("mp_mul_rs: PASS"):
+        problems.append(f"exit {out.returncode}")
+    for logp in (59, 29):
+        mine, other = ("u64", "u32") if logp > 29 else ("u32", "u64")
+        ranks = {}
+        for ln in lines:
+            if ln["logp"] != logp:
+                continue
+            kinds = {op: {k: sum(c[k][1] for c in t.values())
+                          for k in ("view", "device", "process", "staged")}
+                     for op, t in ln["traffic"].items()}
+            ranks.setdefault(ln["mesh"], []).append({
+                "rank": ln["rank"], "positions": ln["positions"], "equal": ln["equal"],
+                "decode_diffs": ln["decode_diffs"], "ms": ln.get("ms"),
+                "mul_rs_busy_ms": ln.get("mul_rs_busy_ms"), "virtual": ln.get("virtual"),
+                "bytes_by_kind": kinds,
+                "mul_rs_bytes": {c: {k: v[1] for k, v in t.items()}
+                                 for c, t in ln["traffic"]["mul_rs"].items()},
+                "launches": ln["launches"], "first_calls_s": ln["first_calls_s"],
+                "setup_s": ln["setup_s"], "seconds": ln["seconds"],
+                "peak_mem_mb": ln.get("peak_mem_mb")})
+        emit({"phase": "mesh_mp", "logp": logp, "logn": 14, "logq": 438, "slots": 16,
+              "logDelta": 50, "backend": backend, "why": why, "ranks": 2,
+              "returncode": out.returncode, "verdict": stdout[-1] if stdout else None,
+              "layouts": ranks, "seconds": time.time() - t0})
+        if sorted(ranks) != sorted(MP_LAYOUTS) or any(len(v) != 2 for v in ranks.values()):
+            problems.append(f"logp={logp} rank lines "
+                            f"{[(ln['mesh'], ln['rank']) for ln in lines if ln['logp'] == logp]}")
+        for lay, rs in ranks.items():
+            for r in rs:
+                where = f"logp={logp} {lay} rank {r['rank']}"
+                if not all(r["equal"].values()) or not all(d < 1e-5 for d in r["decode_diffs"].values()):
+                    problems.append(f"{where}: {r['equal']} {r['decode_diffs']}")
+                if (r["launches"][mine]["fwd"] <= 0 or r["launches"][mine]["inv"] <= 0
+                        or any(r["launches"][other].values())):
+                    problems.append(f"{where}: launches {r['launches']}")
+                if backend == "gloo" and not sum(k["staged"] for k in r["bytes_by_kind"].values()):
+                    problems.append(f"{where}: nothing staged over gloo")
+            if not sum(k["process"] for r in rs for k in r["bytes_by_kind"].values()):
+                problems.append(f"logp={logp} {lay}: no bytes crossed the processes")
+    if problems:
+        raise AssertionError(f"mesh_mp: {problems}\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+
+
 def mesh_cli() -> None:
     """`mul pk --mesh=2x2x1:virtual` at its defaults on the card, and the
     same mesh without :virtual (at a small ring: the answer does not depend
@@ -1032,6 +1198,7 @@ def phase_mesh(iters: int) -> dict:
         mesh_coeff_ntt_check(logp, devices)
         got = mesh_chain(logp, iters, devices, what)
         launches.update({f"{kernel}_{mode}": got[mode] for mode in r})
+        mesh_mixed(logp)
     mesh_cli()
     return {"kernels": kernels, "launches": launches}
 
@@ -1476,8 +1643,8 @@ def phase_cli() -> None:
             raise AssertionError(f"cli {argv}: NTT launches {counts}")
 
 
-PHASES = ("build", "kernels", "golden", "mul_rs", "linalg59", "linalg29", "mesh", "nonlinear",
-          "cmp", "bootstrap", "serialize", "cli")
+PHASES = ("build", "kernels", "golden", "mul_rs", "linalg59", "linalg29", "mesh", "mesh_mp",
+          "nonlinear", "cmp", "bootstrap", "serialize", "cli")
 
 
 def main(argv=None) -> int:
@@ -1539,6 +1706,9 @@ def main(argv=None) -> int:
         kernels.update(r["kernels"])
         launches.update(r["launches"])
         clock("mesh")
+    if "mesh_mp" in phases:
+        phase_mesh_mp(max(3, args.iters // 4))
+        clock("mesh_mp")
     if "nonlinear" in phases:
         phase_nonlinear(args.iters)
         clock("nonlinear")

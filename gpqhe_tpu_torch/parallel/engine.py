@@ -5,8 +5,11 @@ scheme ops — rot/conj, fused mul+relin+rescale, and the hoisted-gemv giant
 step — through the sharded programs of parallel/mesh.py, so COMPOSITIONS
 built from public engine ops (gemv_hoisted, coeff2slot, bootstrap stages)
 execute on the mesh end-to-end.  Everything else (add/sub/rs/moddown, mulpt,
-keygen, encode, the hoisting prologue) is inherited and runs on the mesh's
-first device, where every sharded program leaves its gathered output.
+keygen, encode, the hoisting prologue) is inherited and runs on this
+process's first device, where every sharded program leaves its gathered
+output.  On a mesh that spans processes every rank runs the same
+composition in lockstep: the inherited ops are replicated, the sharded
+programs walk each rank's own positions.
 
 Everything is BIT-IDENTICAL to the single-device CKKS engine: the sharded
 programs are exactness-tested against the engine's, and the one
@@ -31,7 +34,7 @@ from . import mesh as mesh_ops
 class MeshCKKS(CKKS):
     """CKKS engine that executes rot/conj/mul_rs and the hoisted-gemv step
     as (limb, coeff, batch)-sharded programs on the given mesh.  The
-    engine's own device is the mesh's first device."""
+    engine's own device is this process's first device of the mesh."""
 
     def __init__(self, ctx, mesh: mesh_ops.HeMesh, **kw):
         device = kw.pop("device", None)

@@ -16,17 +16,19 @@ ref: src/rns.c:79-216).  Here they are the axes of a mesh of devices:
           length n/S on per-shard tables (ntt_cuda.ShardTables).
   batch — independent ciphertexts (pure data parallelism).
 
-The model is the JAX package's: ONE controller process.  Where JAX's
-shard_map runs a per-shard body over global arrays, the programs here keep
-one local tensor per mesh position in a dict keyed by the position
-(j, s, b) and walk the positions in a Python loop, step by step.  A mesh is
-an array of torch devices that may name one device several times (a virtual
-mesh: the role of XLA's forced host device count in the JAX tests); the same
-code drives distinct GPUs, where the collectives become copies between
-devices.  Data crosses shards in three functions only — _psum_limb,
-_ppermute_coeff_xor and _scatter / _gather — so another transport can be put
-behind them.  Every program takes and returns ordinary tensors on the mesh's
-first device.
+Where JAX's shard_map runs a per-shard body over global arrays, the
+programs here keep one local tensor per mesh position in a dict keyed by the
+position (j, s, b) and walk the positions in a Python loop, step by step.  A
+mesh is an array of torch devices that may name one device several times (a
+virtual mesh: the role of XLA's forced host device count in the JAX tests);
+the same code drives distinct devices, where the collectives become copies
+between them.  A mesh may also span processes (make_he_mesh3(..., group=),
+the counterpart of a jax.distributed mesh): each process walks only its own
+positions, and data crosses processes as torch.distributed messages
+(parallel/dist.py).  Data crosses positions in three functions only —
+_psum_limb, _ppermute_coeff_xor and _gather (a _scatter cuts the global
+input, which every process holds) — all through _transfer.  Every program
+takes ordinary tensors and returns them on this process's first device.
 
 Collectives per program: log2(S) block swaps per NTT on 'coeff'; one sum of
 [batch, n/S, ds] digit partials (and an [batch, n/S] f64 estimate) per CRT
@@ -45,18 +47,32 @@ from ..ops import rns as rns_ops
 from ..ops.modmath import addmod, mont_mul, mulmod, submod, summod, u64_to_torch
 from ..ring.poly import ntt_module
 from ..utils import trace
+from . import dist as pdist
 
 _AXES = ("limb", "coeff", "batch")
+_COLLECTIVES = ("psum", "ppermute", "scatter", "gather")
+_KINDS = ("view", "device", "process")
 
 
 class HeMesh:
     """An array of torch devices with named axes, (limb, batch) or
     (limb, coeff, batch); .shape maps axis name -> size as jax's Mesh does.
-    traffic counts what the collectives moved between mesh positions since
-    reset_traffic(): {kind: [transfers, bytes]} (on a virtual mesh a
-    transfer is a view or an add on the one device, counted all the same)."""
 
-    def __init__(self, devices: np.ndarray, axis_names: tuple[str, ...]):
+    ranks (same shape as devices) names the process that holds each
+    position, rank is this process and group the torch.distributed group
+    that joins them (None: one process holds every position).
+    local_positions are the positions this process walks.
+
+    traffic_by_kind counts what the collectives moved into this process's
+    positions since reset_traffic(): {collective: {kind: [transfers,
+    bytes]}}, kind "view" (both positions on one device: no copy), "device"
+    (a copy between two devices of this process) or "process" (a message
+    from another process); "staged" counts the bytes this process copied
+    between a card and host memory for messages over a gloo group.
+    traffic is {collective: [transfers, bytes]} over the three kinds."""
+
+    def __init__(self, devices: np.ndarray, axis_names: tuple[str, ...],
+                 ranks: np.ndarray | None = None, rank: int = 0, group=None):
         if devices.ndim != len(axis_names) or not set(axis_names) <= set(_AXES):
             raise ValueError(f"mesh axes {axis_names} do not fit devices {devices.shape}")
         self.devices = devices
@@ -64,9 +80,19 @@ class HeMesh:
         self.shape = dict(zip(axis_names, devices.shape))
         # positions are (limb, coeff, batch) triples: a mesh without a
         # coefficient axis has one coefficient shard
-        self._grid = devices.reshape(tuple(self.shape.get(a, 1) for a in _AXES))
-        self.positions = [tuple(int(i) for i in pos) for pos in np.ndindex(self._grid.shape)]
-        self.traffic: dict[str, list[int]] = {}
+        grid_shape = tuple(self.shape.get(a, 1) for a in _AXES)
+        self._grid = devices.reshape(grid_shape)
+        self.positions = [tuple(int(i) for i in pos) for pos in np.ndindex(grid_shape)]
+        self._ranks = (np.zeros(grid_shape, dtype=np.int64) if ranks is None
+                       else np.asarray(ranks).reshape(grid_shape))
+        self.rank, self.group = rank, group
+        self.local_positions = [p for p in self.positions if self.rank_of(p) == rank]
+        if not self.local_positions:
+            raise ValueError(f"rank {rank} holds no position of the mesh")
+        # each rank's first position: where a gather leaves the whole output
+        self.rank_heads = [next(p for p in self.positions if self.rank_of(p) == r)
+                           for r in range(int(self._ranks.max()) + 1)]
+        self.traffic_by_kind: dict[str, dict[str, list[int]]] = {}
         self._ring_tables: dict = {}
         self.reset_traffic()
 
@@ -76,21 +102,35 @@ class HeMesh:
     def device(self, pos) -> torch.device:
         return self._grid[pos]
 
+    def rank_of(self, pos) -> int:
+        return int(self._ranks[pos])
+
     @property
     def first_device(self) -> torch.device:
-        return self._grid[0, 0, 0]
+        """This process's first device: the engine's, and where every
+        program leaves its output."""
+        return self.device(self.local_positions[0])
 
     def reset_traffic(self) -> None:
-        self.traffic = {k: [0, 0] for k in ("psum", "ppermute", "scatter", "gather")}
+        self.traffic_by_kind = {c: {k: [0, 0] for k in _KINDS + ("staged",)}
+                                for c in _COLLECTIVES}
+
+    @property
+    def traffic(self) -> dict[str, list[int]]:
+        return {c: [sum(kinds[k][i] for k in _KINDS) for i in (0, 1)]
+                for c, kinds in self.traffic_by_kind.items()}
 
 
 def _mesh_devices(n_devices: int | None, devices) -> list:
     """The first n_devices of `devices`, or of the visible CUDA devices.
-    Never the CPU and never a repeated device unless the caller lists it."""
+    Never the CPU and never a repeated device unless the caller lists it.
+    A CUDA device without an index is the current one."""
     if devices is None:
         devs = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     else:
         devs = [torch.device(d) for d in devices]
+        devs = [torch.device("cuda", torch.cuda.current_device())
+                if d.type == "cuda" and d.index is None else d for d in devs]
     if n_devices is None:
         n_devices = len(devs)
     if n_devices < 1 or len(devs) < n_devices:
@@ -128,28 +168,46 @@ def make_he_mesh(n_devices: int | None = None, limb: int | None = None,
 
 
 def make_he_mesh3(n_devices: int | None = None, limb: int = 1,
-                  coeff: int = 1, devices=None) -> HeMesh:
+                  coeff: int = 1, devices=None, group=None) -> HeMesh:
     """Create a (limb, coeff, batch) mesh.
 
     devices: explicit device list (defaults to the visible CUDA devices;
     raises where there are fewer than n_devices).  A list that repeats a
     device, e.g. [torch.device("cuda:0")] * 8, makes a virtual mesh on it:
     every program runs the same per-shard steps, and the collectives are
-    views and adds instead of copies."""
-    devs = _mesh_devices(n_devices, devices)
+    views and adds instead of copies.
+
+    group: a torch.distributed group (parallel/dist.py).  Then devices are
+    this process's own, every member of the group calls this with the same
+    arguments, and the mesh is every rank's devices in rank order, n_devices
+    of them in all: with limb the slowest axis, the limb axis crosses
+    processes first.  Each rank walks its own positions only."""
+    if group is None:
+        devs = _mesh_devices(n_devices, devices)
+        ranks, rank = None, 0
+    else:
+        lists = pdist.gather_device_lists(group, _mesh_devices(None, devices))
+        devs = [torch.device(d) for lst in lists for d in lst]
+        ranks = np.array([r for r, lst in enumerate(lists) for _ in lst])
+        rank = torch.distributed.get_rank(group)
+        if n_devices is not None and n_devices != len(devs):
+            raise ValueError(f"the group's ranks hold {len(devs)} devices, not {n_devices}")
     n_devices = len(devs)
     batch = n_devices // (limb * coeff)
     if limb * coeff * batch != n_devices:
         raise ValueError(f"{n_devices} devices do not fill a mesh with limb={limb}, "
                          f"coeff={coeff}")
-    return HeMesh(_device_array(devs, (limb, coeff, batch)), _AXES)
+    shape = (limb, coeff, batch)
+    return HeMesh(_device_array(devs, shape), _AXES,
+                  None if ranks is None else ranks.reshape(shape), rank, group)
 
 
 # ---------------------------------------------------------------------------
 # sharded values and the three collectives
 # ---------------------------------------------------------------------------
-# A sharded value is a dict {position: local tensor}; per-shard constants
-# are a dict {position: {name: tensor or plan}}.
+# A sharded value is a dict {position: local tensor} over this process's
+# positions; per-shard constants are a dict {position: {name: tensor or
+# plan}}.  Every block of a sharded value has one shape and dtype.
 
 def _each(fn, *parts) -> dict:
     """fn at every mesh position on that position's local parts."""
@@ -161,35 +219,90 @@ def _merge(*consts) -> dict:
     return {pos: {k: v for c in consts for k, v in c[pos].items()} for pos in consts[0]}
 
 
-def _move(mesh: HeMesh, t: torch.Tensor, pos, kind: str) -> torch.Tensor:
-    """t on the device of mesh position pos, counted as one transfer."""
-    count = mesh.traffic[kind]
+def _count(mesh: HeMesh, collective: str, kind: str, t: torch.Tensor) -> None:
+    count = mesh.traffic_by_kind[collective][kind]
     count[0] += 1
     count[1] += t.numel() * t.element_size()
-    return t.to(mesh.device(pos))
+
+
+def _move(mesh: HeMesh, t: torch.Tensor, pos, collective: str) -> torch.Tensor:
+    """t on the device of this process's position pos, counted as one
+    transfer: a view where t is there already, else a copy."""
+    dev = mesh.device(pos)
+    _count(mesh, collective, "view" if t.device == dev else "device", t)
+    return t.to(dev)
+
+
+def _transfer(mesh: HeMesh, values: dict, moves, collective: str, like: torch.Tensor) -> dict:
+    """values[src] on the device of dst, for every (src, dst) of moves whose
+    dst this process holds: {(src, dst): tensor}.  moves is one global list,
+    built alike on every rank.  Between two positions of this process it is
+    a _move; across processes one message a move, a step's messages posted
+    together (dist.schedule / dist.exchange).  like: a block of the value
+    (every block has its shape and dtype), the shape of a receive buffer.
+    On a gloo group a CUDA block crosses through host memory."""
+    stage = mesh.group is not None and pdist.stages_through_host(mesh.group)
+    out, ops, landed = {}, [], []
+    for op, peer, (src, dst) in pdist.schedule(mesh.rank_of, moves, mesh.rank):
+        if op == "local":
+            out[src, dst] = _move(mesh, values[src], dst, collective)
+        elif op == "send":
+            t = values[src]
+            if t.shape != like.shape or t.dtype != like.dtype:
+                raise ValueError(f"block {tuple(t.shape)} {t.dtype} of {src} is not the "
+                                 f"value's {tuple(like.shape)} {like.dtype}")
+            if t.is_cuda and stage:
+                _count(mesh, collective, "staged", t)
+                t = t.cpu()
+            elif not t.is_cuda and not stage:
+                raise ValueError(f"position {src} is on {t.device}: an nccl group sends "
+                                 f"CUDA tensors only")
+            ops.append((op, peer, t.contiguous()))
+        else:
+            buf = torch.empty(like.shape, dtype=like.dtype,
+                              device="cpu" if stage else mesh.device(dst))
+            ops.append((op, peer, buf))
+            landed.append((src, dst, buf))
+    pdist.exchange(mesh.group, ops)
+    for src, dst, buf in landed:
+        dev = mesh.device(dst)
+        _count(mesh, collective, "process", buf)
+        if buf.device != dev:
+            _count(mesh, collective, "staged", buf)
+        out[src, dst] = buf.to(dev)
+    return out
+
+
+def _first_block(parts: dict) -> torch.Tensor:
+    return next(iter(parts.values()))
 
 
 def _psum_limb(mesh: HeMesh, parts: dict) -> dict:
     """Limb psum: add the per-shard partials of every (coeff, batch) column
-    and give each member of the column the sum."""
+    and give each member of the column the sum.  The members send to the
+    column's head (limb index 0), which adds them in limb order and sends
+    the total back: one order of addition whatever the layout."""
+    like = _first_block(parts)
+    heads = [pos for pos in mesh.positions if pos[0] == 0]
+    pairs = [((j,) + h[1:], h) for h in heads for j in range(1, mesh.size("limb"))]
+    got = _transfer(mesh, parts, pairs, "psum", like)
     out = {}
-    for pos in parts:
-        if pos[0]:
-            continue
-        column = [(j,) + pos[1:] for j in range(mesh.size("limb"))]
-        total = parts[pos]
-        for member in column[1:]:
-            total = total + _move(mesh, parts[member], pos, "psum")
-        out[pos] = total
-        for member in column[1:]:
-            out[member] = _move(mesh, total, member, "psum")
+    for h in heads:
+        if mesh.rank_of(h) == mesh.rank:
+            total = parts[h]
+            for j in range(1, mesh.size("limb")):
+                total = total + got[(j,) + h[1:], h]
+            out[h] = total
+    back = _transfer(mesh, out, [(h, m) for m, h in pairs], "psum", like)
+    out.update({m: t for (_, m), t in back.items()})
     return out
 
 
 def _ppermute_coeff_xor(mesh: HeMesh, parts: dict, d: int) -> dict:
     """Coeff block swap: shard s receives the block of shard s ^ d."""
-    return {pos: _move(mesh, parts[pos[0], pos[1] ^ d, pos[2]], pos, "ppermute")
-            for pos in parts}
+    pairs = [((p[0], p[1] ^ d, p[2]), p) for p in mesh.positions]
+    got = _transfer(mesh, parts, pairs, "ppermute", _first_block(parts))
+    return {dst: t for (_, dst), t in got.items()}
 
 
 def _block(mesh: HeMesh, x: torch.Tensor, spec, pos) -> torch.Tensor:
@@ -204,21 +317,28 @@ def _block(mesh: HeMesh, x: torch.Tensor, spec, pos) -> torch.Tensor:
 
 
 def _scatter(mesh: HeMesh, x: torch.Tensor, spec) -> dict:
-    """Global tensor -> one block per position: dimension i is cut along the
-    mesh axis spec[i] names (None: whole); positions along an axis that spec
-    does not name hold copies (views, on the tensor's own device)."""
+    """Global tensor -> one block per position of this process: dimension i
+    is cut along the mesh axis spec[i] names (None: whole); positions along
+    an axis that spec does not name hold copies (views, on the tensor's own
+    device).  Every process holds the whole of x: nothing crosses them."""
     return {pos: _move(mesh, _block(mesh, x, spec, pos), pos, "scatter")
-            for pos in mesh.positions}
+            for pos in mesh.local_positions}
 
 
 def _gather(mesh: HeMesh, parts: dict, spec) -> torch.Tensor:
-    """The inverse of _scatter, onto the mesh's first device; along an axis
-    that spec does not name, the copy at index 0 is taken."""
+    """The inverse of _scatter, onto this process's first device (every
+    process gets the whole); along an axis that spec does not name, the
+    copy at index 0 is taken."""
     named = [(dim, axis) for dim, axis in enumerate(spec) if axis is not None]
+    unnamed = [_AXES.index(a) for a in _AXES if a not in spec]
+    sources = [p for p in mesh.positions if not any(p[i] for i in unnamed)]
+    got = _transfer(mesh, parts, [(p, h) for p in sources for h in mesh.rank_heads],
+                    "gather", _first_block(parts))
+    mine = mesh.local_positions[0]
 
     def rec(pos, todo):
         if not todo:
-            return _move(mesh, parts[tuple(pos)], (0, 0, 0), "gather")
+            return got[tuple(pos), mine]
         (dim, axis), rest = todo[0], todo[1:]
         blocks = []
         for i in range(mesh.size(axis)):
@@ -296,7 +416,7 @@ def _coeff_tables(mesh: HeMesh, pctx: PolyContext):
         cp = make_coeff_ntt_plan(pctx, pctx.dimub, mesh.size("coeff"))
         word = 32 if ntt_module(pctx) is ntt_cuda32 else 64
         tables = {}
-        for pos in mesh.positions:
+        for pos in mesh.local_positions:
             key = (mesh.device(pos), pos[1])
             if key not in tables:
                 tables[key] = ntt_cuda.ShardTables(
@@ -363,7 +483,7 @@ def _per_limb_shard(mesh: HeMesh, dim: int, make) -> dict:
     rows = dim // mesh.size("limb")
     made = {}
     out = {}
-    for pos in mesh.positions:
+    for pos in mesh.local_positions:
         key = (mesh.device(pos), pos[0])
         if key not in made:
             made[key] = make(key[0], pos[0] * rows, (pos[0] + 1) * rows)
@@ -390,7 +510,7 @@ def _basis_consts(mesh: HeMesh, pctx: PolyContext, dim: int, k_in: int, prefix: 
     consts = _per_limb_shard(mesh, dim, shard)
     rows = dim // mesh.size("limb")
     return splan, {pos: {**consts[pos], f"{prefix}_ntt": tables[mesh.device(pos), pos[1]].plan(
-        pos[0] * rows, (pos[0] + 1) * rows)} for pos in mesh.positions}
+        pos[0] * rows, (pos[0] + 1) * rows)} for pos in mesh.local_positions}
 
 
 def _recon_consts(mesh: HeMesh, pctx: PolyContext, dim_basis: int, dim_padded: int,
@@ -428,7 +548,7 @@ def _ks_post_factory(eng, l: int, mesh: HeMesh, C: dict):
     2^(32 kq) + round bit."""
     qb, klv, kq = eng.qbits(l), eng.kl(l), eng.kq
     pinv16, rk8 = eng.pinv16, eng.rk8
-    p_half_up = {pos: eng.p_half_up.to(mesh.device(pos)) for pos in mesh.positions}
+    p_half_up = {pos: eng.p_half_up.to(mesh.device(pos)) for pos in mesh.local_positions}
 
     def finish(c, r, half):
         u = lb.mul_const_mod2k(lb.sub(lb.resize(c, kq), lb.resize(r, kq)), pinv16, kq)

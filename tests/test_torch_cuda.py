@@ -12,6 +12,11 @@ neither jax nor gpqhe_tpu, so it runs on a machine without them:
 (--noconftest: tests/conftest.py configures jax for the JAX package's tests.)
 """
 
+import json
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -405,3 +410,57 @@ def test_cuda_mesh_engine_matches_single_device(cuda_device, shape, logp):
     assert np.max(np.abs(eng.dcd(eng.dec(got["full"], sk)) - Av)) < 1e-5
     assert (mesh.traffic["psum"][0] > 0) == (shape[0] > 1)     # one limb shard sums nothing
     assert mesh.traffic["ppermute"][0] > 0
+
+
+# -- the copy path: a mesh of the card and the host; a mesh of two processes --
+
+from chip_smoke import first_difference, mixed_devices      # noqa: E402
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logp", [59, 29])
+def test_cuda_mesh_of_card_and_host_matches_single_device(cuda_device, logp):
+    """(2,2,2) with position (l, c, b) on the card when l + c is even, else on
+    the host: every limb psum and coefficient swap, and half of each scatter
+    and gather, is a copy between the two (the card's blocks through the
+    kernel, the host's through the twin).  Bit-equal to CKKS on the card."""
+    ctx = HeContext(logn=9, q=1 << 120, slots=4, Delta=1 << 30, logp=logp)
+    eng = CKKS(ctx, rng=Surf(), device=cuda_device, hoist_bits=100)
+    pk, sk = eng.keypair()
+    m = np.random.default_rng(9).random(4) + 0j
+    keys = dict(rlk=eng.genrlk(sk), ck=eng.genck(sk), rk=eng.genrk(sk), m=m,
+                ct=eng.enc_pk(eng.ecd(m), pk))
+    want, _ = _run_mesh(eng, keys)
+    mesh = pmesh.make_he_mesh3(8, limb=2, coeff=2, devices=mixed_devices(cuda_device, 2, 2, 2))
+    assert {mesh.device(p).type for p in mesh.positions} == {"cuda", "cpu"}
+    meng = MeshCKKS(ctx, mesh, rng=Surf(), hoist_bits=100)
+    assert meng.device.type == "cuda"
+    got, _ = _run_mesh(meng, keys)
+    for name in want:
+        for half in ("c0", "c1"):
+            a, b = getattr(got[name], half), getattr(want[name], half)
+            assert a.is_cuda and torch.equal(a, b), (name, half, first_difference(a, b))
+    t = mesh.traffic_by_kind
+    assert all(t[c]["device"][1] > 0 for c in ("psum", "ppermute", "scatter", "gather"))
+    assert t["psum"]["view"][0] == 0 and t["ppermute"]["view"][0] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_two_process_mesh_over_gloo(cuda_device):
+    """gpqhe_tpu_torch.parallel.mp_mul_rs with both ranks on the card over
+    gloo (every message staged through host memory), both layouts."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = subprocess.run([sys.executable, "-m", "gpqhe_tpu_torch.parallel.mp_mul_rs",
+                        "--device=cuda", "--backend=gloo", "--logn=9", "--logq=120",
+                        "--mesh=2x2x2,1x4x2", "--timeout=300"],
+                       cwd=root, capture_output=True, text=True, timeout=400)
+    assert p.returncode == 0, f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}"
+    assert p.stdout.splitlines()[-1].startswith("mp_mul_rs: PASS")
+    lines = [json.loads(t) for t in p.stdout.splitlines() if t.startswith("{")]
+    assert len(lines) == 4
+    for ln in lines:
+        assert all(ln["equal"].values()) and ln["device"] == "cuda:0"
+        assert ln["launches"]["u64"]["fwd"] > 0 and ln["launches"]["u64"]["inv"] > 0
+        assert not any(ln["launches"]["u32"].values())
+        kinds = [k for t in ln["traffic"].values() for k in t.values()]
+        assert sum(k["process"][1] for k in kinds) > 0 and sum(k["staged"][1] for k in kinds) > 0

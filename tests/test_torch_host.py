@@ -176,6 +176,7 @@ def test_port_imports_with_jax_blocked():
         "import gpqhe_tpu_torch.cli, gpqhe_tpu_torch.__main__\n"
         "import gpqhe_tpu_torch.substrate.rng_backends\n"
         "import gpqhe_tpu_torch.parallel, gpqhe_tpu_torch.parallel.mesh\n"
+        "import gpqhe_tpu_torch.parallel.dist, gpqhe_tpu_torch.parallel.mp_mul_rs\n"
         "from gpqhe_tpu_torch.parallel.engine import MeshCKKS\n"
         "from gpqhe_tpu_torch.parallel.mesh import make_he_mesh3\n"
         "eng = CKKS(HeContext(11, 1 << 48, 4, 1 << 22), rng=Surf(), device='cpu')\n"
