@@ -11,15 +11,12 @@ non-zero:
              ptxas's registers, spills, stack and shared memory; static
              multiply-instruction counts from cuobjdump.
   kernels  — each CUDA NTT (u64 words on the 59-bit chain, u32 words on the
-             logp=29 chain) against the plain torch twin on the card and
-             against the first-design kernel kept in the same library
-             (entries gpqhe_ntt_v1 / gpqhe_ntt32_v1, called from here only):
-             torch.equal of all three on random residues at the paths'
-             shapes; the device time per launch of the kernel and of v1, in
-             turns (v1, new, new, v1), each a run of many launches between
-             one pair of CUDA events with the host enqueueing ahead of the
-             device, inputs L2-warm; the wrapper's host time per call; the
-             twin's median; the bound.
+             logp=29 chain) against the plain torch twin on the card:
+             torch.equal on random residues at the paths' shapes; the
+             device time per launch in two turns, each a run of many
+             launches between one pair of CUDA events with the host
+             enqueueing ahead of the device, inputs L2-warm; the wrapper's
+             host time per call; the twin's median; the bound.
   golden   — the logn=11 replay of tests/golden/golden_logn11.json (enc,
              add, mul+rs, conj, rot1, moddown) within tests/test_golden.py's
              tolerances.
@@ -42,6 +39,26 @@ non-zero:
              (rot, mul_rs_batch, both gemv routes), and the kernel against
              its twin at the gemv's shapes.  After both: a `chains` line,
              mul_rs on each chain in turns (59, 29, 29, 59).
+  suite    — the rest of the JAX package's test suite on the card, every gate
+             raising: tests/test_crt_mode.py's logp=9 chain (six primes of
+             10-11 bits at n=2^4, the u32 kernel): decompose, reconstruct
+             (center=False) and the NTT round trips exact at every dim from
+             dimub down to 1 (the launch counters zeroed just before and
+             read just after), then the kernel against its twin at [3, 16]
+             in all three modes with its times and bound;
+             tests/test_kat.py's exact oracle (tests/torch_oracle.py, jax-
+             free): the KAT sequence at logn=4 and the ladder sweep at logn=5
+             (L=20) on both chains, every ciphertext limb-equal to the
+             oracle; hoisted gemv at logn=9/logq=120 with slots=256 (full
+             packing) and slots=8 (n1=4), and coeff2slot at full packing
+             (logn=5/q=2^400/slots=16), both chains, decodes within 1e-5,
+             plan.fallbacks == 0, U0/U1 within 1e-9 of the reference
+             construction, the card's ciphertexts torch.equal to the CPU
+             port's from the same stream; tests/test_full_params.py at
+             logn=14/logq=438/slots=16/Delta=2^50 on the linalg59 phase's
+             engine and keys (its own where that phase did not run): enc_sk,
+             enc_pk, moddown, the add and mul variants, conj and rot by every
+             r in 0..15, each within 1e-5.
   mesh     — the mesh engine (parallel/mesh.py, parallel/engine.py) on a
              virtual mesh that names the one card several times, or on
              distinct GPUs where torch.cuda.device_count() covers the mesh
@@ -111,10 +128,11 @@ non-zero:
   cli      — `python -m gpqhe_tpu_torch mul pk` and `... exp` as
              subprocesses at their defaults on the card: exit code 0, an
              [ok] line, NTT launches > 0.
-Then: the nvidia-smi line, the per-kernel JSON line (fifteen entries: the six
-of the logn=14 path, the u64 kernel's three at the bootstrap's logn=15
-shapes, and forward and inverse on per-shard plans for the u64 kernel, the
-u32 kernel and the u64 kernel on the logn=15 mesh), and last {"ok": true, "device": {...}}.  --phases a,b,c runs a subset (the last line
+Then: the nvidia-smi line, the per-kernel JSON line (eighteen entries: the
+six of the logn=14 path, the u32 kernel's three on the logp=9 chain, the u64
+kernel's three at the bootstrap's logn=15 shapes, and forward and inverse on
+per-shard plans for the u64 kernel, the u32 kernel and the u64 kernel on the
+logn=15 mesh), and last {"ok": true, "device": {...}}.  --phases a,b,c runs a subset (the last line
 then says "partial"); --iters N sets the timed runs per median.
 
 Without a CUDA device, or without the repository beside it, it fails
@@ -159,6 +177,8 @@ KERNELS["ntt15"] = dict(KERNELS["ntt"], lib="ntt")
 KERNELS["nttmesh"] = dict(KERNELS["ntt"], lib="ntt")
 KERNELS["ntt32mesh"] = dict(KERNELS["ntt32"], lib="ntt32")
 KERNELS["ntt15mesh"] = dict(KERNELS["ntt"], lib="ntt")
+# the u32 kernel on tests/test_crt_mode.py's logp=9 chain (10-11-bit primes, n=2^4)
+KERNELS["ntt32p9"] = dict(KERNELS["ntt32"], lib="ntt32")
 LOGQ = {14: 438, 15: 881}      # the rings the paths run at, by logn
 MODES = ("fwd", "inv", "inv_scaled")
 ITERS = 10      # timed runs per median
@@ -261,42 +281,6 @@ def median(xs):
     return xs[len(xs) // 2]
 
 
-_V1 = {}           # kernel -> bound v1 entry point
-_V1_TABLES = {}    # (id of a plan's tables, inverse) -> (z, companions, the tables)
-
-
-def v1_transform(kernel: str, a, plan, mode: str):
-    """One transform through the first-design kernel (one block per slab;
-    entries gpqhe_ntt_v1 / gpqhe_ntt32_v1), kept for this comparison and
-    bound here: nothing in the package calls it.  It takes the twiddles and
-    their companions as two [dim, n] tables, split here from the plan's
-    interleaved one."""
-    import torch
-    from gpqhe_tpu_torch.ops import ntt_cuda, ntt_cuda32
-    kernel = KERNELS[kernel].get("lib", kernel)
-    symbol = "gpqhe_ntt_v1" if kernel == "ntt" else "gpqhe_ntt32_v1"
-    if kernel not in _V1:
-        mod = ntt_cuda if kernel == "ntt" else ntt_cuda32
-        _V1[kernel] = ntt_cuda.bind(mod.SOURCE, symbol, ntables=2)
-    inverse = mode != "fwd"
-    t = plan.tables
-    if (id(t), inverse) not in _V1_TABLES:
-        pairs = t.tw_i if inverse else t.tw_f
-        _V1_TABLES[id(t), inverse] = (pairs[..., 0].contiguous(),
-                                      pairs[..., 1].contiguous(), t)
-    z, zs, _ = _V1_TABLES[id(t), inverse]
-    logn, nslab = ntt_cuda.check_args(a, plan)
-    a = a.contiguous()
-    out = torch.empty_like(a)
-    sc = plan.scale_phat if mode == "inv_scaled" else plan.scale
-    rc = _V1[kernel](a.data_ptr(), out.data_ptr(), nslab, plan.dim, logn, z.data_ptr(),
-                     zs.data_ptr(), t.primes.data_ptr(), sc[0].data_ptr(), sc[1].data_ptr(),
-                     int(inverse), torch.cuda.current_stream(a.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{symbol} launch failed: cudaError {rc}")
-    return out
-
-
 def pass_breakdown(fn, calls: int = 20) -> dict:
     """Microseconds per call of each device kernel of fn(), by name, from
     torch.profiler over `calls` back-to-back calls: how a transform's time
@@ -358,14 +342,13 @@ def phase_build():
 
 def short_kernel_name(name: str) -> str:
     """A pass instantiation by pass, log2 size and direction, mangled or not
-    (ntt_col_pass<7, false> -> "col L7 fwd"); a first-design kernel by name."""
+    (ntt_col_pass<7, false> -> "col L7 fwd"); any other kernel by its name."""
     import re
     t = (re.search(r"ntt_(col|row)_passILi(\d+)ELb([01])E", name)
          or re.search(r"ntt_(col|row)_pass<(\d+), *(true|false|[01])>", name))
     if t:
         return f"{t.group(1)} L{t.group(2)} {'inv' if t.group(3) in ('1', 'true') else 'fwd'}"
-    t = re.search(r"(ntt\d*_(?:smem|stage)_kernel)", name)
-    return f"v1 {t.group(1)}" if t else name
+    return name
 
 
 def ptxas_summary(log: str) -> dict:
@@ -441,7 +424,7 @@ def kernel_ring(kernel: str, logn: int, dim: int):
 def compare_kernel(kernel: str, mode: str, shape, iters: int, rng,
                    breakdown: bool = False) -> dict:
     """One kernel entry at a ring's own plan of shape[-2] primes against the
-    plain twin and against the first-design kernel (compare_plan)."""
+    plain twin (compare_plan)."""
     n, dim = shape[-1], shape[-2]
     ring = kernel_ring(KERNELS[kernel].get("lib", kernel), n.bit_length() - 1, dim)
     return compare_plan(kernel, ring.ntt_mod, ring.ntt_plan(dim), mode, shape, iters, rng,
@@ -449,13 +432,12 @@ def compare_kernel(kernel: str, mode: str, shape, iters: int, rng,
 
 
 def compare_plan(kernel: str, ntt_mod, plan, mode: str, shape, iters: int, rng,
-                 breakdown: bool = False, v1: bool = True, timed: bool = True,
+                 breakdown: bool = False, timed: bool = True,
                  tag: str = "kernels", **note) -> dict:
-    """One kernel entry on one plan against the plain twin (and, with v1,
-    against the first-design kernel) on random residues on the card:
-    torch.equal, then (with timed) the device time per launch of v1 and of
-    the kernel in turns (v1, new, new, v1), the wrapper's host time and the
-    twin's median.  Raises if any two differ."""
+    """One kernel entry on one plan against the plain twin on random
+    residues on the card: torch.equal, then (with timed) the device time per
+    launch in two turns, the wrapper's host time and the twin's median.
+    Raises if the two differ."""
     import numpy as np
     import torch
     from gpqhe_tpu_torch.ops import ntt_cuda
@@ -478,24 +460,16 @@ def compare_plan(kernel: str, ntt_mod, plan, mode: str, shape, iters: int, rng,
 
         def plain():
             return ntt_cuda.plain_intt(a, plan, scaled)
-
-    def prev():
-        return v1_transform(kernel, a, plan, mode)
     got, want = kern(), plain()
-    old = prev() if v1 else got
     torch.cuda.synchronize()
     equal = bool(torch.equal(got, want))
-    equal_v1 = bool(torch.equal(got, old))
     err = int((got - want).abs().max().item())
     out = {"phase": tag, "kernel": kernel, "entry": mode, "shape": list(shape), **note,
-           "equal": equal, "equal_v1": equal_v1 if v1 else None, "max_abs_err": err}
+           "equal": equal, "max_abs_err": err}
     if timed:
-        runs = [device_ms_runs(fn, iters)
-                for fn in ((prev, kern, kern, prev) if v1 else (kern, kern))]
-        mine = runs[1] + runs[2] if v1 else runs[0] + runs[1]
-        out.update({"ms": median(mine), "prev_ms": median(runs[0] + runs[3]) if v1 else None,
-                    "turn_ms": [median(r) for r in runs],
-                    "host_us": host_us(kern), "prev_host_us": host_us(prev) if v1 else None,
+        runs = [device_ms_runs(kern, iters) for _ in range(2)]
+        out.update({"ms": median(runs[0] + runs[1]), "turn_ms": [median(r) for r in runs],
+                    "host_us": host_us(kern),
                     "plain_ms": cuda_ms(plain, max(3, iters // 4)),
                     **ntt_bound(KERNELS[kernel]["word"], mode, shape)})
     if breakdown:
@@ -503,8 +477,6 @@ def compare_plan(kernel: str, ntt_mod, plan, mode: str, shape, iters: int, rng,
     emit(out)
     if not equal:
         raise AssertionError(f"CUDA {kernel} {mode} {shape} differs from its twin")
-    if not equal_v1:
-        raise AssertionError(f"CUDA {kernel} {mode} {shape} differs from the v1 kernel")
     return out
 
 
@@ -523,8 +495,8 @@ def bootstrap_cases(eng) -> dict:
 
 
 def phase_kernels(iters: int, cases: dict = CASES, tag: str = "kernels") -> dict:
-    """Every kernel entry against its twin and v1 at the given cases;
-    returns, per entry name, the numbers of its main-path shape."""
+    """Every kernel entry against its twin at the given cases; returns, per
+    entry name, the numbers of its main-path shape."""
     import numpy as np
     rng = np.random.default_rng(2024)
     result = {}
@@ -535,13 +507,13 @@ def phase_kernels(iters: int, cases: dict = CASES, tag: str = "kernels") -> dict
             r = compare_kernel(kernel, mode, shape, iters if main else max(3, iters // 4), rng,
                                breakdown=main)
             if main:
-                result[name] = {k: r[k] for k in ("max_abs_err", "ms", "prev_ms", "host_us",
+                result[name] = {k: r[k] for k in ("max_abs_err", "ms", "host_us",
                                                   "plain_ms", "bound_ms", "bound_by")}
                 result[name]["shape"] = list(shape)
             result[name]["max_abs_err"] = max(result[name]["max_abs_err"], r["max_abs_err"])
-    emit({"phase": tag, "summary": "device ms per launch, new vs v1, main-path shapes",
-          "faster_than_v1": {k: v["ms"] < v["prev_ms"] for k, v in result.items()},
-          "speedup": {k: v["prev_ms"] / v["ms"] for k, v in result.items()}})
+    emit({"phase": tag, "summary": "device ms per launch at the main-path shapes",
+          "ms": {k: v["ms"] for k, v in result.items()},
+          "bound_share": {k: v["bound_ms"] / v["ms"] for k, v in result.items()}})
     return result
 
 
@@ -823,7 +795,7 @@ def phase_linalg(name: str, logp: int, iters: int, earlier: dict | None) -> dict
             key = f"{kernel}_{mode}"
             errs[key] = max(errs.get(key, 0), r["max_abs_err"])
     return {"launches": launches, "errs": errs, "decoded": got,
-            "mul_rs": lambda: eng.mul_rs(ct, ct2, rlk)}
+            "mul_rs": lambda: eng.mul_rs(ct, ct2, rlk), "keys": (eng, pk, sk, rlk, ck, rk)}
 
 
 def mesh_devices(n: int):
@@ -856,11 +828,11 @@ def mesh_kernel_entry(kernel: str, pctx, mesh, dim: int, klv: int, cases, iters:
         for mode, lead in cases:
             main = s == coeff - 1 and mode not in result
             r = compare_plan(kernel, splan["ntt"], plan, mode, tuple(lead) + (plan.dim, plan.n),
-                             iters, rng, v1=False, timed=main,
+                             iters, rng, timed=main,
                              breakdown=main and report and breakdown,
                              tag="mesh_kernels", mesh=list(shape3), coeff_shard=s)
             if main:
-                result[mode] = {k: r[k] for k in ("max_abs_err", "ms", "prev_ms", "host_us",
+                result[mode] = {k: r[k] for k in ("max_abs_err", "ms", "host_us",
                                                   "plain_ms", "bound_ms", "bound_by", "shape")}
             if mode in result:
                 result[mode]["max_abs_err"] = max(result[mode]["max_abs_err"], r["max_abs_err"])
@@ -1643,8 +1615,312 @@ def phase_cli() -> None:
             raise AssertionError(f"cli {argv}: NTT launches {counts}")
 
 
-PHASES = ("build", "kernels", "golden", "mul_rs", "linalg59", "linalg29", "mesh", "mesh_mp",
-          "nonlinear", "cmp", "bootstrap", "serialize", "cli")
+# ---------------------------------------------------------------------------
+# the suite phase: the rest of the JAX package's test suite, held on the card
+# ---------------------------------------------------------------------------
+
+def port_api():
+    """The names a suite case calls, from the port.  The CPU tests hand the
+    same names from the JAX package to run a case there."""
+    from types import SimpleNamespace
+
+    import gpqhe_tpu_torch as gt
+    from gpqhe_tpu_torch import bootstrap
+    from gpqhe_tpu_torch.algo import linalg
+    from gpqhe_tpu_torch.ring import sample
+    from gpqhe_tpu_torch.ring.canemb import invcanemb
+    return SimpleNamespace(HeContext=gt.HeContext, CKKS=gt.CKKS, Surf=gt.Surf, linalg=linalg,
+                           bootstrap=bootstrap, sample=sample, invcanemb=invcanemb)
+
+
+def oracle_module():
+    """tests/torch_oracle.py: the jax-free copy of tests/test_kat.py's exact
+    Python-integer oracle."""
+    tests = os.path.join(ROOT, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_oracle
+    return torch_oracle
+
+
+CRT_CHAIN = dict(q=1 << 8, logp=9, dim_cap=6)      # tests/test_crt_mode.py, at logn=4
+
+
+def crt_chain_ring(device):
+    """A ring of tests/test_crt_mode.py's logp=9 debug chain: six primes of
+    10-11 bits at n=2^4, below 2^30, so served by the u32 kernel."""
+    from gpqhe_tpu_torch.context import PolyContext
+    from gpqhe_tpu_torch.ring.poly import RingEngine
+    return RingEngine(PolyContext(4, **CRT_CHAIN), device=device)
+
+
+def crt_chain_case(ring, seed: int = 21) -> dict:
+    """The logp=9 chain's path on ring (crt_chain_ring): at every dim from
+    dimub down to 1, values below P (0, 1 and P-1 among them) as limbs,
+    decompose, reconstruct(center=False); and the residues through the
+    forward NTT, the plain inverse (back to the residues) and the scaled
+    inverse into reconstruct(center=False, pre_scaled=True).  Returns, per
+    dim, whether each step gave the exact integers back."""
+    import random
+
+    import numpy as np
+    import torch
+    from gpqhe_tpu_torch.ops import rns
+    from gpqhe_tpu_torch.ops.modmath import torch_to_u64
+    from gpqhe_tpu_torch.scheme.types import limbs_to_numpy
+    from gpqhe_tpu_torch.substrate import bigint
+
+    pctx, rnd, out = ring.pctx, random.Random(seed), {}
+    for dim in range(pctx.dimub, 0, -1):
+        b = pctx.basis(dim)
+        vals = [rnd.randrange(b.P) for _ in range(pctx.n)]
+        vals[:3] = [0, 1, b.P - 1]
+        k = bigint.nlimbs(b.P.bit_length())
+        limbs = torch.from_numpy(bigint.ints_to_limbs(vals, k).astype(np.int64)).to(ring.device)
+        res = rns.decompose(limbs, ring.ba(dim), ring.weights(dim, k))
+        hat = ring.ntt_f(res, dim)
+        back = ring.ntt_i(hat, dim)
+        scaled = ring.ntt_i(hat, dim, scale_phatinv=True)
+        plain = rns.reconstruct(res, ring.ba(dim), ring.recon(dim), center=False)
+        fused = rns.reconstruct(scaled, ring.ba(dim), ring.recon(dim), center=False,
+                                pre_scaled=True)
+        host = torch_to_u64(res)
+        out[dim] = {
+            "decompose": all([int(x) for x in host[d]] == [v % p for v in vals]
+                             for d, p in enumerate(b.primes)),
+            "reconstruct": bigint.limbs_to_ints(limbs_to_numpy(plain)) == vals,
+            "ntt_roundtrip": bool(torch.equal(back, res)),
+            "ntt_reconstruct": bigint.limbs_to_ints(limbs_to_numpy(fused)) == vals}
+    return out
+
+
+def bsgs_n1(slots: int) -> int:
+    """The giant step of algo/linalg.py's GemvPlan: isqrt(slots) when slots is
+    a square, else isqrt(2 slots)."""
+    import math
+    n1 = math.isqrt(slots)
+    return n1 if n1 * n1 == slots else math.isqrt(2 * slots)
+
+
+def gemv_packing_case(logp: int, slots: int, api=None, **engine_kw) -> dict:
+    """tests/test_algo.py::test_gemv_hoisted_slots256 with `slots` slots at
+    logn=9/logq=120/Delta=2^30 on the logp chain: rotation keys for the baby
+    steps and the giant-step multiples only, so the hoisted gemv takes the
+    streamed BSGS route (one diagonal slab per giant step); the matrix from
+    numpy seed 5, the message from the engine's stream.  slots=256 is full
+    packing (gap 1, n1=16, 16 giant steps), slots=8 a count that is not a
+    square (n1=4, n2=2)."""
+    import numpy as np
+    api = api or port_api()
+    ctx = api.HeContext(logn=9, q=1 << 120, slots=slots, Delta=1 << 30, logp=logp)
+    eng = api.CKKS(ctx, rng=api.Surf(), **engine_kw)
+    pk, sk = eng.keypair()
+    n1 = bsgs_n1(slots)
+    rk = eng.genrk(sk, rotations=sorted(set(range(n1)) | {i * n1 for i in range(slots // n1)}))
+    rng = np.random.default_rng(5)
+    A = (rng.standard_normal(slots * slots) + 1j * rng.standard_normal(slots * slots)) * 0.1
+    m = api.sample.sample_z01vec(eng.rng, slots)
+    ct = eng.enc_pk(eng.ecd(m), pk)
+    plan = api.linalg.HoistedGemvPlan(eng, A)
+    out = api.linalg.gemv(eng, None, ct, rk, plan=plan, hoisted=True)
+    got = eng.dcd(eng.dec(out, sk))
+    return {"out": out, "rk": rk, "n1": plan.n1, "n2": plan.n2, "fallbacks": plan.fallbacks,
+            "diff": float(np.max(np.abs(got - A.reshape(slots, slots) @ m)))}
+
+
+def c2s_packing_case(logp: int, api=None, **engine_kw) -> dict:
+    """tests/test_bootstrap.py::test_full_packing_c2s at logn=5/q=2^400/
+    slots=16 (= n/2, gap 1) on the logp chain: U0 and U1 against the
+    reference's DFT construction (u_diff), and coeff2slot of an encryption
+    of a message from the engine's stream, whose two outputs decode to the
+    real and imaginary encode coefficients (diffs)."""
+    import numpy as np
+    api = api or port_api()
+    slots = 16
+    ctx = api.HeContext(logn=5, q=1 << 400, slots=slots, Delta=1 << 30, logp=logp)
+    eng = api.CKKS(ctx, rng=api.Surf(), **engine_kw)
+    bs = api.bootstrap
+    bctx = bs.BootstrapContext(eng)
+    poly = ctx.poly
+    nh = poly.n // 2
+    gap = nh // slots
+    zeta = np.exp(2j * np.pi * np.array([int(poly.cyc_group[i * gap]) for i in range(slots)])
+                  / poly.m)
+    j = np.arange(slots)
+    U0 = zeta[:, None] ** (j * gap)[None, :]
+    U1 = zeta[:, None] ** (j * gap + nh)[None, :]
+    u_diff = max(float(np.max(np.abs(np.asarray(bctx.U0).reshape(slots, slots) - U0))),
+                 float(np.max(np.abs(np.asarray(bctx.U1).reshape(slots, slots) - U1))))
+    pk, sk = eng.keypair()
+    ck = eng.genck(sk)
+    rk = eng.genrk(sk, bs.bootstrap_rotations(ctx))
+    m0 = api.sample.sample_z01vec(eng.rng, slots)
+    pt = eng.ecd(m0)
+    u = api.invcanemb(m0, slots, poly.cyc_group, poly.ring_zetas, poly.m)
+    want = (np.round(u.real * ctx.Delta) / ctx.Delta, np.round(u.imag * ctx.Delta) / ctx.Delta)
+    ct0, ct1 = bs.coeff2slot(eng, bctx, eng.enc_pk(pt, pk), ck, rk)
+    diffs = [float(np.max(np.abs(eng.dcd(eng.dec(c, sk)) - w))) for c, w in zip((ct0, ct1), want)]
+    return {"ct0": ct0, "ct1": ct1, "rk": rk, "u_diff": u_diff, "diffs": diffs,
+            "fallbacks": {name: plan.fallbacks for name, plan in bctx._plans.items()}}
+
+
+def full_width_checks(eng, pk, sk, rlk, ck, rk) -> dict:
+    """tests/test_full_params.py's checks with tests/test_scheme.py's add and
+    mul variants and test_rot_all, on an engine and its keys (rk: every slot
+    rotation): enc_sk and enc_pk round trips, moddown, add, sub, addpt,
+    subpt, neg, rs(mul), rs(mulpt), a chained rs(mul) one level down, conj,
+    and rot by every r in 0..slots-1.  Messages from the engine's stream.
+    Returns the decode diff of each against its plaintext result, and
+    whether rs(mul) came out one level down."""
+    import numpy as np
+    from gpqhe_tpu_torch.ring import sample as smp
+    slots = eng.ctx.slots
+    m0, m1, m2 = (smp.sample_z01vec(eng.rng, slots) for _ in range(3))
+
+    def dcd(ct):
+        return eng.dcd(eng.dec(ct, sk))
+    pt = eng.ecd(m0)
+    ct0 = eng.enc_pk(pt, pk)
+    ct1, ct2 = eng.enc_pk(eng.ecd(m1), pk), eng.enc_pk(eng.ecd(m2), pk)
+    pt2 = eng.ecd(m2)
+    ctm = eng.rs(eng.mul(ct1, ct2, rlk))
+    got = {"enc_sk": (eng.enc_sk(pt, sk), m0), "enc_pk": (ct0, m0),
+           "moddown": (eng.moddown(ct0), m0),
+           "add": (eng.add(ct1, ct2), m1 + m2), "sub": (eng.sub(ct1, ct2), m1 - m2),
+           "addpt": (eng.addpt(ct1, pt2), m1 + m2), "subpt": (eng.subpt(ct1, pt2), m1 - m2),
+           "neg": (eng.neg(ct1.copy()), -m1), "mul": (ctm, m1 * m2),
+           "mulpt": (eng.rs(eng.mulpt(ct1, eng.ecd(m2))), m1 * m2),
+           "mul_chain": (eng.rs(eng.mul(ctm, eng.moddown(eng.enc_pk(eng.ecd(m1), pk)), rlk)),
+                         m1 * m2 * m1),
+           "conj": (eng.conj(ct0.copy(), ck), np.conj(m0))}
+    for r in range(slots):
+        got[f"rot{r}"] = (eng.rot(ct0.copy(), r, rk), np.roll(m0, -r))
+    diffs = {name: float(np.max(np.abs(dcd(ct) - want))) for name, (ct, want) in got.items()}
+    return {"diffs": diffs, "mul_level_ok": ctm.l == ct1.l - 1}
+
+
+def equal_cts(a, b) -> dict:
+    """Per half, the first index at which two ciphertexts differ (None where
+    torch.equal), with their ledgers."""
+    return {"c0": first_difference(a.c0, b.c0), "c1": first_difference(a.c1, b.c1),
+            "ledger": None if (a.l, a.nu, a.B) == (b.l, b.nu, b.B) else
+            [[a.l, a.nu, a.B], [b.l, b.nu, b.B]]}
+
+
+def phase_suite(iters: int, linalg59: dict | None) -> dict:
+    """The rest of the JAX package's test suite on the card (tests/
+    test_kat.py, test_crt_mode.py, test_algo.py's full packing,
+    test_bootstrap.py's full-packing coeff2slot, test_full_params.py), each
+    gate raising.  linalg59: the linalg59 phase's engine and keys at
+    logn=14/logq=438/slots=16/Delta=2^50, or None to make them here.
+    Returns the logp=9 chain's kernel rows and their launches."""
+    import numpy as np
+    import torch
+    from gpqhe_tpu_torch.ops import ntt_cuda32
+
+    api = port_api()
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    t0 = time.time()
+    problems = []
+
+    # the logp=9 chain: the u32 kernel on 10-11-bit primes at n=2^4.  Its
+    # path, counters zeroed just before and read just after
+    ring = crt_chain_ring(cuda)
+    if ring.ntt_mod is not ntt_cuda32:
+        raise AssertionError("the logp=9 chain does not select the u32 kernel")
+    mine, other = chain_counters(9)
+    crt = crt_chain_case(ring)
+    torch.cuda.synchronize()
+    launches, foreign = dict(mine), dict(other)
+    emit({"phase": "suite", "case": "crt_logp9", "primes": ring.pctx.primes, "n": ring.pctx.n,
+          "per_dim": crt, "launches": launches, "other_kernel_launches": foreign})
+    if not all(all(v.values()) for v in crt.values()):
+        problems.append(f"logp=9 chain: {crt}")
+    require_launches("suite crt_logp9", mine, other)
+    rng = np.random.default_rng(9)
+    kernels = {}
+    for mode in MODES:
+        r = compare_plan("ntt32p9", ring.ntt_mod, ring.ntt_plan(3), mode, (3, ring.pctx.n),
+                         iters, rng, tag="suite_kernels")
+        kernels[f"ntt32p9_{mode}"] = {k: r[k] for k in ("max_abs_err", "ms", "host_us",
+                                                        "plain_ms", "bound_ms", "bound_by",
+                                                        "shape")}
+
+    # the exact oracle, both chains: every ciphertext limb for limb
+    orc = oracle_module()
+    for logp in (59, 29):
+        for name, ring_kw, seq in (("kat", orc.KAT_RING, orc.kat_sequence),
+                                   ("ladder", orc.LADDER_RING, orc.ladder_sweep)):
+            ctx = api.HeContext(**ring_kw, logp=logp)
+            eng = api.CKKS(ctx, rng=api.Surf(), device=cuda)
+            mine, other = chain_counters(logp)
+            t1 = time.time()
+            res = seq(eng, orc.Oracle(ctx))
+            bad = {n: orc.first_mismatch(eng, c, o) for n, c, o in res}
+            bad = {n: v for n, v in bad.items() if v}
+            emit({"phase": "suite", "case": f"oracle_{name}", "logp": logp,
+                  "logn": ring_kw["logn"], "logq": ring_kw["q"].bit_length() - 1,
+                  "L": ctx.L, "ciphertexts": len(res), "mismatches": bad,
+                  "launches": dict(mine), "seconds": time.time() - t1})
+            if bad:
+                problems.append(f"oracle {name} logp={logp}: {bad}")
+            require_launches(f"suite oracle {name} logp={logp}", mine, other)
+
+    # full packing and a non-square slot count: the card against the CPU port
+    for logp in (59, 29):
+        for slots in (256, 8):
+            t1 = time.time()
+            c = gemv_packing_case(logp, slots, device=cuda)
+            h = gemv_packing_case(logp, slots, device=cpu)
+            differ = equal_cts(c["out"], h["out"])
+            emit({"phase": "suite", "case": "gemv", "logp": logp, "slots": slots, "n1": c["n1"],
+                  "n2": c["n2"], "decode_diff": c["diff"], "fallbacks": c["fallbacks"],
+                  "first_difference_from_cpu": differ, "seconds": time.time() - t1})
+            if not (c["diff"] < 1e-5 and c["fallbacks"] == 0 and not any(differ.values())):
+                problems.append(f"gemv logp={logp} slots={slots}: {c['diff']} "
+                                f"{c['fallbacks']} {differ}")
+        t1 = time.time()
+        c, h = c2s_packing_case(logp, device=cuda), c2s_packing_case(logp, device=cpu)
+        differ = {k: equal_cts(c[k], h[k]) for k in ("ct0", "ct1")}
+        emit({"phase": "suite", "case": "c2s_full_packing", "logp": logp, "u_diff": c["u_diff"],
+              "decode_diffs": c["diffs"], "fallbacks": c["fallbacks"],
+              "first_difference_from_cpu": differ, "seconds": time.time() - t1})
+        if not (c["u_diff"] < 1e-9 and max(c["diffs"]) < 1e-5
+                and not any(any(d.values()) for d in differ.values())):
+            problems.append(f"c2s logp={logp}: {c['u_diff']} {c['diffs']} {differ}")
+
+    # tests/test_full_params.py at full width, on the linalg59 phase's keys
+    t1 = time.time()
+    if linalg59 is None:
+        ctx = api.HeContext(logn=14, q=1 << 438, slots=16, Delta=1 << 50)
+        eng = api.CKKS(ctx, rng=api.Surf(), device=cuda)
+        pk, sk = eng.keypair()
+        keys = (eng, pk, sk, eng.genrlk(sk), eng.genck(sk), eng.genrk(sk))
+        made = "here"
+    else:
+        keys, made = linalg59["keys"], "linalg59 phase"
+    eng = keys[0]
+    mine, other = chain_counters(59)
+    full = full_width_checks(*keys)
+    torch.cuda.synchronize()
+    ctx = eng.ctx
+    emit({"phase": "suite", "case": "full_params", "logn": ctx.poly.n.bit_length() - 1,
+          "logq": ctx.poly.logq, "slots": ctx.slots, "logDelta": int(ctx.Delta).bit_length() - 1,
+          "keys_from": made, "rotations": sorted(keys[5]),
+          "decode_diffs": full["diffs"], "mul_level_ok": full["mul_level_ok"],
+          "launches": dict(mine), "seconds": time.time() - t1})
+    bad = {k: d for k, d in full["diffs"].items() if not d < 1e-5}
+    if bad or not full["mul_level_ok"] or any(f"rot{r}" not in full["diffs"] for r in range(16)):
+        problems.append(f"full width: {bad}, mul level {full['mul_level_ok']}")
+    require_launches("suite full_params", mine, other)
+    emit({"phase": "suite", "seconds": time.time() - t0, "problems": problems})
+    if problems:
+        raise AssertionError(f"suite: {problems}")
+    return {"kernels": kernels, "launches": {f"ntt32p9_{k}": v for k, v in launches.items()}}
+
+
+PHASES = ("build", "kernels", "golden", "mul_rs", "linalg59", "linalg29", "suite", "mesh",
+          "mesh_mp", "nonlinear", "cmp", "bootstrap", "serialize", "cli")
 
 
 def main(argv=None) -> int:
@@ -1700,6 +1976,12 @@ def main(argv=None) -> int:
         emit({"phase": "chains", "order": list(order),
               "mul_rs_ms": [cuda_ms(chains[logp]["mul_rs"], args.iters) for logp in order]})
     clock("linalg")
+    if "suite" in phases:
+        r = phase_suite(args.iters, chains.get(59))
+        kernels.update(r["kernels"])
+        launches.update(r["launches"])
+        clock("suite")
+    chains = None
 
     if "mesh" in phases:
         r = phase_mesh(args.iters)

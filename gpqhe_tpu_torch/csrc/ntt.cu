@@ -24,14 +24,9 @@
 // stages between exchanges in shared memory, compile-time loop bounds, and
 // one 16-byte load per twiddle pair from the interleaved table.  A
 // [4, 16, 2^14] call is 1,024 column blocks and 1,024 row blocks of 128
-// threads instead of 64 blocks; an 8-slab call 128 and 128 instead of 8.  The intermediate is
-// written to the output and crosses L2.
-//
-// The first design (gpqhe_ntt_v1: one 1024-thread block per slab with the
-// slab in 128 KiB of shared memory, a barrier per stage, and one grid-wide
-// pass per outer stage for n > 2^14) is kept below under its own entry
-// point for measurement only: the smoke test times both in turns and holds
-// them equal.  Nothing else calls it.
+// threads, where one block a slab would be 64; an 8-slab call 128 and 128
+// where it would be 8.  The intermediate is written to the output and
+// crosses L2.
 //
 // Plain C interface, loaded with ctypes.  Launches on the caller's stream,
 // allocates nothing, does not synchronise, returns cudaGetLastError().
@@ -40,11 +35,6 @@
 #include <stdint.h>
 
 typedef unsigned long long u64;
-
-#define SMEM_LOGN 14
-#define SMEM_N (1 << SMEM_LOGN)
-#define SMEM_THREADS 1024
-#define STAGE_THREADS 256
 
 __device__ __forceinline__ u64 shoup_mul(u64 x, u64 z, u64 zs, u64 p) {
     // x * z mod p, lazily: q = floor(x * zs / 2^64) is within one of the true
@@ -93,150 +83,3 @@ extern "C" int gpqhe_ntt(const void *a_in, void *a_out, long long nslab, int dim
                         (const u64 *)scale_s, inverse, (cudaStream_t)stream);
 }
 
-// ---------------------------------------------------------------------------
-// The first design, for measurement only (entry gpqhe_ntt_v1).
-// ---------------------------------------------------------------------------
-
-// One slab (or one SMEM_N sub-block of a larger slab) per block.
-// grid.x = nslab * nsub; src/dst are [nslab, n]; tw/tws are [dim, n].
-__global__ void ntt_smem_kernel(const u64 *src, u64 *dst,
-                                int dim, int logn, int logsub,
-                                const u64 *__restrict__ tw,
-                                const u64 *__restrict__ tws,
-                                const u64 *__restrict__ primes,
-                                const u64 *__restrict__ scale,
-                                const u64 *__restrict__ scale_s,
-                                int inverse, int finish) {
-    extern __shared__ u64 sm[];
-    const int nsub_log = logn - logsub;
-    const long long slab = blockIdx.x >> nsub_log;
-    const int c = blockIdx.x & ((1 << nsub_log) - 1);
-    const int d = (int)(slab % dim);
-    const int m = 1 << logsub;
-    const long long n = 1LL << logn;
-    const u64 p = primes[d];
-    const u64 *zt = tw + (long long)d * n;
-    const u64 *zs = tws + (long long)d * n;
-    const long long base = slab * n + (long long)c * m;
-
-    for (int i = threadIdx.x; i < m; i += blockDim.x) sm[i] = src[base + i];
-    __syncthreads();
-
-    const int half = m >> 1;
-    for (int s = 0; s < logsub; ++s) {
-        // forward: len = m/2 .. 1; inverse: len = 1 .. m/2
-        const int loglen = inverse ? s : logsub - 1 - s;
-        const int len = 1 << loglen;
-        // zeta index of local block k: n/(2 len) + c * m/(2 len) + k
-        const long long zoff = (n >> (loglen + 1)) + ((long long)c << (logsub - loglen - 1));
-        for (int i = threadIdx.x; i < half; i += blockDim.x) {
-            const int k = i >> loglen;
-            const int i0 = (k << (loglen + 1)) + (i & (len - 1));
-            const u64 z = zt[zoff + k], zz = zs[zoff + k];
-            u64 x0 = sm[i0], x1 = sm[i0 + len];
-            if (inverse) inv_bf(x0, x1, z, zz, p);
-            else fwd_bf(x0, x1, z, zz, p);
-            sm[i0] = x0;
-            sm[i0 + len] = x1;
-        }
-        __syncthreads();
-    }
-
-    if (finish) {
-        if (inverse) {
-            const u64 sc = scale[d], scs = scale_s[d];
-            for (int i = threadIdx.x; i < m; i += blockDim.x)
-                dst[base + i] = scale_reduce(sm[i], sc, scs, p);
-        } else {
-            for (int i = threadIdx.x; i < m; i += blockDim.x)
-                dst[base + i] = csub(csub(sm[i], 2 * p), p);
-        }
-    } else {
-        for (int i = threadIdx.x; i < m; i += blockDim.x) dst[base + i] = sm[i];
-    }
-}
-
-// One butterfly stage of span 2*len over whole slabs in global memory.
-// grid = (n/2 / STAGE_THREADS, nslab).  In place is safe: every element is
-// read and written by exactly one thread of the stage.
-__global__ void ntt_stage_kernel(const u64 *src, u64 *dst, int dim, int logn,
-                                 int loglen, const u64 *__restrict__ tw,
-                                 const u64 *__restrict__ tws,
-                                 const u64 *__restrict__ primes,
-                                 const u64 *__restrict__ scale,
-                                 const u64 *__restrict__ scale_s,
-                                 int inverse, int finish) {
-    const long long slab = blockIdx.y;
-    const int d = (int)(slab % dim);
-    const long long n = 1LL << logn;
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= (n >> 1)) return;
-    const u64 p = primes[d];
-    const long long len = 1LL << loglen;
-    const long long k = i >> loglen;
-    const long long i0 = slab * n + (k << (loglen + 1)) + (i & (len - 1));
-    const long long zi = (long long)d * n + (n >> (loglen + 1)) + k;
-    u64 x0 = src[i0], x1 = src[i0 + len];
-    if (inverse) inv_bf(x0, x1, tw[zi], tws[zi], p);
-    else fwd_bf(x0, x1, tw[zi], tws[zi], p);
-    if (finish) {  // last inverse stage: fold in the final scaling
-        const u64 sc = scale[d], scs = scale_s[d];
-        x0 = scale_reduce(x0, sc, scs, p);
-        x1 = scale_reduce(x1, sc, scs, p);
-    }
-    dst[i0] = x0;
-    dst[i0 + len] = x1;
-}
-
-static void stage(const u64 *src, u64 *dst, long long nslab, int dim, int logn,
-                  int loglen, const u64 *tw, const u64 *tws, const u64 *primes,
-                  const u64 *scale, const u64 *scale_s, int inverse, int finish,
-                  cudaStream_t st) {
-    const long long half = 1LL << (logn - 1);
-    dim3 grid((unsigned)((half + STAGE_THREADS - 1) / STAGE_THREADS), (unsigned)nslab);
-    ntt_stage_kernel<<<grid, STAGE_THREADS, 0, st>>>(
-        src, dst, dim, logn, loglen, tw, tws, primes, scale, scale_s, inverse, finish);
-}
-
-// a_in/a_out: [nslab, n] with slab j on prime j % dim; tw/tws: [dim, n]
-// standard-domain twiddles and Shoup companions (forward or inverse table);
-// primes/scale/scale_s: [dim].  4 <= logn <= 16, primes < 2^61, at most
-// 65,535 slabs for n > 2^14 (grid.y of the stage pass).
-extern "C" int gpqhe_ntt_v1(const void *a_in, void *a_out, long long nslab, int dim,
-                            int logn, const void *tw, const void *tws,
-                            const void *primes, const void *scale,
-                            const void *scale_s, int inverse, void *stream) {
-    cudaStream_t st = (cudaStream_t)stream;
-    const u64 *in = (const u64 *)a_in;
-    u64 *out = (u64 *)a_out;
-    const u64 *z = (const u64 *)tw, *zs = (const u64 *)tws;
-    const u64 *ps = (const u64 *)primes;
-    const u64 *sc = (const u64 *)scale, *scs = (const u64 *)scale_s;
-    const int logsub = logn < SMEM_LOGN ? logn : SMEM_LOGN;
-    const int m = 1 << logsub;
-    const size_t smem = (size_t)m * sizeof(u64);
-    const int threads = (m / 2) < SMEM_THREADS ? (m / 2) : SMEM_THREADS;
-    const long long blocks = nslab << (logn - logsub);
-    cudaError_t e = cudaFuncSetAttribute(
-        ntt_smem_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)(SMEM_N * sizeof(u64)));
-    if (e != cudaSuccess) return (int)e;
-
-    if (!inverse) {
-        // outer stages (span 2*len > m) in global memory, then the sub-blocks
-        const u64 *src = in;
-        for (int loglen = logn - 1; loglen >= logsub; --loglen) {
-            stage(src, out, nslab, dim, logn, loglen, z, zs, ps, sc, scs, 0, 0, st);
-            src = out;
-        }
-        ntt_smem_kernel<<<(unsigned)blocks, threads, smem, st>>>(
-            src, out, dim, logn, logsub, z, zs, ps, sc, scs, 0, 1);
-    } else {
-        const int whole = logsub == logn;
-        ntt_smem_kernel<<<(unsigned)blocks, threads, smem, st>>>(
-            in, out, dim, logn, logsub, z, zs, ps, sc, scs, 1, whole);
-        for (int loglen = logsub; loglen < logn; ++loglen)
-            stage(out, out, nslab, dim, logn, loglen, z, zs, ps, sc, scs, 1,
-                  loglen == logn - 1, st);
-    }
-    return (int)cudaGetLastError();
-}

@@ -61,14 +61,13 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def bind(source: str, symbol: str, ntables: int = 1):
+def bind(source: str, symbol: str):
     """Build and load a kernel library; returns the entry point `symbol`,
-    which takes (a_in, a_out, nslab, dim, logn, <ntables table pointers>,
-    primes, scale, scale_s, inverse, stream) and returns the cudaError of
-    the launch."""
+    which takes (a_in, a_out, nslab, dim, logn, tw, primes, scale, scale_s,
+    inverse, stream) and returns the cudaError of the launch."""
     fn = getattr(cuda_build.load(source), symbol)
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = [vp, vp, i64, i32, i32] + [vp] * ntables + [vp, vp, vp, i32, vp]
+    fn.argtypes = [vp, vp, i64, i32, i32, vp, vp, vp, vp, i32, vp]
     fn.restype = i32
     return fn
 

@@ -1,8 +1,6 @@
 """The port on an NVIDIA GPU: the two CUDA NTT kernels (u64 words for the
-59-bit chain, u32 words for a logp=29 chain) against the plain torch twin
-and against the first-design kernels kept in the same libraries (entries
-gpqhe_ntt_v1 / gpqhe_ntt32_v1, bound by chip_smoke.py), and the CUDA engine
-against the CPU engine, bit for bit, on both chains.
+59-bit chain, u32 words for a logp=29 chain) against the plain torch twin,
+and the CUDA engine against the CPU engine, bit for bit, on both chains.
 
 Every test here needs the card and skips without one.  The file imports
 neither jax nor gpqhe_tpu, so it runs on a machine without them:
@@ -21,7 +19,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import bootstrap_cases, v1_transform    # the repository root is on sys.path
+from chip_smoke import (bootstrap_cases, c2s_packing_case, crt_chain_case,  # the repository
+                        crt_chain_ring, equal_cts, gemv_packing_case,       # root is on
+                        oracle_module)                                      # sys.path
 from gpqhe_tpu_torch import CKKS, HeContext, Surf         # (python -m pytest)
 from gpqhe_tpu_torch import bootstrap as bs
 from gpqhe_tpu_torch.algo import linalg, nonlinear
@@ -66,10 +66,10 @@ def _ring(logn, logp, device):
 
 def _check_kernel(device, logn, dim, batch, mode, logp):
     """One transform through the ring: one more launch of this chain's
-    kernel and none of the other's, torch.equal to the twin and to v1."""
+    kernel and none of the other's, torch.equal to the twin."""
     ring = _ring(logn, logp, device)
-    kernel, mine, other = (("ntt", ntt_cuda.LAUNCHES, ntt_cuda32.LAUNCHES32) if logp == 59
-                           else ("ntt32", ntt_cuda32.LAUNCHES32, ntt_cuda.LAUNCHES))
+    mine, other = ((ntt_cuda.LAUNCHES, ntt_cuda32.LAUNCHES32) if logp == 59
+                   else (ntt_cuda32.LAUNCHES32, ntt_cuda.LAUNCHES))
     assert ring.ntt_mod is (ntt_cuda if logp == 59 else ntt_cuda32)
     rng = np.random.default_rng(logn)
     ps = np.array(ring.pctx.primes[:dim], dtype=np.uint64)[:, None]
@@ -82,10 +82,6 @@ def _check_kernel(device, logn, dim, batch, mode, logp):
     torch.cuda.synchronize()
     assert mine[mode] == before[mode] + 1 and other == before_other
     assert torch.equal(got, _twin(a, ring.ba(dim), mode))
-    old = v1_transform(kernel, a, ring.ntt_plan(dim), mode)
-    torch.cuda.synchronize()
-    assert mine[mode] == before[mode] + 1              # v1 is not the package's route
-    assert torch.equal(got, old)
 
 
 @pytest.mark.cuda
@@ -464,3 +460,80 @@ def test_cuda_two_process_mesh_over_gloo(cuda_device):
         assert not any(ln["launches"]["u32"].values())
         kinds = [k for t in ln["traffic"].values() for k in t.values()]
         assert sum(k["process"][1] for k in kinds) > 0 and sum(k["staged"][1] for k in kinds) > 0
+
+
+# -- the rest of the JAX suite on the card: the logp=9 chain, the exact oracle,
+# -- full packing (the same cases as chip_smoke.py's suite phase) --------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+def test_cuda_u32_kernel_on_the_logp9_chain(cuda_device, mode):
+    """tests/test_crt_mode.py's chain: the u32 kernel on 10-11-bit primes at
+    n=2^4, [3, 16] and [2, 3, 16], inputs up to p - 1, torch.equal to the twin."""
+    ring = crt_chain_ring(cuda_device)
+    assert ring.ntt_mod is ntt_cuda32
+    ps = np.array(ring.pctx.primes[:3], dtype=np.uint64)[:, None]
+    for shape in ((3, 16), (2, 3, 16)):
+        host = np.random.default_rng(len(shape)).integers(0, 1 << 62, shape, dtype=np.uint64) % ps
+        host[..., :2] = ps - np.uint64(1)
+        a = u64_to_torch(host, cuda_device)
+        before, before_other = dict(ntt_cuda32.LAUNCHES32), dict(ntt_cuda.LAUNCHES)
+        got = (ring.ntt_f(a, 3) if mode == "fwd"
+               else ring.ntt_i(a, 3, scale_phatinv=mode == "inv_scaled"))
+        torch.cuda.synchronize()
+        assert ntt_cuda32.LAUNCHES32[mode] == before[mode] + 1
+        assert ntt_cuda.LAUNCHES == before_other
+        assert torch.equal(got, _twin(a, ring.ba(3), mode))
+
+
+@pytest.mark.cuda
+def test_cuda_logp9_chain_exact_at_every_dim(cuda_device):
+    before = dict(ntt_cuda32.LAUNCHES32)
+    out = crt_chain_case(crt_chain_ring(cuda_device))
+    assert sorted(out) == [1, 2, 3, 4, 5, 6]
+    assert all(all(v.values()) for v in out.values()), out
+    assert all(ntt_cuda32.LAUNCHES32[k] >= before[k] + 6 for k in MODES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logp", [59, 29])
+@pytest.mark.parametrize("case", ["kat", "ladder"])
+def test_cuda_exact_oracle(cuda_device, case, logp):
+    """tests/test_kat.py on the card: every ciphertext of the KAT sequence
+    (logn=4) or of the ladder sweep (logn=5, L=20) limb-equal to the oracle."""
+    orc = oracle_module()
+    ring, seq = ((orc.KAT_RING, orc.kat_sequence) if case == "kat"
+                 else (orc.LADDER_RING, orc.ladder_sweep))
+    ctx = HeContext(**ring, logp=logp)
+    eng = CKKS(ctx, rng=Surf(), device=cuda_device)
+    res = seq(eng, orc.Oracle(ctx))
+    assert all(c.c0.is_cuda for _, c, _ in res)
+    bad = {name: orc.first_mismatch(eng, c, o) for name, c, o in res}
+    assert not any(bad.values()), {k: v for k, v in bad.items() if v}
+
+
+def _equal_ct(a, b):
+    return a.c0.is_cuda and not any(equal_cts(a, b).values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logp", [59, 29])
+@pytest.mark.parametrize("slots", [256, 8])
+def test_cuda_gemv_packing_matches_cpu(cuda_device, slots, logp):
+    """Hoisted gemv at full packing (slots=256) and at slots=8 on the card,
+    torch.equal to the CPU port on the same keys."""
+    c = gemv_packing_case(logp, slots, device=cuda_device)
+    t = gemv_packing_case(logp, slots, device="cpu")
+    assert all(torch.equal(c["rk"][r].p0hat.cpu(), t["rk"][r].p0hat) for r in t["rk"])
+    assert _equal_ct(c["out"], t["out"])
+    assert c["fallbacks"] == 0 and c["diff"] < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logp", [59, 29])
+def test_cuda_full_packing_c2s_matches_cpu(cuda_device, logp):
+    c = c2s_packing_case(logp, device=cuda_device)
+    t = c2s_packing_case(logp, device="cpu")
+    assert all(torch.equal(c["rk"][r].p0hat.cpu(), t["rk"][r].p0hat) for r in t["rk"])
+    assert _equal_ct(c["ct0"], t["ct0"]) and _equal_ct(c["ct1"], t["ct1"])
+    assert c["u_diff"] < 1e-9 and max(c["diffs"]) < 1e-5

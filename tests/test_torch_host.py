@@ -153,7 +153,8 @@ def _imported_modules(path):
 
 def test_no_jax_import_in_port():
     files = [os.path.join(d, f) for d, _, fs in os.walk(PORT) for f in fs
-             if f.endswith(".py")] + [os.path.join(ROOT, "chip_smoke.py")]
+             if f.endswith(".py")] + [os.path.join(ROOT, "chip_smoke.py"),
+                                      os.path.join(ROOT, "tests", "torch_oracle.py")]
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -192,3 +193,29 @@ def test_port_imports_with_jax_blocked():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok cpu"
+
+
+def test_oracle_runs_with_jax_blocked():
+    """tests/torch_oracle.py (the exact oracle that chip_smoke.py's suite
+    phase and the CUDA tests hold the card against) imports and runs
+    test_kat.py's KAT sequence on the port without jax or gpqhe_tpu."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['gpqhe_tpu'] = None\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "import torch_oracle as o\n"
+        "from gpqhe_tpu_torch import CKKS, HeContext, Surf\n"
+        "ctx = HeContext(**o.KAT_RING)\n"
+        "res = o.kat_sequence(CKKS(ctx, rng=Surf(), device='cpu'), o.Oracle(ctx))\n"
+        "eng = CKKS(ctx, rng=Surf(), device='cpu')\n"
+        "assert len(res) == 9 and not any(o.first_mismatch(eng, c, w) for _, c, w in res)\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'gpqhe_tpu.'))\n"
+        "               for m, v in sys.modules.items() if v is not None)\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

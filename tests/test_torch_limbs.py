@@ -160,3 +160,19 @@ def test_to_f64_centered(k):
         assert tout[0] == -1.0 and tout[6] == 0.0 and tout[7] == -float(2 ** (q_bits - 1))
         if q_bits > 15:
             assert tout[5] == 12345.0
+
+
+@pytest.mark.parametrize("k", [3, 62, 63, 68, 124, 125])
+def test_geq_const_wide_bases(k):
+    """test_ops.py:227: widths around the 62-limb single-round boundary of
+    geq_const's fold (the logn=15 key switch reaches K=68), against Python
+    integers and the JAX package."""
+    rng = np.random.default_rng(7 + k)
+    c_int = int.from_bytes(rng.bytes(4 * k), "little")
+    vals = [0, 1, c_int - 1, c_int, c_int + 1, (1 << (32 * k)) - 1] + \
+        [int.from_bytes(rng.bytes(4 * k), "little") for _ in range(24)]
+    a = bigint.ints_to_limbs(vals, k)
+    c = bigint.int_to_limbs(c_int, k)
+    got = _t(tl.geq_const, a, c)
+    assert np.array_equal(got, np.array([v >= c_int for v in vals]))
+    assert np.array_equal(_j(jl.geq_const, a, c), got)

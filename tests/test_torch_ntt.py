@@ -8,10 +8,7 @@ schedule is modelled here in Python-int arithmetic and held against the
 twin: the two-pass kernels (csrc/ntt_passes.cuh) through
 torch_ntt_schedule.schedule_model, which walks the index maps the .cu follows (column
 and row tiles, register groups, exchanges, twiddle indices into the
-interleaved table) with the lazy bounds asserted at every butterfly; and the
-first kernel (one block per slab, kept as the gpqhe_ntt_v1 entry for
-timing) with a shrunken shared-memory size, so its global stage pass is
-exercised too.
+interleaved table) with the lazy bounds asserted at every butterfly.
 """
 
 import jax
@@ -142,8 +139,7 @@ def test_kernel_rejects_shape_mismatch():
 
 
 # ---------------------------------------------------------------------------
-# Python-int arithmetic of csrc/ntt.cu, and a model of its first schedule
-# (one block per slab: ntt_smem_kernel / ntt_stage_kernel, entry gpqhe_ntt_v1)
+# Python-int arithmetic of csrc/ntt.cu
 # ---------------------------------------------------------------------------
 
 def _shoup(x, z, zs, p):
@@ -162,87 +158,6 @@ def _fwd_bf(x0, x1, z, zs, p):
 def _inv_bf(x0, x1, z, zs, p):
     s = x0 + x1
     return (s - 4 * p if s >= 4 * p else s), _shoup(x0 + 4 * p - x1, z, zs, p)
-
-
-def _stage(slab, loglen, tw, tws, p, inverse, scale=None):
-    """ntt_stage_kernel on one slab (global-memory butterflies of span 2*len)."""
-    n = len(slab)
-    for i in range(n // 2):
-        k = i >> loglen
-        i0 = (k << (loglen + 1)) + (i & ((1 << loglen) - 1))
-        i1 = i0 + (1 << loglen)
-        zi = (n >> (loglen + 1)) + k
-        bf = _inv_bf if inverse else _fwd_bf
-        slab[i0], slab[i1] = bf(slab[i0], slab[i1], tw[zi], tws[zi], p)
-        if scale is not None:
-            slab[i0] = _shoup(slab[i0], *scale, p) % p
-            slab[i1] = _shoup(slab[i1], *scale, p) % p
-        assert slab[i0] < 4 * p and slab[i1] < 4 * p
-
-
-def _smem(slab, logsub, tw, tws, p, inverse, finish, scale):
-    """ntt_smem_kernel on every sub-block of one slab."""
-    n = len(slab)
-    m = 1 << logsub
-    for c in range(n // m):
-        sm = slab[c * m:(c + 1) * m]
-        for s in range(logsub):
-            loglen = s if inverse else logsub - 1 - s
-            zoff = (n >> (loglen + 1)) + (c << (logsub - loglen - 1))
-            for i in range(m // 2):
-                k = i >> loglen
-                i0 = (k << (loglen + 1)) + (i & ((1 << loglen) - 1))
-                i1 = i0 + (1 << loglen)
-                bf = _inv_bf if inverse else _fwd_bf
-                sm[i0], sm[i1] = bf(sm[i0], sm[i1], tw[zoff + k], tws[zoff + k], p)
-        if finish:
-            sm = [_shoup(x, *scale, p) % p if inverse else x % p for x in sm]
-        slab[c * m:(c + 1) * m] = sm
-
-
-def _model_ntt(a, tw, tws, primes, scale, inverse, smem_logn):
-    """gpqhe_ntt: a [nslab, n] Python ints, slab j on prime j % dim."""
-    nslab, n = len(a), len(a[0])
-    logn = n.bit_length() - 1
-    logsub = min(logn, smem_logn)
-    out = []
-    for j in range(nslab):
-        d = j % len(primes)
-        p, slab = primes[d], list(a[j])
-        args = (tw[d], tws[d], p)
-        if not inverse:
-            for loglen in range(logn - 1, logsub - 1, -1):
-                _stage(slab, loglen, *args, False)
-            _smem(slab, logsub, *args, False, True, None)
-        else:
-            _smem(slab, logsub, *args, True, logsub == logn, scale[d])
-            for loglen in range(logsub, logn):
-                _stage(slab, loglen, *args, True,
-                       scale[d] if loglen == logn - 1 else None)
-        out.append(slab)
-    return out
-
-
-@pytest.mark.parametrize("logn,smem_logn", [(6, 6), (7, 4), (5, 3)])
-@pytest.mark.parametrize("mode", MODES)
-def test_kernel_schedule_model_matches_twin(logn, smem_logn, mode):
-    dim = 2
-    pctx = PolyContext(logn, q=1 << 118, dim_cap=dim)
-    ring = RingEngine(pctx, device="cpu")
-    tables = ntt_cuda.make_kernel_tables(pctx, torch.device("cpu"))
-    plan = ntt_cuda.make_plan(pctx, dim, ring.ba(dim), tables)
-    a = _rand(pctx.primes[:dim], (2, dim, 1 << logn), seed=logn)
-    words = lambda t: [int(x) for x in torch_to_u64(t)]  # noqa: E731
-    inverse = mode != "fwd"
-    pairs = tables.tw_i if inverse else tables.tw_f
-    tw = [words(r) for r in pairs[..., 0]]
-    tws = [words(r) for r in pairs[..., 1]]
-    sc = torch_to_u64(plan.scale_phat if mode == "inv_scaled" else plan.scale)
-    scale = [(int(sc[0, d]), int(sc[1, d])) for d in range(dim)]
-    got = _model_ntt([[int(x) for x in row] for row in a.reshape(-1, 1 << logn)],
-                     tw, tws, pctx.primes[:dim], scale, inverse, smem_logn)
-    want = torch_to_u64(_twin(u64_to_torch(a), ring.ba(dim), mode))
-    assert np.array_equal(np.array(got, dtype=np.uint64).reshape(a.shape), want)
 
 
 # ---------------------------------------------------------------------------

@@ -8,15 +8,11 @@ mode).  csrc/ntt32.cu runs only on a GPU (tests/test_torch_cuda.py), so its
 arithmetic is modelled here in numpy uint32, which wraps mod 2^32 exactly as
 the card's words do: every butterfly is checked against Python-int
 arithmetic at the lazy bounds (inputs up to 4p - 1, p just below 2^30), and
-both schedules are held against the twin: the two-pass kernels
-(csrc/ntt_passes.cuh) through torch_ntt_schedule.schedule_model,
-which walks the index
-maps the .cu follows (column and row tiles, register groups, exchanges,
-twiddle indices into the interleaved table, 64-bit words in device memory)
-with the bounds asserted at every butterfly; and the first kernel (one block
-per slab, kept as the gpqhe_ntt32_v1 entry for timing) with a shrunken
-shared-memory size, so the global stage pass that n = 2^16 takes on the card
-runs here too.
+the schedule is held against the twin: the two-pass kernels
+(csrc/ntt_passes.cuh) through torch_ntt_schedule.schedule_model, which walks
+the index maps the .cu follows (column and row tiles, register groups,
+exchanges, twiddle indices into the interleaved table, 64-bit words in device
+memory) with the bounds asserted at every butterfly.
 """
 
 import jax
@@ -165,9 +161,7 @@ def test_launch_rejects_cpu_tensor_and_wrong_word(rings):
 
 
 # ---------------------------------------------------------------------------
-# numpy-uint32 arithmetic of csrc/ntt32.cu, and a model of its first schedule
-# (one block per slab: ntt32_smem_kernel / ntt32_stage_kernel, entry
-# gpqhe_ntt32_v1)
+# numpy-uint32 arithmetic of csrc/ntt32.cu
 # ---------------------------------------------------------------------------
 
 def _umulhi(a, b):
@@ -196,64 +190,6 @@ def _inv_bf(x0, x1, z, zs, p):
 
 def _scale_reduce(x, s, ss, p):
     return _csub(_shoup(x, s, ss, p), p)
-
-
-def _bf_indices(half, loglen):
-    i = np.arange(half)
-    k = i >> loglen
-    i0 = (k << (loglen + 1)) + (i & ((1 << loglen) - 1))
-    return k, i0, i0 + (1 << loglen)
-
-
-def _stage(slab, loglen, tw, tws, p, inverse, scale=None):
-    """ntt32_stage_kernel on one slab of 64-bit words in device memory."""
-    n = len(slab)
-    k, i0, i1 = _bf_indices(n // 2, loglen)
-    zi = (n >> (loglen + 1)) + k
-    x0, x1 = slab[i0].astype(U32), slab[i1].astype(U32)
-    x0, x1 = (_inv_bf if inverse else _fwd_bf)(x0, x1, tw[zi], tws[zi], p)
-    if scale is not None:
-        x0, x1 = _scale_reduce(x0, *scale, p), _scale_reduce(x1, *scale, p)
-    slab[i0], slab[i1] = x0, x1
-
-
-def _smem(slab, logsub, tw, tws, p, inverse, finish, scale):
-    """ntt32_smem_kernel on every sub-block of one slab."""
-    n = len(slab)
-    m = 1 << logsub
-    for c in range(n // m):
-        sm = slab[c * m:(c + 1) * m].astype(U32)       # narrowed on load
-        for s in range(logsub):
-            loglen = s if inverse else logsub - 1 - s
-            zoff = (n >> (loglen + 1)) + (c << (logsub - loglen - 1))
-            k, i0, i1 = _bf_indices(m // 2, loglen)
-            bf = _inv_bf if inverse else _fwd_bf
-            sm[i0], sm[i1] = bf(sm[i0], sm[i1], tw[zoff + k], tws[zoff + k], p)
-            assert int(sm.max()) < 4 * int(p)
-        if finish:
-            sm = (_scale_reduce(sm, *scale, p) if inverse
-                  else _csub(_csub(sm, U32(2) * p), p))
-        slab[c * m:(c + 1) * m] = sm                   # widened on store
-
-
-def _model_ntt32(a, tw, tws, primes, scale, inverse, smem_logn):
-    """gpqhe_ntt32: a u64[nslab, n], slab j on prime j % dim."""
-    out = a.copy()
-    logn = a.shape[1].bit_length() - 1
-    logsub = min(logn, smem_logn)
-    for j, slab in enumerate(out):
-        d = j % len(primes)
-        args = (tw[d], tws[d], primes[d])
-        if not inverse:
-            for loglen in range(logn - 1, logsub - 1, -1):
-                _stage(slab, loglen, *args, False)
-            _smem(slab, logsub, *args, False, True, None)
-        else:
-            _smem(slab, logsub, *args, True, logsub == logn, scale[d])
-            for loglen in range(logsub, logn):
-                _stage(slab, loglen, *args, True,
-                       scale[d] if loglen == logn - 1 else None)
-    return out
 
 
 def _prime_below_2_30(n):
@@ -294,29 +230,6 @@ def test_model_butterflies_hold_the_lazy_bounds(which):
         r = _shoup(anyx, z.astype(U32), zs.astype(U32), U32(p))
         assert int(r.max()) < 2 * p
         assert np.array_equal(r.astype(object) % p, anyx.astype(object) * Z % p)
-
-
-@pytest.mark.parametrize("logn,smem_logn", [(6, 6), (7, 4), (5, 3), (10, 9)])
-@pytest.mark.parametrize("mode", MODES)
-def test_kernel_schedule_model_matches_twin(logn, smem_logn, mode):
-    dim = 3
-    pctx = PolyContext(logn, q=1 << 27, logp=29, dim_cap=dim)
-    assert min(pctx.primes) > 1 << 29
-    ring = RingEngine(pctx, device="cpu")
-    tables = ntt_cuda32.make_kernel_tables(pctx, torch.device("cpu"))
-    plan = ntt_cuda32.make_plan(pctx, dim, ring.ba(dim), tables)
-    a = _rand(pctx.primes[:dim], (2, dim, 1 << logn), seed=logn)
-    a[0, :, :4] = np.array(pctx.primes[:dim], dtype=U64)[:, None] - U64(1)   # p - 1
-    a[1, :, :] = np.array(pctx.primes[:dim], dtype=U64)[:, None] - U64(1)
-    inverse = mode != "fwd"
-    pairs = _u32(tables.tw_i if inverse else tables.tw_f)
-    tw, tws = pairs[..., 0], pairs[..., 1]
-    sc = _u32(plan.scale_phat if mode == "inv_scaled" else plan.scale)
-    scale = [(sc[0, d], sc[1, d]) for d in range(dim)]
-    got = _model_ntt32(a.reshape(-1, 1 << logn), tw, tws, _u32(tables.primes),
-                       scale, inverse, smem_logn)
-    want = torch_to_u64(_twin(u64_to_torch(a), ring.ba(dim), mode))
-    assert np.array_equal(got.reshape(a.shape), want)
 
 
 # ---------------------------------------------------------------------------

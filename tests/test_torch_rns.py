@@ -138,3 +138,74 @@ def test_recon_plan_matches_jax(ctxs):
         for f in ("negP16", "P_limbs", "Phalf_limbs", "MminusP_limbs", "inv_p"):
             assert np.array_equal(getattr(a, f), getattr(b, f).numpy()), f
         assert np.array_equal(tr.phat_digit_table(a.phat16, b.nd), b.phat_digits.numpy())
+
+
+# -- tests/test_ops.py's edge values, on its ring (logn=6, 60-bit primes) --------
+
+EDGE_LOGN = 6
+
+
+@pytest.fixture(scope="module")
+def edge_ctxs():
+    return (JPolyContext(EDGE_LOGN, q=1 << 20, dim_cap=24),
+            PolyContext(EDGE_LOGN, q=1 << 20, dim_cap=24))
+
+
+def _edge(vals, n):
+    return (vals * (n // len(vals) + 1))[:n]
+
+
+def _plans(ctxs, dim):
+    jp, tp = ctxs
+    return (jr.make_basis_arrays(jp, dim), jr.make_recon_plan(jp, dim),
+            tr.make_basis_arrays(tp, dim, "cpu"), tr.make_recon_plan(tp, dim, "cpu"))
+
+
+def _both(res, jba, jplan, tba, tplan, **kw):
+    want = np.asarray(jax.jit(functools.partial(jr.reconstruct, ba=jba, plan=jplan, **kw))(
+        jnp.asarray(res)))
+    got = tr.reconstruct(u64_to_torch(res), tba, tplan, **kw).numpy()
+    assert np.array_equal(want.astype(np.int64), got)
+    return got
+
+
+@pytest.mark.parametrize("dim", [2, 8])
+def test_reconstruct_boundary_values(edge_ctxs, dim):
+    """Values next to 0, +-2^bound_bits and P (test_ops.py:152): the fast
+    truncated path, the exact centered path and center=False, each against
+    Python integers and the JAX package."""
+    jba, jplan, tba, tplan = _plans(edge_ctxs, dim)
+    b = edge_ctxs[1].basis(dim)
+    bound_bits = tplan.logP - 40
+    big = (1 << bound_bits) - 1
+    vals = _edge([0, 1, 2, -1, -2, big, -big, big - 1, -(big - 1), 3, -3], 1 << EDGE_LOGN)
+    res = _residues(vals, b.primes)
+    k_out = max(2, (bound_bits + 63) // 32)
+    assert k_out < tplan.ks
+    fast = _both(res, jba, jplan, tba, tplan, center=True, k_out=k_out, bound_bits=bound_bits)
+    exact = _both(res, jba, jplan, tba, tplan, center=True)
+    nonneg = _both(res, jba, jplan, tba, tplan, center=False, k_out=tplan.ks)
+    mod_f = 1 << (32 * k_out)
+    assert bigint.limbs_to_ints(fast) == [v % mod_f for v in vals]
+    assert bigint.limbs_to_signed_ints(exact) == vals
+    assert bigint.limbs_to_ints(nonneg) == [v % b.P for v in vals]
+
+
+def test_reconstruct_fast_path_alpha_stress(edge_ctxs):
+    """inv_p times (1 + 2^-22) on both packages' plans (test_ops.py:195): the
+    f64 alpha estimate misses floor(S/P) for near-boundary values, and the
+    centered fast path must still be exact."""
+    import dataclasses
+    dim = 8
+    jba, jplan, tba, tplan = _plans(edge_ctxs, dim)
+    jplan = dataclasses.replace(jplan, inv_p=jplan.inv_p * (1.0 + np.float64(2.0 ** -22)))
+    tplan = dataclasses.replace(tplan, inv_p=tplan.inv_p * (1.0 + 2.0 ** -22))
+    assert np.array_equal(np.asarray(jplan.inv_p), tplan.inv_p.numpy())
+    b = edge_ctxs[1].basis(dim)
+    bound_bits = tplan.logP - 40
+    big = (1 << bound_bits) - 1
+    vals = _edge([0, 1, -1, big, -big, 12345, -12345], 1 << EDGE_LOGN)
+    k_out = max(2, (bound_bits + 63) // 32)
+    fast = _both(_residues(vals, b.primes), jba, jplan, tba, tplan, center=True, k_out=k_out,
+                 bound_bits=bound_bits)
+    assert bigint.limbs_to_ints(fast) == [v % (1 << (32 * k_out)) for v in vals]

@@ -161,6 +161,88 @@ def test_golden_replay():
         assert diff < tol, f"{name}: diff {diff} vs reference binary (tol {tol})"
 
 
+# -- tests/test_scheme.py's ring (logn=12/q=2^109/slots=4/Delta=2^30) --------------
+
+SCHEME12 = dict(logn=12, q=1 << 109, slots=4, Delta=1 << 30)
+
+
+def _scheme12(pkg, surf, smp, **kw):
+    """Keys for every slot rotation, an encryption of a message from the
+    stream, its rotation by every r, and test_ecd_product_norm's plaintext
+    product through RingEngine.poly_mul."""
+    ctx = pkg.HeContext(**SCHEME12)
+    eng = pkg.CKKS(ctx, rng=surf.Surf(), **kw)
+    pk, sk = eng.keypair()
+    rk = eng.genrk(sk)
+    m0 = smp.sample_z01vec(eng.rng, ctx.slots)
+    ct0 = eng.enc_pk(eng.ecd(m0), pk)
+    s = ctx.slots
+    m1 = np.array([(1 - i / s) + 1j * (1 - i / s) for i in range(s)])
+    m2 = np.array([(0.99 - i / s) + 1j * (0.99 - i / s) for i in range(s)])
+    pt1, pt2 = eng.ecd(m1), eng.ecd(m2)
+    dim = (2 * ctx.q[ctx.L].bit_length()) // ctx.logp_prime + 1
+    prod = eng.ring.poly_mul(pt1.m, pt2.m, dim, 32 * eng.kq, eng.kq,
+                             signed_a=pt1.mod_bits, signed_b=pt2.mod_bits)
+    pt = type(pt1)(nu=pt1.nu * pt2.nu, m=prod, mod_bits=32 * eng.kq)
+    return dict(eng=eng, sk=sk, m0=m0, m1=m1, m2=m2, prod=pt,
+                rot=[eng.rot(ct0.copy(), r, rk) for r in range(s)])
+
+
+@pytest.fixture(scope="module")
+def scheme12():
+    return (_scheme12(gpqhe_tpu, jsurf, jsmp), _scheme12(gt, tsurf, tsmp, device="cpu"))
+
+
+@pytest.mark.parametrize("r", range(SCHEME12["slots"]))
+def test_rot_all(scheme12, r):
+    """test_scheme.py::test_rot_all: rotation by r within 1e-5 of the rolled
+    message, bit-equal to the JAX package's."""
+    j, t = scheme12
+    a, b = j["rot"][r], t["rot"][r]
+    assert (a.l, a.nu, a.B) == (b.l, b.nu, b.B)
+    assert np.array_equal(np.asarray(a.c0), limbs_to_numpy(b.c0))
+    assert np.array_equal(np.asarray(a.c1), limbs_to_numpy(b.c1))
+    got = t["eng"].dcd(t["eng"].dec(b, t["sk"]))
+    assert np.max(np.abs(got - np.roll(t["m0"], -r))) < 1e-5
+
+
+def test_ecd_product_norm(scheme12):
+    """test_scheme.py::test_ecd_product_norm: a plaintext product through
+    RingEngine.poly_mul decodes within 1e-5 of m1 * m2; its limbs equal the
+    JAX package's."""
+    j, t = scheme12
+    assert np.array_equal(np.asarray(j["prod"].m), limbs_to_numpy(t["prod"].m))
+    got = t["eng"].dcd(t["prod"])
+    assert np.max(np.abs(got - t["m1"] * t["m2"])) < 1e-5
+
+
+def test_kemctx_sizes():
+    """test_parity.py::test_kemctx_sizes at its ring (logn=10/q=2^27)."""
+    eng = gt.CKKS(gt.HeContext(logn=10, q=1 << 27, slots=4, Delta=1 << 21), rng=gt.Surf(),
+                  device="cpu")
+    k = eng.ctx.kemctx()
+    n = eng.ctx.poly.n
+    assert k["polybytes"] == (eng.ctx.poly.logq + 1) * n // 8
+    assert k["pkbytes"] == k["polybytes"] + 32
+    assert k["ssbytes"] == 4 * (n // 2) * 16
+    assert k == gpqhe_tpu.HeContext(logn=10, q=1 << 27, slots=4, Delta=1 << 21).kemctx()
+
+
+def test_full_width_checks_at_a_small_ring():
+    """chip_smoke.py's full_width_checks (the suite phase runs them at
+    logn=14/logq=438/slots=16/Delta=2^50 on the card) at logn=9/q=2^120/
+    slots=16/Delta=2^30 on the CPU: every decode within 1e-5, a rotation by
+    each of the 16 slots."""
+    from chip_smoke import full_width_checks
+    eng = gt.CKKS(gt.HeContext(logn=9, q=1 << 120, slots=16, Delta=1 << 30), rng=gt.Surf(),
+                  device="cpu")
+    pk, sk = eng.keypair()
+    out = full_width_checks(eng, pk, sk, eng.genrlk(sk), eng.genck(sk), eng.genrk(sk))
+    assert out["mul_level_ok"]
+    assert [f"rot{r}" for r in range(16)] == [k for k in out["diffs"] if k.startswith("rot")]
+    assert max(out["diffs"].values()) < 1e-5, out["diffs"]
+
+
 @pytest.mark.slow
 def test_main_path_size_decodes():
     """logn=14/logq=438/slots=16/Delta=2^50: decode diff < 1e-5 (bench.py's gate)."""
