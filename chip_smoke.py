@@ -5,26 +5,35 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases, each printing JSON lines; any failure raises and the script exits
 non-zero:
-  build    — compile csrc/ntt.cu and csrc/ntt32.cu with nvcc (sm_90a), one
-             process each, started together, and load them; the card's name
-             and power limit from nvidia-smi; per kernel instantiation
-             ptxas's registers, spills, stack and shared memory; static
-             multiply-instruction counts from cuobjdump.
+  build    — compile the five CUDA sources (csrc/ntt.cu, ntt32.cu, and the
+             elementwise kernels modmath.cu, rns.cu, limbs.cu) with nvcc
+             (sm_90a), one process each, started together, and load them;
+             the card's name and power limit from nvidia-smi; per kernel
+             instantiation ptxas's registers, spills, stack and shared
+             memory; static multiply-instruction counts from cuobjdump.
   kernels  — each CUDA NTT (u64 words on the 59-bit chain, u32 words on the
              logp=29 chain) against the plain torch twin on the card:
              torch.equal on random residues at the paths' shapes; the
              device time per launch in two turns, each a run of many
              launches between one pair of CUDA events with the host
              enqueueing ahead of the device, inputs L2-warm; the wrapper's
-             host time per call; the twin's median; the bound.
+             host time per call; the twin's median; the bound.  Then every
+             entry of the elementwise kernels (K5 modmath, K4 decompose, K6
+             the CRT lift, K7 limbs) torch.equal to its plain torch version
+             on edge words at the shapes the paths give it (logn=14 on both
+             chains, logn=15; batch 8; the reconstruct end to end at its
+             bounds), the first shape of each timed as the NTT is.
   golden   — the logn=11 replay of tests/golden/golden_logn11.json (enc,
              add, mul+rs, conj, rot1, moddown) within tests/test_golden.py's
              tolerances.
   mul_rs   — encrypt, mul_rs, decrypt at logn=14/logq=438/slots=16/Delta=2^50
              from Surf(): keypair, genrlk, ecd + enc_pk x2, mul_rs, dec, dcd;
-             decode diff vs m1*m2 < 1e-5; every u64 launch counter > 0;
-             keygen seconds and the mul_rs median; with it a `profile` line:
-             one mul_rs under torch.profiler.
+             decode diff vs m1*m2 < 1e-5; every u64 launch counter > 0 and
+             each elementwise kernel's (the same gate in linalg59/29, mesh
+             and bootstrap); keygen seconds and the mul_rs median; with it a
+             `profile` line: one mul_rs under torch.profiler, its device
+             kernels, busy ms and idle share, split by module (ntt, modmath,
+             rns, limbs, other torch).
   linalg59, linalg29 — the key-switch and hoisted-gemv path at the same size
              on each chain, the engine built with no device argument:
              keypair, genrlk, genck, genrk (16 keys), enc_pk, mul_rs, rot,
@@ -128,11 +137,13 @@ non-zero:
   cli      — `python -m gpqhe_tpu_torch mul pk` and `... exp` as
              subprocesses at their defaults on the card: exit code 0, an
              [ok] line, NTT launches > 0.
-Then: the nvidia-smi line, the per-kernel JSON line (eighteen entries: the
-six of the logn=14 path, the u32 kernel's three on the logp=9 chain, the u64
-kernel's three at the bootstrap's logn=15 shapes, and forward and inverse on
-per-shard plans for the u64 kernel, the u32 kernel and the u64 kernel on the
-logn=15 mesh), and last {"ok": true, "device": {...}}.  --phases a,b,c runs a subset (the last line
+Then: the nvidia-smi line, the per-kernel JSON line (the NTT's eighteen
+entries: the six of the logn=14 path, the u32 kernel's three on the logp=9
+chain, the u64 kernel's three at the bootstrap's logn=15 shapes, and forward
+and inverse on per-shard plans for the u64 kernel, the u32 kernel and the u64
+kernel on the logn=15 mesh; then each elementwise entry that the gated paths
+launched, with its launches summed over them), and last {"ok": true,
+"device": {...}}.  --phases a,b,c runs a subset (the last line
 then says "partial"); --iters N sets the timed runs per median.
 
 Without a CUDA device, or without the repository beside it, it fails
@@ -327,17 +338,19 @@ def ntt_bound(word: int, mode: str, shape) -> dict:
 
 
 def phase_build():
-    from gpqhe_tpu_torch.ops import cuda_build, ntt_cuda, ntt_cuda32
+    from gpqhe_tpu_torch.ops import (cuda_build, limbs_cuda, modmath_cuda, ntt_cuda, ntt_cuda32,
+                                     rns_cuda)
+    mods = (ntt_cuda, ntt_cuda32, modmath_cuda, rns_cuda, limbs_cuda)
     t0 = time.time()
-    cuda_build.build([ntt_cuda.SOURCE, ntt_cuda32.SOURCE])   # one nvcc each, together
-    ntt_cuda.load_library()
-    ntt_cuda32.load_library()
+    cuda_build.build([m.SOURCE for m in mods])          # one nvcc each, all together
+    for m in mods:
+        m.load_library()
     secs = time.time() - t0
     ptxas = {os.path.basename(src): ptxas_summary(log)
              for src, log in cuda_build.BUILD_LOGS.items()}
     emit({"phase": "build", "seconds": secs, "gpu": gpu_line(), "ptxas": ptxas,
-          "sass_multiplies": {os.path.basename(src): sass_multiplies(cuda_build.library_path(src))
-                              for src in (ntt_cuda.SOURCE, ntt_cuda32.SOURCE)}})
+          "sass_multiplies": {os.path.basename(m.SOURCE):
+                              sass_multiplies(cuda_build.library_path(m.SOURCE)) for m in mods}})
 
 
 def short_kernel_name(name: str) -> str:
@@ -517,6 +530,399 @@ def phase_kernels(iters: int, cases: dict = CASES, tag: str = "kernels") -> dict
     return result
 
 
+# ---------------------------------------------------------------------------
+# the elementwise kernels (K4-K7): the GPU counterparts of XLA's fusion of the
+# JAX package's jnp chains, not of Pallas kernels
+# ---------------------------------------------------------------------------
+
+EW_KERNELS = {
+    "decompose": {"source": "gpqhe_tpu_torch/csrc/rns.cu", "replaces": "gpqhe_tpu/ops/rns.py:110"},
+    "modmath": {"source": "gpqhe_tpu_torch/csrc/modmath.cu",
+                "replaces": "gpqhe_tpu/ops/modmath.py:58"},
+    "crt": {"source": "gpqhe_tpu_torch/csrc/rns.cu", "replaces": "gpqhe_tpu/ops/rns.py:200"},
+    "limbs": {"source": "gpqhe_tpu_torch/csrc/limbs.cu", "replaces": "gpqhe_tpu/ops/limbs.py:44"},
+}
+# the JAX function each entry stands in for, where it is not its kernel's
+EW_REPLACES = {
+    "modmath_mont_mul": "gpqhe_tpu/ops/modmath.py:52", "modmath_to_mont": "gpqhe_tpu/ops/modmath.py:67",
+    "modmath_addmod": "gpqhe_tpu/ops/modmath.py:98", "modmath_submod": "gpqhe_tpu/ops/modmath.py:104",
+    "modmath_summod": "gpqhe_tpu/scheme/engine.py:938",
+    "modmath_cross_terms": "gpqhe_tpu/scheme/engine.py:535",
+    "modmath_key_products": "gpqhe_tpu/scheme/engine.py:554",
+    "modmath_mulmod_sum": "gpqhe_tpu/scheme/engine.py:929",
+    "limbs_add_scalar_bit": "gpqhe_tpu/ops/limbs.py:55", "limbs_sub": "gpqhe_tpu/ops/limbs.py:68",
+    "limbs_neg": "gpqhe_tpu/ops/limbs.py:77", "limbs_select": "gpqhe_tpu/ops/limbs.py:82",
+    "limbs_geq_const": "gpqhe_tpu/ops/limbs.py:87", "limbs_mask_bits": "gpqhe_tpu/ops/limbs.py:111",
+    "limbs_rshift_round": "gpqhe_tpu/ops/limbs.py:144",
+    "limbs_rshift_round_mask": "gpqhe_tpu/scheme/engine.py:757",
+    "limbs_from_digits16": "gpqhe_tpu/ops/limbs.py:210",
+}
+# 32-bit multiply instructions per u64 Montgomery product: the 64x64 high
+# product (4) and the low product (3) of a * b, the low product u = lo * pinv
+# (3) and the high product of u * p (4); a mulmod is two of them
+IMAD_MONT = 14
+EW_BATCH = 8       # mul_rs_batch's B
+EW_N1 = 4          # baby steps of a hoisted gemv step at slots=16
+
+
+def ew_counters() -> dict:
+    """{entry: its launch count} over the three elementwise libraries."""
+    from gpqhe_tpu_torch.ops import limbs_cuda, modmath_cuda, rns_cuda
+    out = {f"modmath_{k}": v for k, v in modmath_cuda.LAUNCHES.items()}
+    out.update({"decompose": rns_cuda.LAUNCHES["decompose"],
+                "crt_digit_split": rns_cuda.LAUNCHES["digit_split"],
+                "crt_lift": rns_cuda.LAUNCHES["lift"]})
+    out.update({f"limbs_{k}": v for k, v in limbs_cuda.LAUNCHES.items()})
+    return out
+
+
+def ew_reset() -> None:
+    """Zero the elementwise launch counters and the count of operands the
+    wrappers copied (an operand whose strides have no [M, A, rows, cols]
+    form; read with ew_copies)."""
+    from gpqhe_tpu_torch.ops import cuda_build, limbs_cuda, modmath_cuda, rns_cuda
+    for m in (limbs_cuda, modmath_cuda, rns_cuda):
+        m.reset_launches()
+    cuda_build.COPIES["operands"] = 0
+
+
+def ew_copies() -> int:
+    from gpqhe_tpu_torch.ops import cuda_build
+    return cuda_build.COPIES["operands"]
+
+
+def ew_by_kernel(counts: dict) -> dict:
+    """Launches per kernel (K4-K7) from per-entry counts."""
+    out = {k: 0 for k in EW_KERNELS}
+    for name, v in counts.items():
+        out[name.split("_")[0]] += v
+    return out
+
+
+def require_ew_launches(name: str, counts: dict) -> None:
+    """Raise unless each of K4-K7 launched on the path just run."""
+    idle = [k for k, v in ew_by_kernel(counts).items() if v <= 0]
+    if idle:
+        raise AssertionError(f"{name}: the path never launched the elementwise kernels {idle}")
+
+
+def ew_residues(rng, ps, shape, device):
+    """int64 words < p of the prime axis (-2) of shape, the edge words 0, 1
+    and p - 1 at the first coefficients of every row."""
+    import numpy as np
+    import torch
+    p = np.asarray(ps, dtype=np.uint64).reshape(-1, 1)
+    x = rng.integers(0, 1 << 63, size=shape, dtype=np.uint64) % p
+    x[..., :3] = np.concatenate([np.zeros_like(p), np.ones_like(p), p - 1], axis=1)
+    return torch.from_numpy(x.view(np.int64)).to(device)
+
+
+def ew_words(rng, shape, device, bits: int = 64):
+    """Random words of `bits` bits (int64 bit patterns), the edge words 0,
+    2^(bits-1) and 2^bits - 1 first along the last axis."""
+    import numpy as np
+    import torch
+    x = rng.integers(0, (1 << bits) - 1, size=shape, dtype=np.uint64, endpoint=True)
+    x[..., :3] = np.array([0, 1 << (bits - 1), (1 << bits) - 1], dtype=np.uint64)
+    return torch.from_numpy(x.view(np.int64)).to(device)
+
+
+def ew_limbs(rng, shape, device):
+    """u32 limbs [..., rows, K] with edge rows: all 0xFFFFFFFF (a carry
+    through every limb), all 0, and 0xFFFFFFFF below a zero top limb."""
+    import torch
+    x = ew_words(rng, shape, device, bits=32)
+    x[..., 0, :] = 0xFFFFFFFF
+    x[..., 1, :] = 0
+    x[..., 2, :] = 0xFFFFFFFF
+    x[..., 2, -1] = 0
+    return x
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def elementwise_cases(logn: int, logp: int, device, seed: int = 8) -> dict:
+    """{entry: [case, ...]}: each case a dict with shape, kern (the public
+    dispatcher, which on a CUDA tensor launches the kernel), plain (the
+    plain torch version on the same tensors), bytes (each input read once,
+    each output written once) and imad (32-bit multiplies) for the bound,
+    and library where one PyTorch call computes the same function.
+    The shapes are those the paths give the entries at the ring of logn
+    (logq 438 or 881) on the logp chain: the product's dim_mul basis, the
+    key switch's dim_swk basis against the key bank's dimswk_h rows, batch
+    EW_BATCH, a hoisted gemv step of EW_N1 baby steps, the ciphertext's
+    limbs; the first case of an entry is its main-path shape."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from gpqhe_tpu_torch.context import HeContext
+    from gpqhe_tpu_torch.ops import limbs as lb
+    from gpqhe_tpu_torch.ops import modmath as mm
+    from gpqhe_tpu_torch.ops import rns
+    from gpqhe_tpu_torch.scheme.engine import CKKS
+
+    rng = np.random.default_rng(seed)
+    slots, delta = (16, 1 << 50) if logn == 14 else (4, 1 << 30)
+    ctx = HeContext(logn=logn, q=1 << LOGQ[logn], slots=slots, Delta=delta, logp=logp)
+    eng = CKKS(ctx, device=device)
+    ring = eng.ring
+    n, L = ctx.poly.n, ctx.L
+    dim_m, dim_s, dh = ctx.dim_mul(L), ctx.dim_swk(L), eng.dimswk_h
+    klv, B, n1 = eng.kl(L), EW_BATCH, EW_N1
+    cases = {}
+
+    def consts(dim):
+        ba = ring.ba(dim)
+        return ba.ps[:, None], ba.pinv[:, None], ring.r2(dim)
+
+    def res(dim, lead=()):
+        return ew_residues(rng, ring.pctx.primes[:dim], lead + (dim, n), device)
+
+    def add(entry, shape, kern, plain, inputs, out_words, imad, **kw):
+        cases.setdefault(entry, []).append(dict(
+            shape=list(shape), kern=kern, plain=plain, imad=imad,
+            bytes=nbytes(*inputs) + 8 * out_words, **kw))
+
+    # K5 modmath
+    cm, cs = consts(dim_m), consts(dim_s)
+    for lead in ((), (B,)):
+        x = res(dim_m, (4,) + lead)
+        add("modmath_cross_terms", x.shape, lambda x=x: mm.cross_terms(x, *cm),
+            lambda x=x: mm.plain_cross_terms(x, *cm), [x], 3 * x[0].numel(),
+            4 * 2 * IMAD_MONT * x[0].numel())
+    bank = [res(dh), res(dh)]
+    for lead in ((), (B,)):
+        d = res(dim_s, lead)
+        e0, e1 = bank[0][:dim_s], bank[1][:dim_s]
+        add("modmath_key_products", d.shape, lambda d=d, e0=e0, e1=e1: mm.key_products(d, e0, e1, *cs),
+            lambda d=d, e0=e0, e1=e1: mm.plain_key_products(d, e0, e1, *cs), [d, e0, e1],
+            2 * d.numel(), 2 * 2 * IMAD_MONT * d.numel())
+    c1p, ptx = res(dim_s, (n1,)), res(dim_s, (n1,))
+    rk = [res(dh, (n1,))[:, :dim_s] for _ in range(2)]
+    add("modmath_mulmod_sum", c1p.shape,
+        lambda: mm.mulmod_sum(c1p, ptx, *cs, ws=rk),
+        lambda: mm.plain_mulmod_sum(c1p, ptx, *cs, ws=rk), [c1p, ptx, *rk],
+        2 * dim_s * n, 3 * 2 * IMAD_MONT * c1p.numel())
+    c0p, ptb = res(dim_m, (n1,)), res(dim_m, (n1,))
+    add("modmath_mulmod_sum", c0p.shape, lambda: mm.mulmod_sum(c0p, ptb, *cm),
+        lambda: mm.plain_mulmod_sum(c0p, ptb, *cm), [c0p, ptb], dim_m * n,
+        2 * IMAD_MONT * c0p.numel())
+    for lead in ((), (B,)):
+        x, y = res(dim_m, lead), res(dim_m, lead)
+        add("modmath_mulmod", x.shape, lambda x=x, y=y: mm.mulmod(x, y, *cm),
+            lambda x=x, y=y: mm.plain_mulmod(x, y, *cm), [x, y], x.numel(),
+            2 * IMAD_MONT * x.numel())
+    w, v = ew_words(rng, (dim_s, n), device), res(dim_s)
+    add("modmath_mont_mul", w.shape, lambda: mm.mont_mul(w, v, *cs[:2]),
+        lambda: mm.plain_mont_mul(w, v, *cs[:2]), [w, v], w.numel(), IMAD_MONT * w.numel())
+    u, z = res(dim_m), res(dim_m)
+    add("modmath_to_mont", u.shape, lambda: mm.to_mont(u, *cm), lambda: mm.plain_to_mont(u, *cm),
+        [u], u.numel(), IMAD_MONT * u.numel())
+    add("modmath_addmod", u.shape, lambda: mm.addmod(u, z, cm[0]),
+        lambda: mm.plain_addmod(u, z, cm[0]), [u, z], u.numel(), 0)
+    add("modmath_submod", u.shape, lambda: mm.submod(u, z, cm[0]),
+        lambda: mm.plain_submod(u, z, cm[0]), [u, z], u.numel(), 0)
+    add("modmath_summod", c1p.shape, lambda: mm.summod(c1p, cs[0]),
+        lambda: mm.plain_summod(c1p, cs[0]), [c1p], dim_s * n, 0)
+
+    # K4 decompose
+    for dim, lead, src in ((dim_m, (), None), (dim_s, (), None), (dim_m, (B,), None),
+                           (dim_m, (), 32 * klv), (dim_s, (), 32 * klv - 5)):
+        a = ew_limbs(rng, lead + (n, klv), device)
+        ba, wts = ring.ba(dim), ring.weights(dim, klv)
+        plain = ((lambda a=a, ba=ba, wts=wts: rns.plain_decompose_core(a, ba.ps, ba.pinv, wts))
+                 if src is None else
+                 (lambda a=a, ba=ba, wts=wts, src=src:
+                  rns.plain_decompose_signed(a, ba.ps, ba.pinv, wts, src)))
+        out_words = a.numel() // klv * dim
+        add("decompose", a.shape,
+            lambda a=a, ba=ba, wts=wts, src=src: rns.decompose(a, ba, wts, src_bits=src), plain,
+            [a, wts], out_words, IMAD_MONT * out_words * ((klv + 1) // 2),
+            signed_bits=src, dim=dim)
+
+    # K6 the CRT lift: digit_split and lift on their own inputs, and the
+    # whole reconstruct (split, matmul, lift) on values that meet its bounds
+    for dim, lead, scaled in ((dim_m, (), False), (dim_m, (3,), False), (dim_s, (), True)):
+        ba, plan = ring.ba(dim), ring.recon(dim)
+        y = res(dim, lead)
+        scale = (ba.phatinv_mont, ba.ps, ba.pinv) if scaled else None
+        ncoef = y.numel() // dim
+        add("crt_digit_split", y.shape,
+            lambda y=y, plan=plan, scale=scale: rns.digit_split(y, plan.nd, plan.inv_p, scale),
+            lambda y=y, plan=plan, scale=scale: rns.plain_digit_split(y, plan.nd, plan.inv_p,
+                                                                      scale),
+            [y], ncoef * (plan.nd * dim + 1), IMAD_MONT * y.numel() if scaled else 0,
+            af_check=True)
+    # (dim, k_out, center, bound, inv_p off by a factor 1 + 2^-22: the exact
+    # path's +-1 corrections must absorb it)
+    cases_lift = ((dim_m, klv, True, ctx.bits_mul(L), False),
+                  (dim_s, eng.kq, True, ctx.bits_swk(L), False),
+                  (dim_s, None, True, None, False), (ctx.dim, None, False, None, False),
+                  (dim_s, None, True, None, True))
+    for dim, k_out, center, bound, skew in cases_lift:
+        ba, plan = ring.ba(dim), ring.recon(dim)
+        if skew:
+            plan = dataclasses.replace(plan, inv_p=plan.inv_p * (1 + 2.0 ** -22))
+        kd = min(2 * k_out, plan.ds) if k_out else plan.ds
+        yv = res(dim)
+        sd, af = rns.plain_digit_partials(yv, plan, kd)
+        rows = n
+        add("crt_lift", list(sd.shape) + [k_out or plan.ks],
+            lambda sd=sd, af=af, plan=plan, c=center, k=k_out: rns._lift(sd, af, plan, c, k),
+            lambda sd=sd, af=af, plan=plan, c=center, k=k_out: rns.plain_lift(sd, af, plan, c, k),
+            [sd, af], rows * (k_out or plan.ks), rows * kd)
+        # the whole reconstruct on values within its bound (exact path: any
+        # residues; fast path: |value| < 2^bound with the edge values
+        # 0, +-(2^bound - 1))
+        if bound is not None:
+            vals = ew_limbs(rng, (n, eng.kq), device)
+            vals = lb.plain_mask_bits(vals, bound - 1)
+            vals[:4] = 0
+            vals[1] = lb.plain_mask_bits(torch.full_like(vals[1], 0xFFFFFFFF), bound)
+            vals[2] = lb.plain_neg(vals[1][None])[0]
+            vals[3] = lb.plain_neg(lb.plain_mask_bits(ew_words(rng, (1, eng.kq), device, 32),
+                                                      bound - 1))[0]
+            r = rns.plain_decompose_signed(vals, ba.ps, ba.pinv, ring.weights(dim, eng.kq),
+                                           32 * eng.kq)
+        else:
+            r = yv
+        add("crt_lift", [f"reconstruct {list(r.shape)}"],
+            lambda r=r, ba=ba, plan=plan, c=center, k=k_out, b=bound:
+                rns.reconstruct(r, ba, plan, center=c, k_out=k, bound_bits=b),
+            # the plain side: the same dispatcher on CPU copies, where it
+            # picks the plain versions
+            lambda r=r, ba=ew_cpu(ba), plan=ew_cpu(plan), c=center, k=k_out, b=bound:
+                rns.reconstruct(r.cpu(), ba, plan, center=c, k_out=k,
+                                bound_bits=b).to(r.device),
+            [r], n * (k_out or plan.ks), 0, timed=False)
+
+    # K7 limbs
+    qb, logD = eng.qbits(L), ctx.p.bit_length() - 1
+    for lead in ((), (B,)):
+        a, b = ew_limbs(rng, lead + (n, klv), device), ew_limbs(rng, lead + (n, klv), device)
+        for op in ("add", "sub"):
+            add(f"limbs_{op}", a.shape, lambda a=a, b=b, op=op: getattr(lb, op)(a, b),
+                lambda a=a, b=b, op=op: getattr(lb, f"plain_{op}")(a, b), [a, b], a.numel(), 0)
+    a, b = ew_limbs(rng, (n, klv), device), ew_limbs(rng, (n, klv), device)
+    bit = torch.from_numpy(rng.integers(0, 2, size=n).astype(bool)).to(device)
+    bit[:3] = True
+    c = a[5].clone()
+    # mask_bits' constant of limb masks: one torch & computes that entry
+    full, rem = divmod(qb - 3, 32)
+    mask = torch.tensor([0xFFFFFFFF] * full + [(1 << rem) - 1] + [0] * (klv - full - 1),
+                        dtype=torch.int64, device=device)
+    # (op, args, words written: geq_const one bool a row, the rescale
+    # kl(L - 1) limbs a row; library: one PyTorch call of the same function)
+    one = [("neg", (a,), a.numel(), None), ("add_scalar_bit", (a, bit), a.numel(), None),
+           ("select", (bit, a, b), a.numel(), lambda: torch.where(bit[:, None], a, b)),
+           ("geq_const", (a, c), n / 8, None),
+           ("mask_bits", (a, qb - 3), a.numel(), lambda: a & mask),
+           ("rshift_round", (a, logD), a.numel(), None),
+           ("rshift_round_mask", (a, logD, eng.qbits(L - 1), eng.kl(L - 1)), n * eng.kl(L - 1),
+            None)]
+    for op, args, out_words, library in one:
+        add(f"limbs_{op}", a.shape, lambda op=op, args=args: getattr(lb, op)(*args),
+            lambda op=op, args=args: getattr(lb, f"plain_{op}")(*args),
+            [t for t in args if torch.is_tensor(t)], out_words, 0, library=library)
+    wide = ew_limbs(rng, (n, 125), device)
+    cw = wide[7].clone()
+    cw[:100] = wide[8, :100]      # rows 7 and 8 differ in the low limbs only
+    add("limbs_geq_const", wide.shape, lambda: lb.geq_const(wide, cw),
+        lambda: lb.plain_geq_const(wide, cw), [wide, cw], n / 8, 0)
+    kq = eng.kq
+    dg = torch.from_numpy(rng.integers(0, 1 << 48, size=(n, 2 * kq)).astype(np.float64)).to(device)
+    dg[0] = float((1 << 48) - 1)
+    add("limbs_from_digits16", dg.shape, lambda: lb.from_digits16(dg, kq),
+        lambda: lb.plain_from_digits16(dg, kq), [dg], n * kq, 0)
+    return cases
+
+
+def ew_cpu(consts):
+    """A copy of a frozen dataclass of constants (BasisArrays, ReconPlan)
+    with every tensor on the CPU."""
+    import dataclasses
+
+    import torch
+    return dataclasses.replace(consts, **{
+        f.name: getattr(consts, f.name).cpu() for f in dataclasses.fields(consts)
+        if torch.is_tensor(getattr(consts, f.name))})
+
+
+def ew_compare(got, want) -> tuple[bool, float, dict]:
+    """(equal, max_abs_err, extra) of a kernel's output against the plain
+    version's: torch.equal on every tensor; for digit_split the f64 af
+    estimate (summed in another order) is held to a relative 2^-45
+    instead (its use tolerates far more: ops/rns.py reconstruct_core)."""
+    import torch
+    if isinstance(got, tuple):
+        Y, af = got
+        pY, paf = want
+        rel = float(((af - paf).abs() / paf.abs().clamp_min(1e-300)).max().item())
+        eq = bool(torch.equal(Y, pY)) and rel <= 2.0 ** -45
+        return eq, float((Y - pY).abs().max().item()), {"af_max_rel": rel}
+    if got.dtype == torch.bool:
+        return bool(torch.equal(got, want)), float((got != want).sum().item()), {}
+    eq = bool(torch.equal(got, want))
+    err = 0.0 if eq else float((got.to(torch.float64) - want.to(torch.float64)).abs().max().item())
+    return eq, err, {}
+
+
+def ew_bound(case) -> dict:
+    t_bytes = case["bytes"] / PEAK_BYTES_S * 1e3
+    t_ops = case["imad"] / PEAK_IMAD_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes_ms": t_bytes, "operations_ms": t_ops}
+
+
+def phase_elementwise(iters: int, rings=((14, 59), (14, 29), (15, 59)), tag: str = "kernels",
+                      timed_ring=(14, 59)) -> dict:
+    """Every entry of K4-K7 against its plain version on the card at the
+    shapes of the given rings; at timed_ring the first case of each entry
+    is timed (device ms in two turns, host µs, the plain version's ms) and
+    returned with its bound.  Raises on any difference."""
+    import torch
+    result = {}
+    dev = torch.device("cuda")
+    for logn, logp in rings:
+        for entry, cases in elementwise_cases(logn, logp, dev).items():
+            for i, case in enumerate(cases):
+                got, want = case["kern"](), case["plain"]()
+                torch.cuda.synchronize()
+                eq, err, extra = ew_compare(got, want)
+                out = {"phase": tag, "kernel": entry, "ring": [logn, logp], "shape": case["shape"],
+                       "equal": eq, "max_abs_err": err, **extra}
+                main = (logn, logp) == timed_ring and i == 0
+                if main and case.get("timed", True):
+                    runs = [device_ms_runs(case["kern"], iters) for _ in range(2)]
+                    lib = case.get("library")
+                    out.update({"ms": median(runs[0] + runs[1]),
+                                "turn_ms": [median(r) for r in runs],
+                                "host_us": host_us(case["kern"]),
+                                "plain_ms": cuda_ms(case["plain"], max(3, iters // 4)),
+                                # the library call timed as the kernel is
+                                # (device time, without the host's share)
+                                "library_ms": (median(device_ms_runs(lib, max(3, iters // 4)))
+                                               if lib else None),
+                                **ew_bound(case)})
+                    result[entry] = {k: out[k] for k in ("max_abs_err", "ms", "host_us",
+                                                         "plain_ms", "library_ms", "bound_ms",
+                                                         "bound_by")}
+                    result[entry]["shape"] = case["shape"]
+                emit(out)
+                if not eq:
+                    raise AssertionError(f"CUDA {entry} {case['shape']} at logn={logn} "
+                                         f"logp={logp} differs from its plain version")
+                if entry in result:
+                    result[entry]["max_abs_err"] = max(result[entry]["max_abs_err"], err)
+    emit({"phase": tag, "summary": "elementwise kernels, device ms per launch at the main-path shapes",
+          "ms": {k: v["ms"] for k, v in result.items()},
+          "bound_share": {k: v["bound_ms"] / v["ms"] for k, v in result.items()}})
+    return result
+
+
 def phase_golden():
     import numpy as np
     import torch
@@ -591,12 +997,31 @@ def profile_op(op: str, fn, host_ops: bool = True, warm: bool = True, **tags) ->
         return "ntt" in name and ("_pass" in name or "_kernel" in name)
     ntt_us = sum(v for k, v in by_name.items() if is_ntt(k))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    by_module = {}
+    for e in kernels:
+        m = by_module.setdefault(kernel_module(e.name), {"launches": 0, "ms": 0.0})
+        m["launches"] += 1
+        m["ms"] += e.time_range.elapsed_us() / 1e3
     emit({"phase": "profile", "op": op, **tags, "wall_ms": wall_us / 1e3,
           "device_busy_ms": busy_us / 1e3,
           "idle_share": 1 - busy_us / wall_us, "device_kernels": len(kernels),
           "ntt_kernels": sum(1 for e in kernels if is_ntt(e.name)),
           "ntt_ms": ntt_us / 1e3, "ntt_share_of_busy": ntt_us / busy_us,
-          "top_ms": [[k[:60], v / 1e3] for k, v in top]})
+          "by_module": by_module, "top_ms": [[k[:60], v / 1e3] for k, v in top]})
+
+
+def kernel_module(name: str) -> str:
+    """The module whose kernel a device kernel's name is: ntt (csrc/ntt*.cu),
+    modmath, rns or limbs (the elementwise kernels, named by their prefix),
+    else "other torch" (torch's own kernels: matmuls, copies, the plain
+    chains)."""
+    import re
+    if re.search(r"(?<![A-Za-z_])ntt_(col|row)_pass", name):
+        return "ntt"
+    m = re.search(r"(?<![A-Za-z_])(mm|rns|limbs)_[a-z_]*kernel", name)
+    if m:
+        return {"mm": "modmath", "rns": "rns", "limbs": "limbs"}[m.group(1)]
+    return "other torch"
 
 
 def phase_mul_rs(iters: int) -> dict:
@@ -615,6 +1040,7 @@ def phase_mul_rs(iters: int) -> dict:
     setup_s = time.time() - t0
 
     ntt_cuda.reset_launches()
+    ew_reset()
     t1 = time.time()
     pk, sk = eng.keypair()
     rlk = eng.genrlk(sk)
@@ -629,7 +1055,7 @@ def phase_mul_rs(iters: int) -> dict:
     torch.cuda.synchronize()
     first_ms = (time.time() - t2) * 1e3
     got = eng.dcd(eng.dec(out, sk))
-    launches = dict(ntt_cuda.LAUNCHES)
+    launches, ew = dict(ntt_cuda.LAUNCHES), ew_counters()
 
     diff = float(np.max(np.abs(got - m1 * m2)))
     shape_ok = (got.shape == (ctx.slots,) and bool(np.all(np.isfinite(got)))
@@ -641,6 +1067,8 @@ def phase_mul_rs(iters: int) -> dict:
           "dimswk_h": eng.dimswk_h, "kq": eng.kq, "setup_s": setup_s,
           "keygen_s": keygen_s, "first_mul_rs_ms": first_ms, "mul_rs_ms": ms,
           "decode_diff": diff, "launches": launches,
+          "elementwise_launches": {k: v for k, v in ew.items() if v},
+          "operand_copies": ew_copies(),
           "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20})
     if not shape_ok:
         raise AssertionError("mul_rs output has the wrong shape or non-finite slots")
@@ -649,7 +1077,8 @@ def phase_mul_rs(iters: int) -> dict:
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
         raise AssertionError(f"the main path never launched NTT entries {missing}")
-    return launches
+    require_ew_launches("mul_rs", ew)
+    return {"launches": launches, "elementwise": ew}
 
 
 def phase_linalg(name: str, logp: int, iters: int, earlier: dict | None) -> dict:
@@ -681,6 +1110,7 @@ def phase_linalg(name: str, logp: int, iters: int, earlier: dict | None) -> dict
 
     ntt_cuda.reset_launches()
     ntt_cuda32.reset_launches()
+    ew_reset()
     t1 = time.time()
     pk, sk = eng.keypair()
     rlk = eng.genrlk(sk)
@@ -730,7 +1160,7 @@ def phase_linalg(name: str, logp: int, iters: int, earlier: dict | None) -> dict
     out["gemv_bsgs"] = linalg.gemv_hoisted(eng, plan, ct, bank)
     got = {k: dcd(c) for k, c in out.items()}
     torch.cuda.synchronize()
-    launches, foreign = dict(mine), dict(other)
+    launches, foreign, ew = dict(mine), dict(other), ew_counters()
 
     diffs = {k: float(np.max(np.abs(got[k] - want[k]))) for k in got}
     golden_gemv = (float(np.max(np.abs(got["gemv_full"] - g["gemv"])))
@@ -766,6 +1196,8 @@ def phase_linalg(name: str, logp: int, iters: int, earlier: dict | None) -> dict
           "decode_diffs": diffs, "golden_gemv_diff": golden_gemv,
           "batch_equals_mul_rs": batch_equal, "fallbacks": plan.fallbacks,
           "chain_gap": gap, "launches": launches, "other_kernel_launches": foreign,
+          "elementwise_launches": {k: v for k, v in ew.items() if v},
+          "operand_copies": ew_copies(),
           "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20})
 
     bad = {k: d for k, d in diffs.items() if not d < 1e-5}
@@ -782,6 +1214,7 @@ def phase_linalg(name: str, logp: int, iters: int, earlier: dict | None) -> dict
         raise AssertionError(f"{name}: NTT launches {launches}, other kernel {foreign}")
     if gap is not None and not all(d < 1e-9 for d in gap.values()):
         raise AssertionError(f"{name}: the two chains decode {gap} apart")
+    require_ew_launches(name, ew)
 
     # the kernel at the gemv's shapes, against its twin
     kernel = "ntt" if logp > 29 else "ntt32"
@@ -794,7 +1227,7 @@ def phase_linalg(name: str, logp: int, iters: int, earlier: dict | None) -> dict
             r = compare_kernel(kernel, mode, shape, few, rng)
             key = f"{kernel}_{mode}"
             errs[key] = max(errs.get(key, 0), r["max_abs_err"])
-    return {"launches": launches, "errs": errs, "decoded": got,
+    return {"launches": launches, "errs": errs, "decoded": got, "elementwise": ew,
             "mul_rs": lambda: eng.mul_rs(ct, ct2, rlk), "keys": (eng, pk, sk, rlk, ck, rk)}
 
 
@@ -874,7 +1307,8 @@ def mesh_coeff_ntt_check(logp: int, devices) -> dict:
 def mesh_chain(logp: int, iters: int, devices, what: str) -> dict:
     """mul_rs, rot(1), conj and the fully hoisted gemv at logn=14/logq=438/
     slots=16/Delta=2^50 on a (2,2,2) mesh against the single-device engine
-    on the same keys.  Returns the NTT launches of one call of each mesh op."""
+    on the same keys.  Returns the NTT and the elementwise launches of one
+    call of each mesh op."""
     import numpy as np
     import torch
     from gpqhe_tpu_torch.algo import linalg
@@ -926,13 +1360,14 @@ def mesh_chain(logp: int, iters: int, devices, what: str) -> dict:
     # the mesh engine's main path: one call of each mesh op, programs built,
     # the counters zeroed just before and read just after
     mine, other = chain_counters(logp)
+    ew_reset()
     traffic = {}
     for k, fn in ops(meng).items():
         mesh.reset_traffic()
         fn()
         traffic[k] = {kind: list(c) for kind, c in mesh.traffic.items()}
     torch.cuda.synchronize()
-    launches, foreign = dict(mine), dict(other)
+    launches, foreign, ew = dict(mine), dict(other), ew_counters()
     P = len(mesh.positions)
     # a position: mul_rs 2 forward (four ciphertext polys in one launch, d2) and
     # 2 inverse (three cross terms, two key-switch halves); rot and conj 1 + 1;
@@ -957,6 +1392,8 @@ def mesh_chain(logp: int, iters: int, devices, what: str) -> dict:
           "programs": sorted(str(k) for k in meng._mesh_jit),
           "launches": launches, "expected_launches": expected,
           "other_kernel_launches": foreign, "transfers_and_bytes": traffic,
+          "elementwise_launches": {k: v for k, v in ew.items() if v},
+          "operand_copies": ew_copies(),
           "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20})
     if not all(equal.values()):
         raise AssertionError(f"mesh logp={logp}: differs from the single-device engine: {equal}")
@@ -968,7 +1405,8 @@ def mesh_chain(logp: int, iters: int, devices, what: str) -> dict:
     if launches != expected or any(foreign.values()):
         raise AssertionError(f"mesh logp={logp}: NTT launches {launches}, expected {expected}; "
                              f"other kernel {foreign}")
-    return launches
+    require_ew_launches(f"mesh logp={logp}", ew)
+    return {"launches": launches, "elementwise": ew}
 
 
 def mixed_devices(card, limb: int, coeff: int, batch: int) -> list:
@@ -1149,7 +1587,7 @@ def phase_mesh(iters: int) -> dict:
     from gpqhe_tpu_torch.parallel.mesh import make_he_mesh3
     devices, what = mesh_devices(8)
     rng = np.random.default_rng(5)
-    kernels, launches = {}, {}
+    kernels, launches, ew = {}, {}, {}
     for kernel, logp in (("nttmesh", 59), ("ntt32mesh", 29)):
         meshes = {S: make_he_mesh3(2 * S, limb=2, coeff=S,
                                    devices=None if devices is None else devices[:2 * S])
@@ -1169,10 +1607,12 @@ def phase_mesh(iters: int) -> dict:
         kernels.update({f"{kernel}_{mode}": v for mode, v in r.items()})
         mesh_coeff_ntt_check(logp, devices)
         got = mesh_chain(logp, iters, devices, what)
-        launches.update({f"{kernel}_{mode}": got[mode] for mode in r})
+        launches.update({f"{kernel}_{mode}": got["launches"][mode] for mode in r})
+        for k, v in got["elementwise"].items():
+            ew[k] = ew.get(k, 0) + v
         mesh_mixed(logp)
     mesh_cli()
-    return {"kernels": kernels, "launches": launches}
+    return {"kernels": kernels, "launches": launches, "elementwise": ew}
 
 
 def phase_mesh_compose(iters: int, o: dict | None) -> dict:
@@ -1489,6 +1929,7 @@ def phase_bootstrap(iters: int) -> dict:
     # the gated run, encrypt -> moddown to l=1 -> bootstrap -> decrypt:
     # counters zeroed just before it and read just after
     mine, other = chain_counters(59)
+    ew_reset()
     ct_top = eng.enc_pk(eng.ecd(m0), pk)
     ct = ct_top
     while ct.l > 1:
@@ -1502,7 +1943,7 @@ def phase_bootstrap(iters: int) -> dict:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t2
     got = eng.dcd(eng.dec(boot, sk))
-    launches, foreign = dict(mine), dict(other)
+    launches, foreign, ew = dict(mine), dict(other), ew_counters()
     diff = float(np.max(np.abs(got - m0)))
     ok_shape = (got.shape == (ctx.slots,) and bool(np.all(np.isfinite(got)))
                 and tuple(boot.c0.shape) == (ctx.poly.n, eng.kl(boot.l)))
@@ -1526,6 +1967,8 @@ def phase_bootstrap(iters: int) -> dict:
           "decode_diff": diff,
           "fallbacks": {name: plan.fallbacks for name, plan in bctx._plans.items()},
           "launches": launches, "other_kernel_launches": foreign,
+          "elementwise_launches": {k: v for k, v in ew.items() if v},
+          "operand_copies": ew_copies(),
           "op_trace": {"counts": tr.counts,
                        "seconds": {k: round(v, 4) for k, v in tr.seconds.items()}},
           "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20})
@@ -1536,7 +1979,8 @@ def phase_bootstrap(iters: int) -> dict:
     if not diff < 1e-2:
         raise AssertionError(f"bootstrap decode diff {diff} >= 1e-2")
     require_launches("bootstrap", launches, foreign)
-    return {"kernels": kernels, "launches": launches,
+    require_ew_launches("bootstrap", ew)
+    return {"kernels": kernels, "launches": launches, "elementwise": ew,
             "objects": dict(ctx=ctx, eng=eng, sk=sk, rlk=rlk, ck=ck, rk=rk, ct=ct_top, boot=boot)}
 
 
@@ -1952,20 +2396,27 @@ def main(argv=None) -> int:
         emit({"phase": "clock", "after": after, "elapsed_s": round(time.time() - t_start, 1)})
 
     kernels, launches = {}, {}
+    ew_launches = {}            # the elementwise entries' launches over the gated paths
+
+    def add_ew(counts: dict) -> None:
+        for k, v in counts.items():
+            ew_launches[k] = ew_launches.get(k, 0) + v
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
         kernels = phase_kernels(args.iters)
+        kernels.update(phase_elementwise(args.iters))
         clock("kernels")
     if "golden" in phases:
         phase_golden()
     if "mul_rs" in phases:
-        phase_mul_rs(max(3, args.iters // 4))
+        add_ew(phase_mul_rs(max(3, args.iters // 4))["elementwise"])
         clock("mul_rs")
     chains = {}
     for name, logp, kernel in (("linalg59", 59, "ntt"), ("linalg29", 29, "ntt32")):
         if name in phases:
             r = chains[logp] = phase_linalg(name, logp, args.iters, chains.get(59))
+            add_ew(r["elementwise"])
             launches.update({f"{kernel}_{k}": v for k, v in r["launches"].items()})
             for key, err in r["errs"].items():
                 if key in kernels:
@@ -1985,6 +2436,7 @@ def main(argv=None) -> int:
 
     if "mesh" in phases:
         r = phase_mesh(args.iters)
+        add_ew(r["elementwise"])
         kernels.update(r["kernels"])
         launches.update(r["launches"])
         clock("mesh")
@@ -1999,6 +2451,7 @@ def main(argv=None) -> int:
         clock("cmp")
     if "bootstrap" in phases:
         boot = phase_bootstrap(args.iters)
+        add_ew(boot["elementwise"])
         kernels.update(boot["kernels"])
         launches.update({f"ntt15_{k}": v for k, v in boot["launches"].items()})
         if "serialize" in phases:
@@ -2016,14 +2469,20 @@ def main(argv=None) -> int:
     clock("all phases")
 
     print(gpu_line(), flush=True)
+    launches.update(ew_launches)
     if set(phases) != set(PHASES):
         emit({"ok": True, "partial": phases, "kernels": kernels, "launches": launches})
         return 0
+    # an elementwise entry that no gated path launched (to_mont, summod: the
+    # port's programs call neither) has its numbers on the kernels lines
+    # only; every NTT entry is listed and must have its count
+    table = {**KERNELS, **EW_KERNELS}
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": KERNELS[name.split("_")[0]]["source"],
-         "replaces": KERNELS[name.split("_")[0]]["replaces"],
+        {"name": name, "route": "cuda", "source": table[name.split("_")[0]]["source"],
+         "replaces": EW_REPLACES.get(name, table[name.split("_")[0]]["replaces"]),
          "launches": launches[name], "library_ms": None, **v}
-        for name, v in kernels.items()]})
+        for name, v in kernels.items()
+        if name.split("_")[0] not in EW_KERNELS or launches.get(name, 0) > 0]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -90,3 +90,76 @@ def load(source: str) -> ctypes.CDLL:
     """Build (if the source or a header it includes changed) and load one
     library."""
     return ctypes.CDLL(build([source])[source])
+
+
+# ---------------------------------------------------------------------------
+# operand views for the elementwise kernels (modmath.cu, rns.cu, limbs.cu)
+# ---------------------------------------------------------------------------
+
+COPIES = {"operands": 0}   # operands copied because their strides had no 3-axis form
+
+
+def strides3(t, shape: tuple, lead: int = 0) -> tuple:
+    """(tensor, sm, sa, sb, sc): t broadcast to shape and seen as [M, A, B, C]
+    with element strides (0 on a broadcast axis).  The first `lead` axes
+    (0 or 1) of shape are M, the last two B and C, and the axes between
+    collapse into A; where their strides do not collapse, t is copied
+    contiguous first (counted in COPIES)."""
+    if len(shape) < lead + 2:
+        raise ValueError(f"shape {shape}: the elementwise kernels take [..., rows, columns]")
+    x = t if t.shape == shape else t.expand(shape)
+    st = x.stride()
+    if len(shape) - lead == 2:
+        return (x, st[0] if lead else 0, 0, st[-2], st[-1])
+    mid = [(shape[i], st[i]) for i in range(lead, len(shape) - 2) if shape[i] != 1]
+    if len(mid) > 1 and any(s0 != s1 * n1 for (_, s0), (n1, s1) in zip(mid, mid[1:])):
+        COPIES["operands"] += 1
+        x = x.contiguous()      # the broadcast materialised: its axes collapse
+        st = x.stride()
+        mid = [(shape[i], st[i]) for i in range(lead, len(shape) - 2) if shape[i] != 1]
+    return (x, st[0] if lead else 0, mid[-1][1] if mid else 0, st[-2], st[-1])
+
+
+def check_dtype(*tensors, dtype=None) -> None:
+    """Raise unless every tensor has `dtype` (int64 words by default)."""
+    import torch
+    want = dtype or torch.int64
+    for x in tensors:
+        if x.dtype != want:
+            raise ValueError(f"the CUDA kernels take {want} here, got {x.dtype}")
+
+
+def check_device(device, *tensors) -> None:
+    """Raise unless `device` is a CUDA device and every tensor lies on it."""
+    if device.type != "cuda":
+        raise ValueError(f"the CUDA kernels take CUDA tensors, got {device}")
+    for x in tensors:
+        if x.device != device:
+            raise ValueError(f"operands on {x.device} and {device}")
+
+
+def broadcast_shape(*shapes) -> tuple:
+    """The shape that the given shapes broadcast to (torch's rule, in plain
+    Python: the wrappers' host time per call counts); ValueError where they
+    do not broadcast (a prime axis that does not match)."""
+    shapes = [tuple(s) for s in shapes]
+    first = shapes[0]
+    if all(s == first for s in shapes):
+        return first
+    out = []
+    for i in range(1, max(len(s) for s in shapes) + 1):
+        d = 1
+        for s in shapes:
+            v = s[-i] if i <= len(s) else 1
+            if v != 1:
+                if d not in (1, v):
+                    raise ValueError(f"operands of shapes {shapes} do not broadcast "
+                                     f"(axis {-i}: {d} against {v})")
+                d = v
+        out.append(d)
+    return tuple(reversed(out))
+
+
+def stream_of(device) -> int:
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream

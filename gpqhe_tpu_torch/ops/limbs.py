@@ -6,12 +6,22 @@ signed intermediates use two's complement in that width.  torch has no
 unsigned arithmetic, so each u32 limb is stored in an int64 tensor with a
 value in [0, 2^32): sums of two limbs, borrows and 16-bit digit sums stay
 positive and need no u64 emulation.
+
+Dispatch: add, sub, neg, add_scalar_bit, select, geq_const, mask_bits,
+rshift_round, rshift_round_mask and from_digits16 run their plain torch
+versions (plain_*) on a CPU tensor and the CUDA kernel of ops/limbs_cuda.py
+on a CUDA tensor; the plain versions call only plain versions.  The other
+functions are compositions of these and of views, pads and matmuls.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+
+from . import limbs_cuda
 
 _M32 = 0xFFFFFFFF
 _M16 = 0xFFFF
@@ -38,7 +48,7 @@ def _prefix(g, p):
     return g
 
 
-def add(a, b):
+def plain_add(a, b):
     """(a + b) mod 2^(32K), log-depth carry-lookahead over the limb axis."""
     s = a + b
     low = s & _M32
@@ -48,7 +58,7 @@ def add(a, b):
     return (low + carry_in) & _M32
 
 
-def add_scalar_bit(a, bit):
+def plain_add_scalar_bit(a, bit):
     """a + bit (bit in {0,1} per row), mod 2^(32K); log-depth carry."""
     s0 = a[..., 0] + bit.to(torch.int64)
     low = torch.cat([(s0 & _M32)[..., None], a[..., 1:]], dim=-1)
@@ -59,25 +69,25 @@ def add_scalar_bit(a, bit):
     return (low + carry_in) & _M32
 
 
-def sub(a, b):
+def plain_sub(a, b):
     """(a - b) mod 2^(32K), log-depth borrow-lookahead: limb i generates a
     borrow when a_i < b_i and propagates an incoming one when a_i == b_i."""
     borrow_in = _shift_last(_prefix(a < b, a == b)).to(torch.int64)
     return (a - b - borrow_in) & _M32
 
 
-def neg(a):
+def plain_neg(a):
     """-a mod 2^(32K)."""
-    return add_scalar_bit(a ^ _M32, torch.ones(a.shape[:-1], dtype=torch.int64,
-                                               device=a.device))
+    return plain_add_scalar_bit(a ^ _M32, torch.ones(a.shape[:-1], dtype=torch.int64,
+                                                     device=a.device))
 
 
-def select(mask, a, b):
+def plain_select(mask, a, b):
     """Per-row select: mask ? a : b (mask shape = row shape)."""
     return torch.where(mask[..., None], a, b)
 
 
-def geq_const(a, c_limbs):
+def plain_geq_const(a, c_limbs):
     """a >= c (c a [K] limb tensor or a broadcastable limb tensor).
 
     Per-limb (gt - lt) signs weighted by limb significance and summed; the
@@ -92,14 +102,13 @@ def geq_const(a, c_limbs):
         if pad:  # zero signs at the high end: "equal" padding limbs
             sgn = torch.nn.functional.pad(sgn, (0, pad))
         g = sgn.shape[-1] // m
-        w = torch.tensor(np.left_shift(np.int64(1), np.arange(m)),
-                         device=a.device)
+        w = _sign_weights(m, a.device)
         score = (sgn.reshape(sgn.shape[:-1] + (g, m)) * w).sum(-1)
         sgn = torch.sign(score)
     return sgn[..., 0] >= 0
 
 
-def mask_bits(a, nbits: int):
+def plain_mask_bits(a, nbits: int):
     """Keep the low nbits: a mod 2^nbits (static nbits)."""
     k = a.shape[-1]
     full, rem = divmod(nbits, 32)
@@ -127,7 +136,7 @@ def rshift(a, t: int, k_out: int | None = None):
     return ((lo >> r) | (hi << (32 - r))) & _M32
 
 
-def rshift_round(a, t: int, k_out: int | None = None):
+def plain_rshift_round(a, t: int, k_out: int | None = None):
     """Round-to-nearest division by 2^t, remainder ties (== 2^(t-1)) round DOWN:
     floor(a/2^t) + [a mod 2^t > 2^(t-1)]  (ref: src/types.c:115-128 with m=2^t).
     a must be a nonnegative representative."""
@@ -140,7 +149,7 @@ def rshift_round(a, t: int, k_out: int | None = None):
     low_nonzero = (a[..., :hb_limb] != 0).any(-1)
     if hb_bit > 0:
         low_nonzero = low_nonzero | ((a[..., hb_limb] & ((1 << hb_bit) - 1)) != 0)
-    return add_scalar_bit(q, (topbit == 1) & low_nonzero)
+    return plain_add_scalar_bit(q, (topbit == 1) & low_nonzero)
 
 
 def sign_extend(a, k_out: int):
@@ -174,8 +183,9 @@ def resize(a, k_out: int):
     return torch.nn.functional.pad(a, (0, k_out - k))
 
 
-def from_digits16(d, k_out: int):
-    """int64[..., D] 16-bit digit sums (each < 2^48) -> [..., k_out] limbs,
+def plain_from_digits16(d, k_out: int):
+    """int64[..., D] 16-bit digit sums (each < 2^48; or f64 holding such
+    integers, as a digit matmul returns them) -> [..., k_out] limbs,
     with carry propagation; value taken mod 2^(32 k_out).
 
     Three parallel split-and-add rounds shrink every digit to <= 2^16
@@ -183,7 +193,7 @@ def from_digits16(d, k_out: int):
     ripple is resolved with a Kogge-Stone prefix over (generate, propagate)
     flags."""
     want = 2 * k_out
-    d = resize(d, want)
+    d = resize(d.to(torch.int64), want)
     for _ in range(3):
         d = (d & _M16) + _shift_last(d >> 16)
     b = d & _M16
@@ -234,6 +244,104 @@ def mul_const_mod2k(a, c16: np.ndarray, k_out: int):
     < 2K * 2^32 <= 2^53 for K <= 2^20 limbs: integer-exact in f64.  (The JAX
     package used 8-bit bf16 planes for the TPU's matrix unit; the value is
     the same.)"""
-    M = torch.from_numpy(toeplitz16(c16, a.shape[-1], k_out)).to(a.device)
-    s16 = torch.matmul(to_digits16_f64(a), M).to(torch.int64)
-    return from_digits16(s16, k_out)
+    c = np.asarray(c16)
+    M = _toeplitz16_on(c.tobytes(), c.dtype.str, a.shape[-1], k_out, a.device)
+    return from_digits16(torch.matmul(to_digits16_f64(a), M), k_out)
+
+
+@functools.lru_cache(maxsize=64)
+def _toeplitz16_on(c16: bytes, dtype: str, k_in: int, k_out: int, device) -> torch.Tensor:
+    """toeplitz16 on the device, once per (constant, k_in, k_out, device)."""
+    c = np.frombuffer(c16, dtype=np.dtype(dtype))
+    return torch.from_numpy(toeplitz16(c, k_in, k_out)).to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def _sign_weights(m: int, device) -> torch.Tensor:
+    """plain_geq_const's limb weights 2^0 .. 2^(m-1), once per (m, device)."""
+    return torch.tensor(np.left_shift(np.int64(1), np.arange(m)), device=device)
+
+
+def plain_rshift_round_mask(a, t: int, nbits: int, k_out: int):
+    """The rescale's divide-round: rshift_round by 2^t, keep the low nbits,
+    resize to k_out limbs."""
+    return resize(plain_mask_bits(plain_rshift_round(a, t), nbits), k_out)
+
+
+# ---------------------------------------------------------------------------
+# dispatch: plain version on the CPU, the CUDA kernel on a CUDA tensor
+# ---------------------------------------------------------------------------
+
+def add(a, b):
+    if a.device.type == "cpu":
+        return plain_add(a, b)
+    return limbs_cuda.binary("add", a, b)
+
+
+def sub(a, b):
+    if a.device.type == "cpu":
+        return plain_sub(a, b)
+    return limbs_cuda.binary("sub", a, b)
+
+
+def neg(a):
+    if a.device.type == "cpu":
+        return plain_neg(a)
+    return limbs_cuda.launch("neg", tuple(a.shape), a.shape[-1], a)
+
+
+def add_scalar_bit(a, bit):
+    if a.device.type == "cpu":
+        return plain_add_scalar_bit(a, bit)
+    return limbs_cuda.launch("add_scalar_bit", tuple(a.shape), a.shape[-1], a, bit=bit)
+
+
+def select(mask, a, b):
+    if a.device.type == "cpu":
+        return plain_select(mask, a, b)
+    return limbs_cuda.select(mask, a, b)
+
+
+def geq_const(a, c_limbs):
+    if a.device.type == "cpu":
+        return plain_geq_const(a, c_limbs)
+    return limbs_cuda.geq_const(a, c_limbs)
+
+
+def mask_bits(a, nbits: int):
+    if nbits // 32 >= a.shape[-1]:
+        return a
+    if a.device.type == "cpu":
+        return plain_mask_bits(a, nbits)
+    return limbs_cuda.launch("mask_bits", tuple(a.shape), a.shape[-1], a, nbits=nbits)
+
+
+def rshift_round(a, t: int, k_out: int | None = None):
+    if a.device.type == "cpu":
+        return plain_rshift_round(a, t, k_out)
+    k_out = a.shape[-1] if k_out is None else k_out
+    _check_shift(a, t)
+    return limbs_cuda.launch("rshift_round", tuple(a.shape[:-1]) + (k_out,), a.shape[-1], a,
+                             k_out=k_out, t=t)
+
+
+def rshift_round_mask(a, t: int, nbits: int, k_out: int):
+    if a.device.type == "cpu":
+        return plain_rshift_round_mask(a, t, nbits, k_out)
+    _check_shift(a, t)
+    return limbs_cuda.launch("rshift_round_mask", tuple(a.shape[:-1]) + (k_out,),
+                             a.shape[-1], a, k_out=k_out, t=t, nbits=nbits)
+
+
+def from_digits16(d, k_out: int):
+    if d.device.type == "cpu":
+        return plain_from_digits16(d, k_out)
+    return limbs_cuda.launch("from_digits16", tuple(d.shape[:-1]) + (k_out,), d.shape[-1], d,
+                             k_out=k_out, digits=True)
+
+
+def _check_shift(a, t: int) -> None:
+    """The rounding bit t - 1 must lie in a's limbs, as plain_rshift_round
+    indexes it."""
+    if not 0 <= t <= 32 * a.shape[-1]:
+        raise ValueError(f"a shift by {t} bits of {a.shape[-1]} limbs")

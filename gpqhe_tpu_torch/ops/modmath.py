@@ -12,12 +12,21 @@ u64 word is stored as the int64 with the same bit pattern:
 
 Host tables holding values >= 2^63 (pinv_mont, Shoup companions) reach torch
 through `np.ndarray.view(np.int64)`, never by value.
+
+Dispatch: each public operation (mont_mul, to_mont, mulmod, addmod, submod,
+summod, and the fused cross_terms, key_products and mulmod_sum) runs its
+plain torch version (plain_*) on a CPU tensor and the CUDA kernel of
+ops/modmath_cuda.py on a CUDA tensor, which raises where it cannot run:
+there is no fallback.  The plain versions call only plain versions, so the
+NTT twin (ops/ntt.py) and the kernels' yardsticks stay pure torch.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import modmath_cuda
 
 _M32 = 0xFFFFFFFF
 _SIGN = -(1 << 63)
@@ -63,20 +72,20 @@ def mont_reduce(hi, lo, p, pinv):
     return torch.where(hi < t, r + p, r)
 
 
-def mont_mul(a, b, p, pinv):
+def plain_mont_mul(a, b, p, pinv):
     """a * b * R^-1 mod p.  Requires a*b < R*p (e.g. any u64 a and b < p)."""
     hi, lo = mulhilo64(a, b)
     return mont_reduce(hi, lo, p, pinv)
 
 
-def mulmod(a, b, p, pinv, r2):
+def plain_mulmod(a, b, p, pinv, r2):
     """Exact a*b mod p via two Montgomery multiplies (r2 = R^2 mod p)."""
-    return mont_mul(mont_mul(a, b, p, pinv), r2, p, pinv)
+    return plain_mont_mul(plain_mont_mul(a, b, p, pinv), r2, p, pinv)
 
 
-def to_mont(a, p, pinv, r2):
+def plain_to_mont(a, p, pinv, r2):
     """a -> a*R mod p."""
-    return mont_mul(a, r2, p, pinv)
+    return plain_mont_mul(a, r2, p, pinv)
 
 
 def _ult(a, b):
@@ -111,25 +120,107 @@ def barrett_reduce(hi, lo, q, qinv, qbits: int):
     return torch.where(_ult(r, q), r, r - q)
 
 
-def addmod(a, b, p):
+def plain_addmod(a, b, p):
     """(a + b) mod p for a, b in [0, p) with p < 2^62."""
     s = a + b
     return torch.where(s >= p, s - p, s)
 
 
-def submod(a, b, p):
+def plain_submod(a, b, p):
     """(a - b) mod p for a, b in [0, p)."""
     d = a - b
     return torch.where(a < b, d + p, d)
 
 
-def summod(x, p):
+def plain_summod(x, p):
     """Sum over the leading axis mod p of residues in [0, p).  Every partial
     stays in [0, p), so any order gives the same words; each addition is a
     two-operand addmod (a plain sum of residues of a 60-bit prime overflows
     the word), taken pairwise: log2 of the axis in depth."""
     while x.shape[0] > 1:
         h = x.shape[0] // 2
-        head = addmod(x[:h], x[h:2 * h], p)
+        head = plain_addmod(x[:h], x[h:2 * h], p)
         x = torch.cat([head, x[2 * h:]]) if x.shape[0] % 2 else head
     return x[0]
+
+
+def plain_cross_terms(x, p, pinv, r2):
+    """The product's cross terms: x = (x0, x1, y0, y1) stacked on the leading
+    axis -> (x0 y0, x0 y1 + x1 y0, x1 y1) stacked, mod p."""
+    x0, x1, y0, y1 = x
+    return torch.stack([plain_mulmod(x0, y0, p, pinv, r2),
+                        plain_addmod(plain_mulmod(x0, y1, p, pinv, r2),
+                                     plain_mulmod(x1, y0, p, pinv, r2), p),
+                        plain_mulmod(x1, y1, p, pinv, r2)])
+
+
+def plain_key_products(x, e0, e1, p, pinv, r2):
+    """(x e0, x e1) mod p stacked: a key switch's products with the key halves."""
+    return torch.stack([plain_mulmod(x, e0, p, pinv, r2), plain_mulmod(x, e1, p, pinv, r2)])
+
+
+def plain_mulmod_sum(x, y, p, pinv, r2, ws=()):
+    """Sums over the leading axis mod p, stacked: of x y where ws is empty,
+    else, with t = x y, of t w for each w of ws."""
+    t = plain_mulmod(x, y, p, pinv, r2)
+    if not ws:
+        return plain_summod(t, p)[None]
+    return torch.stack([plain_summod(plain_mulmod(t, w, p, pinv, r2), p) for w in ws])
+
+
+# ---------------------------------------------------------------------------
+# dispatch: plain version on the CPU, the CUDA kernel on a CUDA tensor
+# ---------------------------------------------------------------------------
+
+def mont_mul(a, b, p, pinv):
+    if a.device.type == "cpu":
+        return plain_mont_mul(a, b, p, pinv)
+    return modmath_cuda.elementwise("mont_mul", a, b, p, pinv)
+
+
+def mulmod(a, b, p, pinv, r2):
+    if a.device.type == "cpu":
+        return plain_mulmod(a, b, p, pinv, r2)
+    return modmath_cuda.elementwise("mulmod", a, b, p, pinv, r2)
+
+
+def to_mont(a, p, pinv, r2):
+    if a.device.type == "cpu":
+        return plain_to_mont(a, p, pinv, r2)
+    return modmath_cuda.elementwise("to_mont", a, r2, p, pinv)
+
+
+def addmod(a, b, p):
+    if a.device.type == "cpu":
+        return plain_addmod(a, b, p)
+    return modmath_cuda.elementwise("addmod", a, b, p)
+
+
+def submod(a, b, p):
+    if a.device.type == "cpu":
+        return plain_submod(a, b, p)
+    return modmath_cuda.elementwise("submod", a, b, p)
+
+
+def summod(x, p):
+    if x.device.type == "cpu":
+        return plain_summod(x, p)
+    return modmath_cuda.sums("summod", x, None, (), p, None, None)[0]
+
+
+def cross_terms(x, p, pinv, r2):
+    if x.device.type == "cpu":
+        return plain_cross_terms(x, p, pinv, r2)
+    return modmath_cuda.cross_terms(x, p, pinv, r2)
+
+
+def key_products(x, e0, e1, p, pinv, r2):
+    if x.device.type == "cpu":
+        return plain_key_products(x, e0, e1, p, pinv, r2)
+    return modmath_cuda.key_products(x, e0, e1, p, pinv, r2)
+
+
+def mulmod_sum(x, y, p, pinv, r2, ws=()):
+    if x.device.type == "cpu":
+        return plain_mulmod_sum(x, y, p, pinv, r2, ws)
+    return modmath_cuda.sums("mulmod_sum", x, y, tuple(ws), p, pinv, r2)

@@ -4,7 +4,8 @@ Port of gpqhe_tpu/ops/ntt.py: each stage is one vectorized butterfly over the
 whole [..., dim, n] residue tensor, with Montgomery-domain bit-reversed
 twiddles (ref: src/ntt.c:37-73, src/precomp.c:244-264).  This is the plain
 twin of the CUDA kernel in ops/ntt_cuda.py: the CPU path runs it, and the
-kernel is held bit-equal to it on the card.
+kernel is held bit-equal to it on the card, so it uses only the plain
+modmath versions: pure torch on any device.
 
 Shapes:
   a:      int64[..., dim, n]   residues per prime (leading batch dims allowed)
@@ -18,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .modmath import addmod, mont_mul, submod
+from .modmath import plain_addmod, plain_mont_mul, plain_submod
 
 
 def ntt(a, zetas, ps, pinv):
@@ -36,8 +37,8 @@ def ntt(a, zetas, ps, pinv):
         z = zetas[:, nblocks:2 * nblocks].reshape(ones + (dim, nblocks, 1))
         x0 = x[..., 0, :]
         x1 = x[..., 1, :]
-        t = mont_mul(x1, z, p, pv)
-        a = torch.stack([addmod(x0, t, p), submod(x0, t, p)],
+        t = plain_mont_mul(x1, z, p, pv)
+        a = torch.stack([plain_addmod(x0, t, p), plain_submod(x0, t, p)],
                         dim=-2).reshape(batch + (dim, n))
         length //= 2
     return a
@@ -87,10 +88,10 @@ def intt(a, zetas_inv, ps, pinv, ninv_mont):
         z = zetas_inv[:, nblocks:2 * nblocks].reshape(ones + (dim, nblocks, 1))
         x0 = x[..., 0, :]
         x1 = x[..., 1, :]
-        y1 = mont_mul(submod(x0, x1, p), z, p, pv)
-        a = torch.stack([addmod(x0, x1, p), y1],
+        y1 = plain_mont_mul(plain_submod(x0, x1, p), z, p, pv)
+        a = torch.stack([plain_addmod(x0, x1, p), y1],
                         dim=-2).reshape(batch + (dim, n))
         length *= 2
     nv = ninv_mont.reshape(ones + (dim, 1))
-    return mont_mul(a, nv, ps.reshape(ones + (dim, 1)),
+    return plain_mont_mul(a, nv, ps.reshape(ones + (dim, 1)),
                     pinv.reshape(ones + (dim, 1)))

@@ -9,6 +9,12 @@ The reconstruct avoids per-coefficient big-int division: y_d = a_d*phat_d^-1
 mod p_d, S = sum_d y_d*phat_d (exact 16-bit digit accumulation), and the CRT
 overflow multiple alpha = floor(S/P) < dim is estimated in f64 and corrected
 exactly with limb compares.
+
+Dispatch: decompose_core / decompose, digit_split and _lift run their plain
+torch versions (plain_*) on a CPU tensor and the CUDA kernels of
+ops/rns_cuda.py on a CUDA tensor (the digit matmul between the last two,
+_digit_partials, is torch.matmul on both); the plain versions call only
+plain versions.
 """
 
 from __future__ import annotations
@@ -20,7 +26,8 @@ import torch
 
 from ..substrate import bigint
 from . import limbs as lb
-from .modmath import mont_mul, u64_to_torch
+from . import rns_cuda
+from .modmath import plain_mont_mul, u64_to_torch
 
 
 @dataclass(frozen=True)
@@ -135,7 +142,7 @@ def make_decomp_weights(poly_ctx, dim: int, k_limbs: int) -> np.ndarray:
     return out
 
 
-def decompose_core(a, ps, pinv, weights):
+def plain_decompose_core(a, ps, pinv, weights):
     """[..., n, K] limbs -> [..., dim, n] residues; weights int64[dim, J]."""
     k = a.shape[-1]
     j_digits = (k + 1) // 2
@@ -147,7 +154,7 @@ def decompose_core(a, ps, pinv, weights):
     acc = None
     for j in range(j_digits):
         cj = c[..., None, :, j]                         # [..., 1, n]
-        term = mont_mul(cj, weights[:, j][:, None], psb, pinv[:, None])
+        term = plain_mont_mul(cj, weights[:, j][:, None], psb, pinv[:, None])
         if acc is None:
             acc = term
         else:
@@ -156,10 +163,32 @@ def decompose_core(a, ps, pinv, weights):
     return acc
 
 
-def decompose(a, ba: BasisArrays, weights):
+def plain_decompose_signed(a, ps, pinv, weights, src_bits: int):
+    """A two's-complement input of src_bits width -> residues honouring the
+    sign: a negative value gives p - (|value| mod p), 0 staying 0."""
+    hb_limb, hb_bit = divmod(src_bits - 1, 32)
+    negmask = ((a[..., hb_limb] >> hb_bit) & 1) == 1
+    mag = lb.plain_select(negmask, lb.plain_mask_bits(lb.plain_neg(a), src_bits), a)
+    res = plain_decompose_core(mag, ps, pinv, weights)
+    neg_res = torch.where(res != 0, ps[:, None] - res, res)
+    return torch.where(negmask[..., None, :], neg_res, res)
+
+
+def decompose_core(a, ps, pinv, weights, src_bits: int | None = None):
+    """[..., n, K] limbs -> [..., dim, n] residues; src_bits: the input is a
+    two's-complement value of that width (plain_decompose_signed)."""
+    if a.device.type == "cpu":
+        if src_bits is None:
+            return plain_decompose_core(a, ps, pinv, weights)
+        return plain_decompose_signed(a, ps, pinv, weights, src_bits)
+    return rns_cuda.decompose(a, ps, pinv, weights, src_bits)
+
+
+def decompose(a, ba: BasisArrays, weights, src_bits: int | None = None):
     """[..., n, K] -> [..., dim, n]: a mod p_d per prime
-    (ref: src/rns.c:37-48; input is a nonnegative representative)."""
-    return decompose_core(a, ba.ps, ba.pinv, weights)
+    (ref: src/rns.c:37-48; input is a nonnegative representative, or a
+    two's-complement one of src_bits width)."""
+    return decompose_core(a, ba.ps, ba.pinv, weights, src_bits)
 
 
 def reconstruct_core(res, ps, pinv, phatinv_mont, plan: ReconPlan,
@@ -179,49 +208,78 @@ def reconstruct_core(res, ps, pinv, phatinv_mont, plan: ReconPlan,
     alpha by +-1.  So the output is exact whatever order the f64 sum for af
     is taken in."""
     fast = k_out is not None
-    y = res if pre_scaled else mont_mul(res, phatinv_mont[:, None], ps[:, None],
-                                        pinv[:, None])
+    scale = None if pre_scaled else (phatinv_mont, ps, pinv)
     kd = min(2 * k_out, plan.ds) if fast else plan.ds
-    s_digits, af = _digit_partials(y, plan, kd)
+    s_digits, af = _digit_partials(res, plan, kd, scale)
     return _lift(s_digits, af, plan, center, k_out)
 
 
-def _digit_partials(y, plan: ReconPlan, kd: int):
-    """(digit sums int64[..., n, kd] of S = sum_d y_d * phat_d over the low kd
-    16-bit digit columns, f64[..., n] estimate of S / P) from the y_d of the
-    primes whose rows plan.phat_digits and plan.inv_p hold."""
+def plain_digit_split(y, nd: int, inv_p, scale=None):
+    """[..., dim, n] residues -> (Y f64 [..., n, nd * dim], af f64 [..., n]):
+    column t * dim + d of Y holds the 16-bit digit t of y_d, af = sum_d
+    y_d / p_d estimates S / P.  scale = (phatinv_mont, ps, pinv): y_d is
+    first multiplied by phatinv_d (Montgomery form)."""
+    if scale is not None:
+        phatinv_mont, ps, pinv = scale
+        y = plain_mont_mul(y, phatinv_mont[:, None], ps[:, None], pinv[:, None])
     dim = y.shape[-2]
     n = y.shape[-1]
-    nd = plan.nd
     # 16-bit digits of y: [..., nd, dim, n] -> [..., n, nd*dim]
     y16 = torch.stack([(y >> (16 * t)) & 0xFFFF for t in range(nd)], dim=-3)
     Y = y16.reshape(y.shape[:-2] + (nd * dim, n)).transpose(-1, -2)
-    s_digits = torch.matmul(Y.to(torch.float64),
-                            plan.phat_digits[:, :kd]).to(torch.int64)
-    af = (y.to(torch.float64) * plan.inv_p[:, None]).sum(-2)
-    return s_digits, af
+    af = (y.to(torch.float64) * inv_p[:, None]).sum(-2)
+    return Y.to(torch.float64), af
 
 
-def _lift(s_digits, af, plan: ReconPlan, center: bool, k_out: int | None):
+def digit_split(y, nd: int, inv_p, scale=None):
+    if y.device.type == "cpu":
+        return plain_digit_split(y, nd, inv_p, scale)
+    return rns_cuda.digit_split(y, nd, inv_p, scale)
+
+
+def plain_digit_partials(y, plan: ReconPlan, kd: int, scale=None):
+    """(digit sums f64[..., n, kd] of S = sum_d y_d * phat_d over the low kd
+    16-bit digit columns, f64[..., n] estimate of S / P) from the y_d of the
+    primes whose rows plan.phat_digits and plan.inv_p hold (scale: see
+    plain_digit_split).  The digit sums are integers below 2^53, exact in
+    f64."""
+    Y, af = plain_digit_split(y, plan.nd, plan.inv_p, scale)
+    return torch.matmul(Y, plan.phat_digits[:, :kd]), af
+
+
+def _digit_partials(y, plan: ReconPlan, kd: int, scale=None):
+    Y, af = digit_split(y, plan.nd, plan.inv_p, scale)
+    return torch.matmul(Y, plan.phat_digits[:, :kd]), af
+
+
+def plain_lift(s_digits, af, plan: ReconPlan, center: bool, k_out: int | None):
     """Digit sums and the S / P estimate -> limbs (see reconstruct_core)."""
     kd = s_digits.shape[-1]
     # alpha = floor(S / P) estimated in f64, corrected exactly below
     alpha = torch.clamp(torch.floor(af), 0.0, float(plan.dim))
     # S - alpha*P == S + alpha*(M - P) mod M
-    s_digits = s_digits + alpha.to(torch.int64)[..., None] * plan.negP16[:kd]
+    s_digits = (s_digits.to(torch.int64)
+                + alpha.to(torch.int64)[..., None] * plan.negP16[:kd])
     if k_out is None:
-        r = lb.from_digits16(s_digits, plan.ks)
+        r = lb.plain_from_digits16(s_digits, plan.ks)
         # correct alpha off-by-one: E in (-P, 2P)
         P = plan.P_limbs.expand(r.shape)
-        r = lb.select(lb.geq_const(r, plan.MminusP_limbs), lb.add(r, P), r)
-        r = lb.select(lb.geq_const(r, plan.P_limbs), lb.sub(r, P), r)
+        r = lb.plain_select(lb.plain_geq_const(r, plan.MminusP_limbs), lb.plain_add(r, P), r)
+        r = lb.plain_select(lb.plain_geq_const(r, plan.P_limbs), lb.plain_sub(r, P), r)
         if center:
             # smod P (ref: src/types.c:108-113 with q=P)
-            r = lb.select(lb.geq_const(r, plan.Phalf_limbs), lb.sub(r, P), r)
+            r = lb.plain_select(lb.plain_geq_const(r, plan.Phalf_limbs), lb.plain_sub(r, P), r)
         return r
-    r = lb.from_digits16(s_digits, k_out)
+    r = lb.plain_from_digits16(s_digits, k_out)
     frac = af - alpha
-    return lb.select(frac > 0.5, lb.sub(r, plan.P_limbs[:k_out].expand(r.shape)), r)
+    return lb.plain_select(frac > 0.5,
+                           lb.plain_sub(r, plan.P_limbs[:k_out].expand(r.shape)), r)
+
+
+def _lift(s_digits, af, plan: ReconPlan, center: bool, k_out: int | None):
+    if s_digits.device.type == "cpu":
+        return plain_lift(s_digits, af, plan, center, k_out)
+    return rns_cuda.lift(s_digits, af, plan, center, k_out)
 
 
 def reconstruct_sharded(res: dict, consts: dict, psum, center: bool = True) -> dict:
@@ -235,15 +293,14 @@ def reconstruct_sharded(res: dict, consts: dict, psum, center: bool = True) -> d
     shard gets the limbs [..., n, ks].
 
     Always the exact full-width path: the digit partials are integers far
-    below 2^53, so their int64 sum is exact in any order, and the +-1 limb
+    below 2^53, so their f64 sum is exact in any order, and the +-1 limb
     compares make the result independent of the last bits of the f64 sum
     of the alpha estimate.  The output therefore equals reconstruct()'s
     whatever the number of shards."""
     s_part, af_part = {}, {}
     for k, r in res.items():
         ps, pinv, phatinv_mont, plan = consts[k]
-        y = mont_mul(r, phatinv_mont[:, None], ps[:, None], pinv[:, None])
-        s_part[k], af_part[k] = _digit_partials(y, plan, plan.ds)
+        s_part[k], af_part[k] = _digit_partials(r, plan, plan.ds, (phatinv_mont, ps, pinv))
     s_sum, af_sum = psum(s_part), psum(af_part)
     return {k: _lift(s_sum[k], af_sum[k], consts[k][3], center, None) for k in res}
 

@@ -44,7 +44,8 @@ from ..context import PolyContext
 from ..ops import limbs as lb
 from ..ops import ntt_cuda, ntt_cuda32
 from ..ops import rns as rns_ops
-from ..ops.modmath import addmod, mont_mul, mulmod, submod, summod, u64_to_torch
+from ..ops.modmath import (addmod, cross_terms, key_products, mont_mul, mulmod, mulmod_sum,
+                           submod, u64_to_torch)
 from ..ring.poly import ntt_module
 from ..utils import trace
 from . import dist as pdist
@@ -562,10 +563,9 @@ def _ks_post_factory(eng, l: int, mesh: HeMesh, C: dict):
     return ks_post
 
 
-def _mulmod_c(c: dict, pre: str):
-    """x * y mod the shard's primes of basis `pre`."""
-    p, pv, r2 = c[pre + "_ps"][:, None], c[pre + "_pinv"][:, None], c[pre + "_r2"][:, None]
-    return lambda x, y: mulmod(x, y, p, pv, r2)
+def _consts_c(c: dict, pre: str) -> tuple:
+    """(p, pinv, r2) [rows, 1] of the shard's primes of basis `pre`."""
+    return c[pre + "_ps"][:, None], c[pre + "_pinv"][:, None], c[pre + "_r2"][:, None]
 
 
 def _decompose_c(x, c: dict, pre: str):
@@ -590,7 +590,7 @@ def _build_poly_mul(pctx: PolyContext, dim: int, k_in: int, mask_to_bits: int,
         def fwd(x):
             res = _each(lambda v, c: _decompose_c(v, c, "a"), _scatter(mesh, x, _CT), C)
             return _ntt_coeff_sharded(mesh, res, C, "a", splan)
-        ch = _each(lambda x, y, c: _mulmod_c(c, "a")(x, y), fwd(a), fwd(bb), C)
+        ch = _each(lambda x, y, c: mulmod(x, y, *_consts_c(c, "a")), fwd(a), fwd(bb), C)
         res = _intt_coeff_sharded(mesh, ch, C, "a", splan)
         c = _reconstruct(mesh, res, C, "a", "ar", center=True)
         return _gather(mesh, _each(lambda v: lb.fit_signed(v, mask_to_bits, k_out), c), _CT)
@@ -652,8 +652,7 @@ def build_sharded_rot(eng, l: int, mesh: HeMesh, rot: int | None):
         ek0, ek1 = _scatter(mesh, ek0[:dim_s], _KEY), _scatter(mesh, ek1[:dim_s], _KEY)
         dhat = _ntt_coeff_sharded(mesh, _each(lambda v, c: _decompose_c(v, c, "s"), d1, C),
                                   C, "s", splan_s)
-        uh = _each(lambda d, e0, e1, c: torch.stack([_mulmod_c(c, "s")(d, e0),
-                                                     _mulmod_c(c, "s")(d, e1)]),
+        uh = _each(lambda d, e0, e1, c: key_products(d, e0, e1, *_consts_c(c, "s")),
                    dhat, ek0, ek1, C)
         u = ks_post(_intt_coeff_sharded(mesh, uh, C, "s", splan_s))
         c0 = _each(lambda v, d: lb.mask_bits(lb.add(v[0], d), qb), u, d0)
@@ -701,11 +700,8 @@ def build_sharded_gemv_step(eng, l: int, n1: int | None, dims_h: int, dimc: int,
                 for x in (c1p, c0p, ptx, ptb, rk0[:, :dims_h], rk1[:, :dims_h])]
 
         def sums(c1j, c0j, px, pb, rr0, rr1, c):
-            mul_s, mul_c = _mulmod_c(c, "s"), _mulmod_c(c, "c")
-            ps, pc = c["s_ps"][:, None], c["c_ps"][:, None]
-            t = mul_s(c1j, px)
-            return (torch.stack([summod(mul_s(t, rr0), ps), summod(mul_s(t, rr1), ps)]),
-                    summod(mul_c(c0j, pb), pc))
+            return (mulmod_sum(c1j, px, *_consts_c(c, "s"), ws=(rr0, rr1)),
+                    mulmod_sum(c0j, pb, *_consts_c(c, "c"))[0])
         acc = _each(sums, *args, C)
         k = ks_post(_intt_coeff_sharded(mesh, _each(lambda a: a[0], acc), C, "s", splan_s))
         resb = _intt_coeff_sharded(mesh, _each(lambda a: a[1], acc), C, "c", splan_c)
@@ -753,26 +749,20 @@ def build_sharded_mul_rs(eng, l: int, mesh: HeMesh):
                _recon_consts(mesh, pctx, ctx.dim, dim_s, "r8"))
     ks_post = _ks_post_factory(eng, l, mesh, C)
 
-    def cross_terms(x, c):
-        mul = _mulmod_c(c, "m")
-        x0, x1, y0, y1 = x
-        d1h = addmod(mul(x0, y1), mul(x1, y0), c["m_ps"][:, None])
-        return torch.stack([mul(x0, y0), d1h, mul(x1, y1)])
-
     def run(c10, c11, c20, c21, ek0, ek1):
         cts = [_scatter(mesh, x, _CT) for x in (c10, c11, c20, c21)]
         ek0, ek1 = _scatter(mesh, ek0[:dim_s], _KEY), _scatter(mesh, ek1[:dim_s], _KEY)
         dec = _each(lambda *a: torch.stack([_decompose_c(v, a[-1], "m") for v in a[:-1]]),
                     *cts, C)
-        dh = _each(cross_terms, _ntt_coeff_sharded(mesh, dec, C, "m", splan_m), C)
+        dh = _each(lambda x, c: cross_terms(x, *_consts_c(c, "m")),
+                   _ntt_coeff_sharded(mesh, dec, C, "m", splan_m), C)
         res = _intt_coeff_sharded(mesh, dh, C, "m", splan_m)
         d = _each(lambda v: lb.resize(lb.mask_bits(v, qb), klv),
                   _reconstruct(mesh, res, C, "m", "mr", center=True))       # d0, d1, d2
         # relinearize d2 over the padded dim_swk basis
         d2hat = _ntt_coeff_sharded(mesh, _each(lambda v, c: _decompose_c(v[2], c, "s"), d, C),
                                    C, "s", splan_s)
-        uh = _each(lambda x, e0, e1, c: torch.stack([_mulmod_c(c, "s")(x, e0),
-                                                     _mulmod_c(c, "s")(x, e1)]),
+        uh = _each(lambda x, e0, e1, c: key_products(x, e0, e1, *_consts_c(c, "s")),
                    d2hat, ek0, ek1, C)
         u = ks_post(_intt_coeff_sharded(mesh, uh, C, "s", splan_s))
         out = _each(lambda v, w: eng._rs_limbs(lb.mask_bits(lb.add(v, w[:2]), qb), l - 1), u, d)

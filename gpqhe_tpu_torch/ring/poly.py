@@ -126,25 +126,13 @@ class RingEngine:
         pass pre_scaled=True to rns.reconstruct)."""
         return self.ntt_mod.intt(res, self.ntt_plan(dim), scaled=scale_phatinv)
 
-    # -- decompose variants -------------------------------------------------
-
-    def _decompose_unsigned(self, a, dim: int):
-        return rns_ops.decompose(a, self.ba(dim), self.weights(dim, a.shape[-1]))
-
-    def _decompose_signed(self, a, dim: int, src_bits: int):
-        """Two's-complement input of src_bits width -> residues honouring sign."""
-        ps = self.ba(dim).ps[:, None]
-        hb_limb, hb_bit = divmod(src_bits - 1, 32)
-        negmask = ((a[..., hb_limb] >> hb_bit) & 1) == 1
-        mag = lb.select(negmask, lb.mask_bits(lb.neg(a), src_bits), a)
-        res = self._decompose_unsigned(mag, dim)
-        neg_res = torch.where(res != 0, ps - res, res)
-        return torch.where(negmask[..., None, :], neg_res, res)
+    # -- decompose ----------------------------------------------------------
 
     def decompose(self, a, dim: int, signed_bits: int | None = None):
-        if signed_bits is None:
-            return self._decompose_unsigned(a, dim)
-        return self._decompose_signed(a, dim, signed_bits)
+        """[..., n, K] limbs -> [..., dim, n] residues; signed_bits: the input
+        is two's complement of that width (a negative value gives p - r)."""
+        return rns_ops.decompose(a, self.ba(dim), self.weights(dim, a.shape[-1]),
+                                 src_bits=signed_bits)
 
     def mulmod(self, ahat, bhat, dim: int):
         """Pointwise product of NTT-domain residues over the dim basis."""

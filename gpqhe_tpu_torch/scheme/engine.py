@@ -34,7 +34,7 @@ from .. import params
 from ..context import HeContext
 from ..ops import limbs as lb
 from ..ops import rns as rns_ops
-from ..ops.modmath import addmod, mulmod, summod, u64_to_torch
+from ..ops.modmath import cross_terms, key_products, mulmod_sum, u64_to_torch
 from ..ops.ntt import ntt_galois_perm
 from ..ring import sample
 from ..ring.canemb import canemb, invcanemb
@@ -391,8 +391,9 @@ class CKKS:
     _CLASSIC = object()  # sentinel: "single-product key-switch bound"
 
     def _keyswitch_core(self, dim: int, l: int, bound_bits=_CLASSIC):
-        """Build the (d * swk) / P + rounding pair for level l: for each half
-        h, u_h = rdiv(d x swk_h, P) mod q_l via the small-CRT remainder trick
+        """Build the (d * swk) / P + rounding pair for level l: for the two
+        halves h, stacked [2, (B,) dim, n] in the NTT domain,
+        u_h = rdiv(d x swk_h, P) mod q_l via the small-CRT remainder trick
         (module docstring).
 
         bound_bits: proven bound on the accumulated |d x swk| coefficients
@@ -433,10 +434,10 @@ class CKKS:
             u = lb.add_scalar_bit(u, round_bit)
             return lb.resize(lb.mask_bits(u, qb), klv)
 
-        def pair(u0h, u1h):
-            # both halves' inverse NTTs in one [2, (B,) dim, n] launch, with
-            # the phat^-1 reconstruct multiply fused into the INTT scaling
-            res = self.ring.ntt_i(torch.stack([u0h, u1h]), dim, scale_phatinv=True)
+        def pair(uh):
+            # both halves [2, (B,) dim, n] in one inverse-NTT launch, with the
+            # phat^-1 reconstruct multiply fused into the INTT scaling
+            res = self.ring.ntt_i(uh, dim, scale_phatinv=True)
             return post(res[0]), post(res[1])
         return pair
 
@@ -481,19 +482,14 @@ class CKKS:
             # the 4 forward NTTs ride one launch
             dec = torch.stack([rns_ops.decompose(x, bam, wm)
                                for x in (c10, c11, c20, c21)])
-            x0, x1, y0, y1 = ring.ntt_f(dec, dim_m)
-            d0h = mulmod(x0, y0, pm, pvm, r2m)
-            d2h = mulmod(x1, y1, pm, pvm, r2m)
-            d1h = addmod(mulmod(x0, y1, pm, pvm, r2m),
-                         mulmod(x1, y0, pm, pvm, r2m), pm)
+            # (x0 y0, x0 y1 + x1 y0, x1 y1) of (x0, x1, y0, y1), stacked
+            dh = cross_terms(ring.ntt_f(dec, dim_m), pm, pvm, r2m)
             # the 3 inverse NTTs likewise (phat^-1 fused into the scaling)
-            resb = ring.ntt_i(torch.stack([d0h, d1h, d2h]), dim_m,
-                              scale_phatinv=True)
+            resb = ring.ntt_i(dh, dim_m, scale_phatinv=True)
             d0, d1, d2 = back(resb[0]), back(resb[1]), back(resb[2])
             # relinearize d2 with rlk over the dim_s basis (ref: he-mult.c:40-85)
             d2hat = ring.ntt_f(rns_ops.decompose(d2, bas, ws), dim_s)
-            u0, u1 = ks_pair(mulmod(d2hat, ek0[:dim_s], ps, pvs, r2s),
-                             mulmod(d2hat, ek1[:dim_s], ps, pvs, r2s))
+            u0, u1 = ks_pair(key_products(d2hat, ek0[:dim_s], ek1[:dim_s], ps, pvs, r2s))
             return (lb.mask_bits(lb.add(u0, d0), qb),
                     lb.mask_bits(lb.add(u1, d1), qb))
         return f
@@ -515,8 +511,7 @@ class CKKS:
     def _rs_limbs(self, x, lnew: int):
         """Divide-round by Delta = 2^logD into level lnew's width."""
         logD = self.ctx.p.bit_length() - 1
-        return lb.resize(lb.mask_bits(lb.rshift_round(x, logD), self.qbits(lnew)),
-                         self.kl(lnew))
+        return lb.rshift_round_mask(x, logD, self.qbits(lnew), self.kl(lnew))
 
     def mul_rs(self, ct1: Ciphertext, ct2: Ciphertext,
                rlk: SwitchKey) -> Ciphertext:
@@ -639,8 +634,9 @@ class CKKS:
             def f(dd0, dd1, ek0, ek1):
                 dhat = ring.ntt_f(ring.decompose(dd1, dim_s), dim_s)
                 # the keys hold dimswk_h rows; the slices are views
-                u0, u1 = ks_pair(ring.mulmod(dhat, ek0[:dim_s], dim_s),
-                                 ring.mulmod(dhat, ek1[:dim_s], dim_s))
+                ba = ring.ba(dim_s)
+                u0, u1 = ks_pair(key_products(dhat, ek0[:dim_s], ek1[:dim_s], ba.ps[:, None],
+                                              ba.pinv[:, None], ring.r2(dim_s)))
                 return lb.mask_bits(lb.add(u0, dd0), qb), u1
             return f
         return self._cached(("swk", l), build)(d0, d1, swk.p0hat, swk.p1hat)
@@ -737,18 +733,17 @@ class CKKS:
         bas = ring.ba(dims_h)
         bac = ring.ba(dimc)
         planc = ring.recon(dimc)
-        ps = bas.ps[:, None]
-        pc = bac.ps[:, None]
+        cs = bas.ps[:, None], bas.pinv[:, None], ring.r2(dims_h)
+        cc = bac.ps[:, None], bac.pinv[:, None], ring.r2(dimc)
         ks_pair = self._keyswitch_core(dims_h, l, bound_bits=bits_h)
 
         def f(c1p, c0p, ptx_i, ptb_i, rk0, rk1):
-            # all n1 baby steps as one batched product each; the key slices
-            # are views of the stacked bank
-            t = ring.mulmod(c1p, ptx_i, dims_h)
-            acc0 = summod(ring.mulmod(t, rk0[:, :dims_h], dims_h), ps)
-            acc1 = summod(ring.mulmod(t, rk1[:, :dims_h], dims_h), ps)
-            accb = summod(ring.mulmod(c0p, ptb_i, dimc), pc)
-            k0, k1 = ks_pair(acc0, acc1)
+            # all n1 baby steps as one product-and-sum each over the baby-step
+            # axis, t = c1p ptx_i against both key halves; the key slices are
+            # views of the stacked bank
+            acc = mulmod_sum(c1p, ptx_i, *cs, ws=(rk0[:, :dims_h], rk1[:, :dims_h]))
+            accb = mulmod_sum(c0p, ptb_i, *cc)[0]
+            k0, k1 = ks_pair(acc)
             res = ring.ntt_i(accb, dimc, scale_phatinv=True)
             db = rns_ops.reconstruct(res, bac, planc, center=True, k_out=klv,
                                      bound_bits=bits_c, pre_scaled=True)

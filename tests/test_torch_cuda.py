@@ -537,3 +537,88 @@ def test_cuda_full_packing_c2s_matches_cpu(cuda_device, logp):
     assert all(torch.equal(c["rk"][r].p0hat.cpu(), t["rk"][r].p0hat) for r in t["rk"])
     assert _equal_ct(c["ct0"], t["ct0"]) and _equal_ct(c["ct1"], t["ct1"])
     assert c["u_diff"] < 1e-9 and max(c["diffs"]) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the elementwise kernels (csrc/modmath.cu, rns.cu, limbs.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logn,logp", [(14, 59), (14, 29), (15, 59)])
+def test_cuda_elementwise_kernels_match_plain(cuda_device, logn, logp):
+    """Every entry of the modmath, decompose, CRT-lift and limb kernels
+    torch.equal to its plain torch version on the same CUDA tensors, at the
+    paths' shapes of the ring (logn=14: dims 16/24/26 or 31/47/50; logn=15:
+    31/47/48; batch 8) on edge words; digit_split's f64 estimate within a
+    relative 2^-45 (summed in another order)."""
+    from chip_smoke import ew_compare, ew_counters, elementwise_cases
+    before = ew_counters()
+    cases = elementwise_cases(logn, logp, cuda_device)
+    for entry, entry_cases in cases.items():
+        for case in entry_cases:
+            got, want = case["kern"](), case["plain"]()
+            torch.cuda.synchronize()
+            eq, err, extra = ew_compare(got, want)
+            assert eq, (entry, case["shape"], err, extra)
+    after = ew_counters()
+    assert all(after[e] > before[e] for e in cases), {e: after[e] - before[e] for e in cases}
+
+
+@pytest.mark.cuda
+def test_cuda_elementwise_kernels_reject_bad_operands(cuda_device):
+    from gpqhe_tpu_torch.ops import limbs, modmath, rns
+    x = torch.zeros((3, 16), dtype=torch.int64, device=cuda_device)
+    p = torch.full((3, 1), 17, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError):
+        modmath.mulmod(x.to(torch.int32), x.to(torch.int32), p, p, p)
+    with pytest.raises(ValueError):
+        modmath.addmod(x, x, x)              # a "constant" that varies along n
+    with pytest.raises(ValueError):
+        modmath.addmod(x, x, p.cpu())        # operands on two devices
+    w = torch.zeros((3, 3), dtype=torch.int64, device=cuda_device).t()   # not contiguous
+    with pytest.raises(ValueError):
+        rns.decompose_core(torch.zeros((16, 6), dtype=torch.int64, device=cuda_device),
+                           p[:, 0], p[:, 0], w)
+    with pytest.raises(ValueError):
+        limbs.add(x, x.to(torch.float64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xs,ys", [((3, 16, 64), (2, 3, 16, 64)), ((3, 1, 16, 64), (3, 2, 16, 64)),
+                                   ((2, 1, 16, 64), (1, 3, 16, 64))])
+def test_cuda_elementwise_kernels_read_broadcast_operands(cuda_device, xs, ys):
+    """An operand broadcast along leading axes whose strides do not collapse
+    into one (a [3, 16, n] against [2, 3, 16, n], a [3, 1, ...] against
+    [3, 2, ...]) is copied in full and read right: mulmod and the limb add
+    equal their plain versions."""
+    from gpqhe_tpu_torch.ops import cuda_build, limbs, modmath, rns
+    rng = np.random.default_rng(11)
+    pctx = PolyContext(6, q=1 << 20, dim_cap=16)
+    ba = rns.make_basis_arrays(pctx, 16, "cpu")
+    ps = np.asarray(pctx.primes[:16], dtype=np.uint64)[:, None]
+    x = torch.from_numpy((rng.integers(0, 1 << 63, size=xs, dtype=np.uint64) % ps).view(np.int64))
+    y = torch.from_numpy((rng.integers(0, 1 << 63, size=ys, dtype=np.uint64) % ps).view(np.int64))
+    p, pinv, r2 = ba.ps[:, None], ba.pinv[:, None], ba.r2[:, None]
+    want = modmath.plain_mulmod(x, y, p, pinv, r2)
+    copies = cuda_build.COPIES["operands"]
+    got = modmath.mulmod(*(t.to(cuda_device) for t in (x, y, p, pinv, r2)))
+    assert torch.equal(got.cpu(), want)
+    a = torch.from_numpy(rng.integers(0, 1 << 32, size=xs[:-2] + (64, 5)).astype(np.int64))
+    b = torch.from_numpy(rng.integers(0, 1 << 32, size=ys[:-2] + (64, 5)).astype(np.int64))
+    assert torch.equal(limbs.add(a.to(cuda_device), b.to(cuda_device)).cpu(), limbs.plain_add(a, b))
+    assert cuda_build.COPIES["operands"] > copies
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logp", [59, 29])
+def test_cuda_keyswitch_path_launches_the_elementwise_kernels(cuda_device, logp):
+    """The key-switch path on the card goes through K4-K7 (each kernel's
+    launch count grows) and none of them on the host engine."""
+    from chip_smoke import ew_by_kernel, ew_counters
+    before = ew_by_kernel(ew_counters())
+    _run_keyswitch(cuda_device, logp)
+    after = ew_by_kernel(ew_counters())
+    assert all(after[k] > before[k] for k in after), (before, after)
+    mid = after
+    _run_keyswitch(torch.device("cpu"), logp)
+    assert ew_by_kernel(ew_counters()) == mid
