@@ -10,7 +10,11 @@ non-zero:
              (sm_90a), one process each, started together, and load them;
              the card's name and power limit from nvidia-smi; per kernel
              instantiation ptxas's registers, spills, stack and shared
-             memory; static multiply-instruction counts from cuobjdump.
+             memory where this run built the source; for every K7 and lift
+             instantiation in the libraries as loaded (`row_kernels`),
+             cuobjdump's registers, stack, shared and local memory, and a
+             raise on any stack frame or local memory; static
+             multiply-instruction counts from cuobjdump.
   kernels  — each CUDA NTT (u64 words on the 59-bit chain, u32 words on the
              logp=29 chain) against the plain torch twin on the card:
              torch.equal on random residues at the paths' shapes; the
@@ -22,7 +26,16 @@ non-zero:
              the CRT lift, K7 limbs) torch.equal to its plain torch version
              on edge words at the shapes the paths give it (logn=14 on both
              chains, logn=15; batch 8; the reconstruct end to end at its
-             bounds), the first shape of each timed as the NTT is.
+             bounds), the first shape of each timed as the NTT is, and for
+             select and mask_bits one PyTorch call of the same function
+             timed the same way and the ratio (`ms_over_library`); K7 and
+             the lift timed at logn=15 too, on `kernels15` lines; the rows
+             wider than a warp timed at both (`wide`: the exact lift at the
+             key switch's basis, geq_const at 62 and 125 limbs); then K7
+             and the lift at the edges of their designs
+             (elementwise_edge_cases: 1-3071 limbs, whole chunks of 32 limbs
+             and one more, partial blocks, constant, broadcast and strided
+             operands), each torch.equal to its plain version.
   golden   — the logn=11 replay of tests/golden/golden_logn11.json (enc,
              add, mul+rs, conj, rot1, moddown) within tests/test_golden.py's
              tolerances.
@@ -301,7 +314,7 @@ def pass_breakdown(fn, calls: int = 20) -> dict:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for attempt in range(2):        # a capture now and then comes back without device events
+    for attempt in range(4):        # a capture now and then comes back without device events
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(SLEEP_CYCLES)
             for _ in range(calls):
@@ -314,7 +327,7 @@ def pass_breakdown(fn, calls: int = 20) -> dict:
                 out[key] = out.get(key, 0.0) + e.time_range.elapsed_us() / calls
         if out:
             return out
-    raise RuntimeError("the profiler saw no NTT pass kernel in two captures: no time per pass")
+    raise RuntimeError("the profiler saw no NTT pass kernel in four captures: no time per pass")
 
 
 def ntt_bound(word: int, mode: str, shape) -> dict:
@@ -348,9 +361,63 @@ def phase_build():
     secs = time.time() - t0
     ptxas = {os.path.basename(src): ptxas_summary(log)
              for src, log in cuda_build.BUILD_LOGS.items()}
+    rows = row_kernel_resources(rns_cuda, limbs_cuda)
     emit({"phase": "build", "seconds": secs, "gpu": gpu_line(), "ptxas": ptxas,
+          "row_kernels": rows,
           "sass_multiplies": {os.path.basename(m.SOURCE):
                               sass_multiplies(cuda_build.library_path(m.SOURCE)) for m in mods}})
+    local = {k: v for k, v in rows.items() if v.get("STACK", 1) or v.get("LOCAL", 1)}
+    if local:
+        raise AssertionError(f"row kernels with a stack frame or local memory: {local}")
+
+
+# instantiations of the row kernels by source: K7's eight chains on rows of
+# one chunk and of more, and its word kernel by word and by pair for
+# mask_bits and select; the lift on f64 and int64 digit sums at 1, 2 and 4
+# chunks
+ROW_KERNELS = {"limbs.cu": 20, "rns.cu": 6}
+
+
+def resource_usage(library: str) -> dict:
+    """cuobjdump --dump-resource-usage of a built library: per kernel its
+    registers (REG), stack frame (STACK), static shared memory (SHARED) and
+    local memory a thread (LOCAL: spills and arrays that did not fit in
+    registers); {} without the tool."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {}
+    out = subprocess.run([tool, "--dump-resource-usage", library], capture_output=True,
+                         text=True, timeout=120)
+    usage, fn = {}, None
+    for ln in out.stdout.splitlines():
+        m = re.search(r"Function (\S+?):?\s*$", ln) or re.search(r"Function (\S+?):\s", ln)
+        if m:
+            fn = m.group(1)
+        if fn and "REG:" in ln:
+            usage[fn] = {k: int(v)
+                         for k, v in re.findall(r"\b(REG|STACK|SHARED|LOCAL):(\d+)", ln)}
+    return usage
+
+
+def row_kernel_resources(rns_cuda, limbs_cuda) -> dict:
+    """The resource usage (resource_usage) of every instantiation of K7 (all
+    of limbs.cu's kernels) and of the CRT lift (rns.cu's rns_lift kernels)
+    in the libraries as loaded, built in this run or earlier.  Raises unless
+    each source has exactly ROW_KERNELS of them."""
+    from gpqhe_tpu_torch.ops import cuda_build
+    out, seen = {}, {}
+    for m in (limbs_cuda, rns_cuda):
+        src = os.path.basename(m.SOURCE)
+        for fn, v in resource_usage(cuda_build.library_path(m.SOURCE)).items():
+            if src == "limbs.cu" or "rns_lift" in fn:
+                out[fn] = v
+                seen[src] = seen.get(src, 0) + 1
+    if seen != ROW_KERNELS:
+        raise AssertionError(f"cuobjdump reported row kernels {seen}, expected {ROW_KERNELS}: "
+                             f"{sorted(out)}")
+    return out
 
 
 def short_kernel_name(name: str) -> str:
@@ -643,6 +710,19 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def geq_read_bytes(a, c) -> int:
+    """The bytes geq_const(a, c) must read on these inputs: c once, and of
+    each row of a its limbs from the top down to the highest one that
+    differs from c's (all of them where the row equals c), the rest
+    deciding nothing."""
+    import torch
+    k = a.shape[-1]
+    ne = (a != c).reshape(-1, k)
+    top = k - 1 - ne.flip(-1).int().argmax(-1)           # the highest limb that differs
+    words = torch.where(ne.any(-1), k - top, torch.full_like(top, k))
+    return 8 * (int(words.sum()) + k)
+
+
 def elementwise_cases(logn: int, logp: int, device, seed: int = 8) -> dict:
     """{entry: [case, ...]}: each case a dict with shape, kern (the public
     dispatcher, which on a CUDA tensor launches the kernel), plain (the
@@ -681,10 +761,10 @@ def elementwise_cases(logn: int, logp: int, device, seed: int = 8) -> dict:
     def res(dim, lead=()):
         return ew_residues(rng, ring.pctx.primes[:dim], lead + (dim, n), device)
 
-    def add(entry, shape, kern, plain, inputs, out_words, imad, **kw):
+    def add(entry, shape, kern, plain, inputs, out_words, imad, read_bytes=None, **kw):
         cases.setdefault(entry, []).append(dict(
             shape=list(shape), kern=kern, plain=plain, imad=imad,
-            bytes=nbytes(*inputs) + 8 * out_words, **kw))
+            bytes=(nbytes(*inputs) if read_bytes is None else read_bytes) + 8 * out_words, **kw))
 
     # K5 modmath
     cm, cs = consts(dim_m), consts(dim_s)
@@ -773,7 +853,10 @@ def elementwise_cases(logn: int, logp: int, device, seed: int = 8) -> dict:
         add("crt_lift", list(sd.shape) + [k_out or plan.ks],
             lambda sd=sd, af=af, plan=plan, c=center, k=k_out: rns._lift(sd, af, plan, c, k),
             lambda sd=sd, af=af, plan=plan, c=center, k=k_out: rns.plain_lift(sd, af, plan, c, k),
-            [sd, af], rows * (k_out or plan.ks), rows * kd)
+            [sd, af], rows * (k_out or plan.ks), rows * kd,
+            # the exact path past 32 limbs (the key switch's, and the mesh's
+            # reconstruct_sharded): a row of two or more chunks, timed too
+            wide=k_out is None and not skew and plan.ks > 32)
         # the whole reconstruct on values within its bound (exact path: any
         # residues; fast path: |value| < 2^bound with the edge values
         # 0, +-(2^bound - 1))
@@ -816,27 +899,159 @@ def elementwise_cases(logn: int, logp: int, device, seed: int = 8) -> dict:
                         dtype=torch.int64, device=device)
     # (op, args, words written: geq_const one bool a row, the rescale
     # kl(L - 1) limbs a row; library: one PyTorch call of the same function)
-    one = [("neg", (a,), a.numel(), None), ("add_scalar_bit", (a, bit), a.numel(), None),
-           ("select", (bit, a, b), a.numel(), lambda: torch.where(bit[:, None], a, b)),
-           ("geq_const", (a, c), n / 8, None),
-           ("mask_bits", (a, qb - 3), a.numel(), lambda: a & mask),
-           ("rshift_round", (a, logD), a.numel(), None),
-           ("rshift_round_mask", (a, logD, eng.qbits(L - 1), eng.kl(L - 1)), n * eng.kl(L - 1),
-            None)]
-    for op, args, out_words, library in one:
+    kr = eng.kl(L - 1)
+    one = [("neg", (a,), a.numel(), None, None),
+           ("add_scalar_bit", (a, bit), a.numel(), None, None),
+           ("select", (bit, a, b), a.numel(), lambda: torch.where(bit[:, None], a, b), None),
+           ("geq_const", (a, c), n / 8, None, geq_read_bytes(a, c)),
+           ("mask_bits", (a, qb - 3), a.numel(), lambda: a & mask, None),
+           ("rshift_round", (a, logD), a.numel(), None, None),
+           ("rshift_round_mask", (a, logD, eng.qbits(L - 1), kr), n * kr, None, None)]
+    for op, args, out_words, library, read in one:
         add(f"limbs_{op}", a.shape, lambda op=op, args=args: getattr(lb, op)(*args),
             lambda op=op, args=args: getattr(lb, f"plain_{op}")(*args),
-            [t for t in args if torch.is_tensor(t)], out_words, 0, library=library)
-    wide = ew_limbs(rng, (n, 125), device)
-    cw = wide[7].clone()
-    cw[:100] = wide[8, :100]      # rows 7 and 8 differ in the low limbs only
-    add("limbs_geq_const", wide.shape, lambda: lb.geq_const(wide, cw),
-        lambda: lb.plain_geq_const(wide, cw), [wide, cw], n / 8, 0)
+            [t for t in args if torch.is_tensor(t)], out_words, 0, read_bytes=read,
+            library=library)
+    # geq_const on the wide rows the paths compare (62 and 125 limbs: two and
+    # four chunks), timed too
+    for kw in (125, 62):
+        wide = ew_limbs(rng, (n, kw), device)
+        cw = wide[7].clone()
+        cw[:kw - 25] = wide[8, :kw - 25]      # rows 7 and 8 differ in the low limbs only
+        add("limbs_geq_const", wide.shape, lambda wide=wide, cw=cw: lb.geq_const(wide, cw),
+            lambda wide=wide, cw=cw: lb.plain_geq_const(wide, cw), [wide, cw], n / 8, 0,
+            read_bytes=geq_read_bytes(wide, cw), wide=True)
     kq = eng.kq
     dg = torch.from_numpy(rng.integers(0, 1 << 48, size=(n, 2 * kq)).astype(np.float64)).to(device)
     dg[0] = float((1 << 48) - 1)
     add("limbs_from_digits16", dg.shape, lambda: lb.from_digits16(dg, kq),
         lambda: lb.plain_from_digits16(dg, kq), [dg], n * kq, 0)
+    return cases
+
+
+# K at the edges of K7's designs: one limb, around a warp, the paths' 14
+# and 28, geq_const's 62, 63, 68, 124 and 125, a whole number of chunks of
+# 32 limbs and one more (64, 65, 129), and a row of 96 chunks (3071)
+EDGE_K = (1, 13, 14, 28, 31, 32, 33, 62, 63, 64, 65, 68, 124, 125, 129, 3071)
+# rows of every edge case: two full blocks and a partial one wherever a
+# block takes at most 256 rows (4 warps x 4 rows a lane x 16 groups of a
+# warp at one limb), and a partial block at every K (a block's rows are a
+# power of 2)
+EDGE_ROWS = 2 * 256 + 7
+
+
+def elementwise_edge_cases(device, seed: int = 9) -> list:
+    """K7 and the CRT lift at the edges of their designs, each a dict with
+    entry, shape, kern and plain (the plain version on the same tensors):
+    every entry at every K of EDGE_K on EDGE_ROWS rows, edge rows first (a
+    carry and a borrow through every limb, equal rows, rows equal but for
+    the top limb); operands read through cuda_build.strides3 in every form:
+    a constant row (stride 0), an operand broadcast over a leading axis
+    (R1 > 1, the rows do not collapse), row-strided and limb-strided views,
+    per-row bits as bool and int64; the lift at one, two and four chunks of
+    32 limbs (3-120 limbs on the exact path, up to 128 on the fast one), f64
+    and int64 digit sums, odd kd, kd < 2 k_out and random estimates that
+    reach both clamps and both sides of the 1/2 rule."""
+    import numpy as np
+    import torch
+    from gpqhe_tpu_torch.context import PolyContext
+    from gpqhe_tpu_torch.ops import limbs as lb
+    from gpqhe_tpu_torch.ops import rns
+
+    rng = np.random.default_rng(seed)
+    cases = []
+    rows = EDGE_ROWS
+
+    def add(op, shape, *args):
+        """A case of ops/limbs.py's `op` (or the lift, `_lift`) on args."""
+        mod = rns if op == "_lift" else lb
+        plain = "plain_lift" if op == "_lift" else f"plain_{op}"
+        cases.append(dict(entry="crt_lift" if op == "_lift" else f"limbs_{op}",
+                          shape=list(shape), op=op, args=args,
+                          kern=lambda: getattr(mod, op)(*args),
+                          plain=lambda: getattr(mod, plain)(*args)))
+
+    def limbs(shape):
+        """u32 limbs, rows 0-2 all 0xFFFFFFFF, all 0, and 0xFFFFFFFF below a
+        zero top limb (at any K, one included)."""
+        x = rng.integers(0, 1 << 32, size=shape, dtype=np.int64)
+        x[..., 0, :] = 0xFFFFFFFF
+        x[..., 1, :] = 0
+        x[..., 2, :] = 0xFFFFFFFF
+        x[..., 2, -1] = 0
+        return torch.from_numpy(x).to(device)
+
+    for k in EDGE_K:
+        a, b = limbs((rows, k)), limbs((rows, k))
+        b[0] = 0
+        b[0, 0] = 1                   # 0xFF..FF + 1: a carry through every limb
+        b[1] = b[0]                   # 0 - 1: a borrow through every limb
+        b[3] = a[3]
+        b[4] = a[4]
+        b[4, -1] ^= 1                 # equal but for the top limb
+        bit = torch.from_numpy(rng.integers(0, 2, size=rows).astype(bool)).to(device)
+        bit[0] = True
+        for op, args in (("add", (a, b)), ("sub", (a, b)), ("neg", (a,)),
+                         ("add_scalar_bit", (a, bit)), ("select", (bit, a, b)),
+                         ("geq_const", (a, b)), ("geq_const", (a, a[4].clone())),
+                         ("mask_bits", (a, 32 * k - 5)), ("mask_bits", (a, 16 * k + 7)),
+                         ("rshift_round", (a, min(50, 32 * k - 1), k + (k < 1000))),
+                         ("rshift_round", (a, 5, k)),
+                         ("rshift_round_mask", (a, min(50, 32 * k - 1), max(1, 32 * k - 60),
+                                                max(1, k - 1)))):
+            add(op, a.shape, *args)
+        if k > 1000:
+            continue
+        d = torch.from_numpy(rng.integers(0, 1 << 48, size=(rows, 2 * k + 3)).astype(np.float64))
+        d[0] = 0xFFFF                 # every digit propagates a carry made at the bottom
+        d[0, 0] = 0x10000
+        d[1] = float((1 << 48) - 1)
+        d = d.to(device)
+        for dg, kout in ((d, k), (d.to(torch.int64), k), (d[:, :2 * k - 1], k + 1)):
+            add("from_digits16", dg.shape, dg, kout)
+
+    # operand layouts through strides3, at K = 14 and 125 (R1 = 2 leading rows)
+    for k in (14, 125):
+        a, base = limbs((2, rows, k)), limbs((rows, 2 * k + 3))
+        views = {"const": a[1, 5].clone(), "lead_broadcast": base[:, :k],
+                 "limb_strided": base[:, 1:2 * k + 1:2]}
+        for name, b in views.items():
+            for op in ("add", "sub", "geq_const"):
+                add(op, [name] + list(a.shape), a, b)
+        av = base[:, 2:k + 2]         # rows 2k + 3 words apart
+        mask = torch.from_numpy(rng.integers(0, 2, size=rows).astype(bool)).to(device)
+        bits = mask.to(torch.int64)[None].repeat(2, 1)
+        for op, args in (("neg", (av,)), ("add_scalar_bit", (a, bits)),
+                         ("select", (mask, a, views["const"])), ("select", (mask, a, av)),
+                         ("mask_bits", (views["limb_strided"], 32 * k - 9)),
+                         ("rshift_round_mask", (av, 50, 32 * k - 70, k - 1))):
+            add(op, ["views", k], *args)
+        add("from_digits16", ["views", k], base[:, :2 * k].to(torch.float64)[:, ::2], k // 2)
+
+    # the lift: (logp, dim, k_out (None: exact, the plan's ks limbs), kd (None:
+    # the plan's), center); ks = 3, 16, 31, 33, 64, 66, 114 on the 59-bit
+    # chain at dim 1, 8, 16, 17, 34, 35, 61 and 30, 32 on logp=29 at 31, 34
+    n = 1 << 10
+    rings = {59: PolyContext(10, q=1 << 20, dim_cap=72),
+             29: PolyContext(10, q=1 << 20, logp=29, dim_cap=72)}
+    R = rows
+    for logp, dim, k_out, kd, center in (
+            (59, 1, None, None, True), (59, 8, None, None, False), (59, 16, None, None, True),
+            (59, 17, None, None, True), (59, 34, None, None, False), (59, 35, None, None, True),
+            (59, 61, None, None, True), (29, 31, None, None, True), (29, 34, None, None, True),
+            (59, 8, 5, 9, True), (59, 8, 16, None, True), (29, 16, 7, 14, True),
+            (59, 24, 32, None, True), (59, 24, 33, 61, True), (59, 69, 128, None, False)):
+        ring = rings[logp]
+        plan = rns.make_recon_plan(ring, dim, device)
+        ba = rns.make_basis_arrays(ring, dim, device)
+        kd = kd or (plan.ds if k_out is None else min(2 * k_out, plan.ds))
+        y = ew_residues(rng, ring.primes[:dim], (dim, n), device)
+        sd, af = rns.plain_digit_partials(y, plan, kd, (ba.phatinv_mont, ba.ps, ba.pinv))
+        sd, af = sd[:R], af[:R]
+        noisy = torch.from_numpy(rng.uniform(-1.5, dim + 1.5, size=R)).to(device)
+        sr = torch.from_numpy(rng.integers(0, 1 << 48, size=(R, kd)).astype(np.float64)).to(device)
+        for s_, a_ in ((sd, af), (sd.to(torch.int64), af), (sr, noisy)):
+            add("_lift", [logp, dim, k_out, R, kd, str(s_.dtype)], s_, a_, plan, center, k_out)
     return cases
 
 
@@ -877,25 +1092,45 @@ def ew_bound(case) -> dict:
             "bytes_ms": t_bytes, "operations_ms": t_ops}
 
 
+def retimed15(entry: str) -> bool:
+    """The entries timed at logn=15 too (`kernels15` lines): K7 and the lift,
+    whose rows are 28 limbs wide there."""
+    return entry.startswith("limbs_") or entry == "crt_lift"
+
+
 def phase_elementwise(iters: int, rings=((14, 59), (14, 29), (15, 59)), tag: str = "kernels",
-                      timed_ring=(14, 59)) -> dict:
+                      timed_ring=(14, 59), ring15=(15, 59)) -> dict:
     """Every entry of K4-K7 against its plain version on the card at the
-    shapes of the given rings; at timed_ring the first case of each entry
-    is timed (device ms in two turns, host µs, the plain version's ms) and
-    returned with its bound.  Raises on any difference."""
+    shapes of the given rings, then K7 and the lift at the edges of their
+    designs (elementwise_edge_cases); at timed_ring the first case of each
+    entry is timed (device ms in two turns, host µs, the plain version's ms,
+    the library call's where there is one, and their ratio) and returned
+    with its bound; at ring15 the same for K7 and the lift, on `kernels15`
+    lines; at both, the cases marked `wide` too (rows of more than 32 limbs:
+    the exact lift, geq_const at 62 and 125 limbs), summed up on a `wide`
+    line of each phase.  Raises on any difference."""
     import torch
-    result = {}
+    result, at15, wide = {}, {}, {tag: {}, "kernels15": {}}
     dev = torch.device("cuda")
+
+    def check(entry, case, out):
+        got, want = case["kern"](), case["plain"]()
+        torch.cuda.synchronize()
+        eq, err, extra = ew_compare(got, want)
+        out.update({"kernel": entry, "shape": case["shape"], "equal": eq, "max_abs_err": err,
+                    **extra})
+        return eq, err
+
     for logn, logp in rings:
         for entry, cases in elementwise_cases(logn, logp, dev).items():
             for i, case in enumerate(cases):
-                got, want = case["kern"](), case["plain"]()
-                torch.cuda.synchronize()
-                eq, err, extra = ew_compare(got, want)
-                out = {"phase": tag, "kernel": entry, "ring": [logn, logp], "shape": case["shape"],
-                       "equal": eq, "max_abs_err": err, **extra}
                 main = (logn, logp) == timed_ring and i == 0
-                if main and case.get("timed", True):
+                main15 = (logn, logp) == ring15 and i == 0 and retimed15(entry)
+                at_wide = case.get("wide") and (logn, logp) in (timed_ring, ring15)
+                phase = "kernels15" if main15 or (at_wide and (logn, logp) == ring15) else tag
+                out = {"phase": phase, "ring": [logn, logp]}
+                eq, err = check(entry, case, out)
+                if (main or main15 or at_wide) and case.get("timed", True):
                     runs = [device_ms_runs(case["kern"], iters) for _ in range(2)]
                     lib = case.get("library")
                     out.update({"ms": median(runs[0] + runs[1]),
@@ -907,19 +1142,43 @@ def phase_elementwise(iters: int, rings=((14, 59), (14, 29), (15, 59)), tag: str
                                 "library_ms": (median(device_ms_runs(lib, max(3, iters // 4)))
                                                if lib else None),
                                 **ew_bound(case)})
-                    result[entry] = {k: out[k] for k in ("max_abs_err", "ms", "host_us",
-                                                         "plain_ms", "library_ms", "bound_ms",
-                                                         "bound_by")}
-                    result[entry]["shape"] = case["shape"]
+                    if lib:
+                        out["ms_over_library"] = out["ms"] / out["library_ms"]
+                    if at_wide:
+                        out["wide"] = True
+                    keep = {k: out[k] for k in ("max_abs_err", "ms", "host_us", "plain_ms",
+                                                "library_ms", "bound_ms", "bound_by")}
+                    keep["shape"] = case["shape"]
+                    if at_wide:
+                        wide[phase][f"{entry} {case['shape']}"] = keep
+                    else:
+                        (result if main else at15)[entry] = keep
                 emit(out)
                 if not eq:
                     raise AssertionError(f"CUDA {entry} {case['shape']} at logn={logn} "
                                          f"logp={logp} differs from its plain version")
                 if entry in result:
                     result[entry]["max_abs_err"] = max(result[entry]["max_abs_err"], err)
-    emit({"phase": tag, "summary": "elementwise kernels, device ms per launch at the main-path shapes",
-          "ms": {k: v["ms"] for k, v in result.items()},
-          "bound_share": {k: v["bound_ms"] / v["ms"] for k, v in result.items()}})
+    for case in elementwise_edge_cases(dev):
+        out = {"phase": tag, "ring": "edge"}
+        eq, err = check(case["entry"], case, out)
+        emit(out)
+        if not eq:
+            raise AssertionError(f"CUDA {case['entry']} {case['shape']} at an edge of its "
+                                 f"design differs from its plain version")
+        if case["entry"] in result:
+            result[case["entry"]]["max_abs_err"] = max(result[case["entry"]]["max_abs_err"], err)
+    for name, res in ((tag, result), ("kernels15", at15)):
+        emit({"phase": name, "summary": "elementwise kernels, device ms per launch at the "
+                                        "main-path shapes",
+              "ms": {k: v["ms"] for k, v in res.items()},
+              "bound_share": {k: v["bound_ms"] / v["ms"] for k, v in res.items()},
+              "over_library": {k: v["ms"] / v["library_ms"] for k, v in res.items()
+                               if v["library_ms"]}})
+        emit({"phase": name, "summary": "wide rows, device ms per launch",
+              "ms": {k: v["ms"] for k, v in wide[name].items()},
+              "bound_ms": {k: v["bound_ms"] for k, v in wide[name].items()},
+              "host_us": {k: v["host_us"] for k, v in wide[name].items()}})
     return result
 
 

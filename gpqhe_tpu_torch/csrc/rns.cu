@@ -21,23 +21,32 @@
 // four f64 digits out; a row of f64 digit sums in, u32 limbs out, in int64);
 // decompose does J = K/2 Montgomery products per output word, 14 IMAD each:
 // at 14 limbs and 16 primes the operations (1.5 us) and the bytes (1.2 us)
-// come out close.  The designs: one thread per coefficient, which walks the
-// limbs (decompose, 2 primes a thread: a [2^14, 14] -> 16-prime call is 1,024
-// blocks of 128 threads and took 9.8 us on an H100, against 13.2 us at 8
-// primes a thread in 256 blocks; PERF.md), the primes (digit_split, whose
-// digit rows a warp stores 32 coefficients at a time: 7.1 us, against
-// 20.6 us when each thread stored its own row) or the digits (lift) with the
-// running sum or the carry in a register; the per-row limbs of the lift live
-// in a local array (up to MAX_LIMBS) for the top-down compares.
+// come out close.  The designs: decompose and digit_split take one thread per
+// coefficient, which walks the limbs (decompose, 2 primes a thread: a
+// [2^14, 14] -> 16-prime call is 1,024 blocks of 128 threads and took 9.8 us
+// on an H100, against 13.2 us at 8 primes a thread in 256 blocks; PERF.md)
+// or the primes (digit_split, whose digit rows a warp stores 32 coefficients
+// at a time: 7.1 us, against 20.6 us when each thread stored its own row)
+// with the running sum in a register.  The lift reads and writes
+// neighbouring words across a warp (rowwarp.cuh): a warp per row group,
+// lane i of a group limb i, which reads digit sums 2i and 2i + 1, brings
+// their carries to 0/1 by two shuffles and takes the rest, the compares and
+// the +-P corrections from ballots; a row of more than 32 limbs (the exact
+// path on bases of 17 primes and more: the key switch's 46 limbs at logn=14,
+// 88 at logn=15) takes the whole warp, 32 limbs a chunk, its limbs in NCH
+// registers a lane, at most MAX_CHUNKS (128 limbs, as before).  (The
+// first design walked each row in global memory, digits kd words apart
+// across a warp, and kept the limbs in a 1 KB local array, u64 r[128]:
+// 8.5 us at 5.0x its byte bound.)
 //
 // Plain C interface, loaded with ctypes.  Launches on the caller's stream,
 // allocates nothing, does not synchronise, returns cudaGetLastError().
 
 #include "mont.cuh"
+#include "rowwarp.cuh"
 
 #define PRIMES_PER_THREAD 2
-#define MAX_LIMBS 128
-#define M32 0xFFFFFFFFull
+#define MAX_CHUNKS 4      // the lift's chunks of 32 limbs a row: at most 128 limbs
 
 // limbs (u32 values in int64) [S, n, K] with strides (ss, sn, 1) -> residues
 // [S, dim, n].  src_bits > 0: the input is two's complement of that width;
@@ -115,65 +124,100 @@ __global__ void rns_digit_split_kernel(double *Y, double *af, i64 S, int dim, i6
     }
 }
 
-__device__ __forceinline__ bool geq_limbs(const u64 *r, const i64 *c, int k) {
-    for (int i = k - 1; i >= 0; --i) {
-        const u64 ci = (u64)__ldg(c + i);
-        if (r[i] != ci) return r[i] > ci;
-    }
-    return true;
-}
-
-__device__ __forceinline__ void add_limbs(u64 *r, const i64 *c, int k) {
-    u64 carry = 0;
-    for (int i = 0; i < k; ++i) {
-        const u64 s = r[i] + (u64)__ldg(c + i) + carry;
-        r[i] = s & M32;
-        carry = s >> 32;
-    }
-}
-
-__device__ __forceinline__ void sub_limbs(u64 *r, const i64 *c, int k) {
-    u64 borrow = 0;
-    for (int i = 0; i < k; ++i) {
-        const u64 ci = (u64)__ldg(c + i) + borrow;
-        borrow = r[i] < ci;
-        r[i] = (r[i] - ci) & M32;
-    }
-}
-
 // digit sums [R, kd] (f64 or int64, contiguous) and af [R] -> limbs [R, k_out]
 // (exact: k_out = ks).  alpha = clamp(floor(af), 0, dim); the digits of
 // S + alpha (2^(16 ds) - P) are carried into limbs; then the fast path
 // subtracts P where af - alpha > 1/2, or the exact path corrects alpha by
-// one either way and (center) maps [P/2, P) to negative values.
-template <typename T>
-__global__ void rns_lift_kernel(u64 *out, i64 R, int kd, const T *sd, const double *af, double dimf,
-                                const i64 *negP16, int k_out, int exact, int center, const i64 *Pl,
-                                const i64 *Phalf, const i64 *MminusP) {
-    const i64 row = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-    if (row >= R) return;
-    const double a = af[row];
-    const double alpha = fmin(fmax(floor(a), 0.0), dimf);
-    const i64 ai = (i64)alpha;
-    u64 r[MAX_LIMBS];
-    u64 carry = 0, lo = 0;
-    const T *s = sd + row * kd;
-    for (int i = 0; i < 2 * k_out; ++i) {
-        const u64 v = carry + (i < kd ? (u64)(i64)s[i] + (u64)(ai * __ldg(negP16 + i)) : 0);
-        const u64 digit = v & 0xFFFF;
-        carry = v >> 16;
-        if (i & 1) r[i >> 1] = lo | (digit << 16);
-        else lo = digit;
+// one either way and (center) maps [P/2, P) to negative values.  A warp per
+// row group (rowwarp.cuh, LaneGroups): lane i of a group limb 32 c + i of
+// its row in chunk c < NCH (NCH = 1: rows of at most 32 limbs, G groups a
+// warp), which reads digit sums 2 (32 c + i) and 2 (32 c + i) + 1
+// (coalesced: a group's digits are consecutive words of its row); the
+// digits carried into limbs by lane_digits, the compares and the +-P
+// corrections by ballots, chunk after chunk, the row's NCH limbs a lane and
+// the constant limbs and digits in registers.  WARP_GROUPS / NCH rows a
+// lane (four at two chunks kept a stack frame).
+template <typename T, int NCH>
+__global__ void __launch_bounds__(ROWWARP_THREADS)
+rns_lift_kernel(u64 *out, i64 R, int kd, int kuse, const T *sd, const double *af, double dimf,
+                const i64 *negP16, int k_out, int exact, int center, const i64 *Pl,
+                const i64 *Phalf, const i64 *MminusP) {
+    constexpr int RL = WARP_GROUPS / NCH;
+    const LaneGroups lg(k_out);
+    bool lane_limb[NCH];
+    u64 n0[NCH], n1[NCH], P[NCH], Ph[NCH], MmP[NCH];
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+        const int li = 32 * c + lg.i, j0 = 2 * li, j1 = j0 + 1;
+        const bool l = lane_limb[c] = lg.grp < lg.G && li < k_out;
+        n0[c] = l && j0 < kuse ? (u64)__ldg(negP16 + j0) : 0;
+        n1[c] = l && j1 < kuse ? (u64)__ldg(negP16 + j1) : 0;
+        P[c] = l ? (u64)__ldg(Pl + li) : 0;
+        Ph[c] = l && exact ? (u64)__ldg(Phalf + li) : 0;
+        MmP[c] = l && exact ? (u64)__ldg(MminusP + li) : 0;
     }
-    if (exact) {
-        if (geq_limbs(r, MminusP, k_out)) add_limbs(r, Pl, k_out);
-        if (geq_limbs(r, Pl, k_out)) sub_limbs(r, Pl, k_out);
-        if (center && geq_limbs(r, Phalf, k_out)) sub_limbs(r, Pl, k_out);
-    } else if (a - alpha > 0.5) {
-        sub_limbs(r, Pl, k_out);
+    const i64 warp = (i64)blockIdx.x * (ROWWARP_THREADS / 32) + (threadIdx.x >> 5);
+    const i64 row0 = warp * (RL * lg.G) + lg.grp;
+    u64 s0[RL][NCH], s1[RL][NCH];
+    double a[RL];
+#pragma unroll
+    for (int u = 0; u < RL; ++u) {
+        const i64 row = row0 + u * lg.G;
+        const bool live = lg.grp < lg.G && row < R;
+#pragma unroll
+        for (int c = 0; c < NCH; ++c) {
+            const int j0 = 2 * (32 * c + lg.i), j1 = j0 + 1;
+            const bool l = live && lane_limb[c];
+            s0[u][c] = l && j0 < kuse ? (u64)(i64)__ldg(sd + row * kd + j0) : 0;
+            s1[u][c] = l && j1 < kuse ? (u64)(i64)__ldg(sd + row * kd + j1) : 0;
+        }
+        a[u] = live ? __ldg(af + row) : 0.0;
     }
-    u64 *o = out + row * k_out;
-    for (int i = 0; i < k_out; ++i) o[i] = r[i];
+#pragma unroll
+    for (int u = 0; u < RL; ++u) {
+        const i64 row = row0 + u * lg.G;
+        bool limb[NCH];
+        u64 x[NCH];
+        const double alpha = fmin(fmax(floor(a[u]), 0.0), dimf);
+        const u64 ai = (u64)(i64)alpha;
+        DigitCarry dc = {0, 0, 0};
+#pragma unroll
+        for (int c = 0; c < NCH; ++c) {
+            limb[c] = lane_limb[c] && row < R;
+            x[c] = lane_digits(lg, limb[c], s0[u][c] + ai * n0[c], s1[u][c] + ai * n1[c], dc,
+                               NCH > 1);
+        }
+        // x >= y over the row, y the constant limbs MmP (which 0), P (1) or
+        // Ph (2), from the top chunk down
+        auto compare = [&](int which) {
+            bool ge = true, done = false;
+#pragma unroll
+            for (int c = NCH - 1; c >= 0; --c)
+                lane_geq(lg, limb[c], x[c], which == 0 ? MmP[c] : which == 1 ? P[c] : Ph[c], ge,
+                         done);
+            return ge;
+        };
+        // x + P or x - P where `on`, carried chunk to chunk
+        auto correct = [&](bool on, bool add) {
+            u64 carry = 0;
+#pragma unroll
+            for (int c = 0; c < NCH; ++c) {
+                const u64 y = add ? lane_add(lg, limb[c], x[c], P[c], carry)
+                                  : lane_sub(lg, limb[c], x[c], P[c], carry);
+                x[c] = on ? y : x[c];
+            }
+        };
+        if (exact) {
+            correct(compare(0), true);          // x >= M - P: x was below 0
+            correct(compare(1), false);         // x >= P
+            if (center) correct(compare(2), false);
+        } else {
+            correct(a[u] - alpha > 0.5, false);
+        }
+#pragma unroll
+        for (int c = 0; c < NCH; ++c)
+            if (limb[c]) out[row * k_out + 32 * c + lg.i] = x[c];
+    }
 }
 
 static unsigned threads_of(i64 n) { return n >= 128 ? 128u : (unsigned)((n + 31) / 32 * 32); }
@@ -212,19 +256,21 @@ extern "C" int gpqhe_rns_lift(i64 R, int kd, int digits_f64, const void *sd, con
                               int dim, const void *negP16, int k_out, int exact, int center,
                               const void *P, const void *Phalf, const void *MminusP,
                               void *out, void *stream) {
-    if (k_out > MAX_LIMBS || k_out < 1) return (int)cudaErrorInvalidValue;
-    const unsigned t = 128;
-    const unsigned blocks = (unsigned)((R + t - 1) / t);
-    cudaStream_t st = (cudaStream_t)stream;
-    if (digits_f64)
-        rns_lift_kernel<double><<<blocks, t, 0, st>>>(
-            (u64 *)out, R, kd, (const double *)sd, (const double *)af, (double)dim,
-            (const i64 *)negP16, k_out, exact, center, (const i64 *)P, (const i64 *)Phalf,
-            (const i64 *)MminusP);
-    else
-        rns_lift_kernel<i64><<<blocks, t, 0, st>>>(
-            (u64 *)out, R, kd, (const i64 *)sd, (const double *)af, (double)dim,
-            (const i64 *)negP16, k_out, exact, center, (const i64 *)P, (const i64 *)Phalf,
-            (const i64 *)MminusP);
+    if (k_out < 1 || k_out > 32 * MAX_CHUNKS || kd < 0) return (int)cudaErrorInvalidValue;
+    const int kuse = kd < 2 * k_out ? kd : 2 * k_out;
+    const int nch = k_out <= 32 ? 1 : k_out <= 64 ? 2 : 4;
+    const unsigned per_block = rows_a_block(k_out, WARP_GROUPS / nch);
+    const unsigned blocks = (unsigned)((R + per_block - 1) / per_block);
+    cudaStream_t s = (cudaStream_t)stream;
+#define LIFT(TY, N) rns_lift_kernel<TY, N><<<blocks, ROWWARP_THREADS, 0, s>>>(           \
+        (u64 *)out, R, kd, kuse, (const TY *)sd, (const double *)af, (double)dim,          \
+        (const i64 *)negP16, k_out, exact, center, (const i64 *)P, (const i64 *)Phalf,     \
+        (const i64 *)MminusP)
+    if (digits_f64) {
+        if (nch == 1) LIFT(double, 1); else if (nch == 2) LIFT(double, 2); else LIFT(double, 4);
+    } else {
+        if (nch == 1) LIFT(i64, 1); else if (nch == 2) LIFT(i64, 2); else LIFT(i64, 4);
+    }
+#undef LIFT
     return (int)cudaGetLastError();
 }

@@ -6,8 +6,11 @@ inside each jitted program of the JAX package (gpqhe_tpu/ops/limbs.py:44-250:
 add, sub, neg, add_scalar_bit, mask_bits, rshift_round, geq_const, select,
 from_digits16) and the scheme engine's rescale composite rshift_round ->
 mask_bits -> resize.  ops/limbs.py dispatches here for a CUDA tensor; its
-plain_* functions serve the CPU.  One thread walks one row's limbs with the
-carry in a register; each entry is one launch, counted in LAUNCHES.
+plain_* functions serve the CPU.  Each entry is one launch, counted in
+LAUNCHES.  The chains take a warp per row group (csrc/rowwarp.cuh): lane i
+of a group holds limb i of its row, the carries of a row come from two
+ballots, and a row of more than 32 limbs takes the warp 32 limbs at a
+time; mask_bits and select take one thread a word or a pair of words.
 """
 
 from __future__ import annotations
@@ -73,18 +76,21 @@ def launch(op: str, out_shape: tuple, k: int, a, b=None, bit=None, k_out: int = 
     cuda_build.check_dtype(*(x for x in (b,) if x is not None))
     if bit is not None and bit.dtype not in (torch.bool, torch.int64):
         raise ValueError(f"limbs kernel {op} takes a bool or int64 row operand, got {bit.dtype}")
-    dev = a.device
-    cuda_build.check_device(dev, *(x for x in (a, b, bit) if x is not None))
     rows = tuple(out_shape[:-1]) if op != "geq_const" else tuple(out_shape)
     shape3 = (1,) * max(0, 1 - len(rows)) + rows + (k,)
+    R1 = math.prod(shape3[:-2])
+    R2 = shape3[-2]
+    if R1 * R2 * (k if op in ("mask_bits", "select") else 1) >= 1 << 31:
+        raise ValueError(f"limbs kernel {op}: {R1 * R2} rows of {k} limbs, the kernel indexes "
+                         f"fewer than 2^31 rows (words for mask_bits and select)")
+    dev = a.device
+    cuda_build.check_device(dev, *(x for x in (a, b, bit) if x is not None))
     aargs, av = _rows(a, shape3)
     bargs, bv = _rows(b, shape3)
     targs = [None, 0, 0, 0]
     if bit is not None:
         targs, tv = _rows(bit[..., None], shape3[:-1] + (1,))
         targs = targs[:3] + [_KIND[bit.dtype]]
-    R1 = math.prod(shape3[:-2])
-    R2 = shape3[-2]
     out = torch.empty(out_shape, dtype=torch.bool if op == "geq_const" else torch.int64,
                       device=dev)
     if out.numel():

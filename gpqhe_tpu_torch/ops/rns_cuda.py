@@ -8,7 +8,9 @@ decompose) and the two halves of reconstruct_core (gpqhe_tpu/ops/rns.py:200)
 around the f64 digit matmul, which stays torch.matmul: digit_split (y ->
 transposed 16-bit digits and the S / P estimate) and lift (digit sums ->
 limbs).  ops/rns.py dispatches here for a CUDA tensor; its plain_* functions
-serve the CPU.  LAUNCHES counts launches per entry.
+serve the CPU.  LAUNCHES counts launches per entry.  The lift takes a warp
+per row group (csrc/rowwarp.cuh), a row of more than 32 limbs the whole
+warp, 32 limbs at a time.
 """
 
 from __future__ import annotations

@@ -564,6 +564,38 @@ def test_cuda_elementwise_kernels_match_plain(cuda_device, logn, logp):
     assert all(after[e] > before[e] for e in cases), {e: after[e] - before[e] for e in cases}
 
 
+_EDGE = {}
+
+
+def _edge_cases(device):
+    from chip_smoke import elementwise_edge_cases
+    if str(device) not in _EDGE:
+        _EDGE[str(device)] = elementwise_edge_cases(device)
+    return _EDGE[str(device)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["limbs_add", "limbs_sub", "limbs_neg", "limbs_add_scalar_bit",
+                                   "limbs_select", "limbs_geq_const", "limbs_mask_bits",
+                                   "limbs_rshift_round", "limbs_rshift_round_mask",
+                                   "limbs_from_digits16", "crt_lift"])
+def test_cuda_row_kernels_at_tile_edges(cuda_device, entry):
+    """K7 and the CRT lift at the edges of their designs (chip_smoke.py's
+    elementwise_edge_cases): K = 1 .. 3071 limbs around whole chunks of 32,
+    rows not a multiple of a block's, constant, broadcast (two leading rows),
+    row-strided and limb-strided operands through cuda_build.strides3, bool
+    and int64 row bits, the lift at one, two and four chunks; each launch
+    torch.equal to the plain version on the same CUDA tensors."""
+    from chip_smoke import ew_counters
+    cases = [c for c in _edge_cases(cuda_device) if c["entry"] == entry]
+    before = ew_counters()[entry]
+    for case in cases:
+        got, want = case["kern"](), case["plain"]()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), case["shape"]
+    assert ew_counters()[entry] > before
+
+
 @pytest.mark.cuda
 def test_cuda_elementwise_kernels_reject_bad_operands(cuda_device):
     from gpqhe_tpu_torch.ops import limbs, modmath, rns

@@ -24,8 +24,10 @@ by 1 + 2^-22).  Both chains' primes (59-bit and logp=29).
 import ast
 import dataclasses
 import functools
+import importlib
 import inspect
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -45,6 +47,9 @@ from gpqhe_tpu_torch.ops import limbs as tl
 from gpqhe_tpu_torch.ops import modmath as tm
 from gpqhe_tpu_torch.ops import rns as tr
 from gpqhe_tpu_torch.ops.modmath import torch_to_u64, u64_to_torch
+
+import torch_rowwarp_model as rt
+from chip_smoke import EDGE_K, EDGE_ROWS, elementwise_edge_cases
 
 torch.set_num_threads(1)
 
@@ -463,6 +468,8 @@ def test_lift_model(path, logp):
                    torch_to_u64(tplan.MminusP_limbs), tplan.ks)
     plain = _u(tr.plain_lift(sd, af, tplan, center, k_out))
     assert np.array_equal(model, plain)
+    launched, lp = rt.run_lift(sd, af, tplan, center, k_out)   # rns.cu as launched
+    assert lp["chunks"] == 1 and np.array_equal(model, launched)
     kw = dict(center=center, k_out=k_out or (tplan.ks if path == "nonneg" else None),
               bound_bits=bound if k_out else None)
     jax_out = _j(functools.partial(jr.reconstruct, ba=jba, plan=jplan, **kw), res)
@@ -514,37 +521,46 @@ def test_limbs_model(op, k):
     a32 = a.astype(np.uint32)
     if op == "add":
         want, got, jax_out = m_add(a, b), tl.add(_t(a), _t(b)), _j(jl.add, a32, b.astype(np.uint32))
+        args = (_t(a), _t(b))
     elif op == "sub":
         want, got, jax_out = m_sub(a, b), tl.sub(_t(a), _t(b)), _j(jl.sub, a32, b.astype(np.uint32))
+        args = (_t(a), _t(b))
     elif op == "neg":
         want, got, jax_out = m_sub(np.zeros_like(a), a), tl.neg(_t(a)), _j(jl.neg, a32)
+        args = (_t(a),)
     elif op == "add_scalar_bit":
         want = m_add(a, np.zeros_like(a), bit)
         got, jax_out = tl.add_scalar_bit(_t(a), _t(bit)), _j(jl.add_scalar_bit, a32, bit)
+        args = (_t(a), _t(bit))
     elif op == "select":
         want = np.where(bit[:, None], a, b)
         got, jax_out = tl.select(_t(bit), _t(a), _t(b)), _j(jl.select, bit, a32,
                                                            b.astype(np.uint32))
+        args = (_t(bit), _t(a), _t(b))
     elif op == "geq_const":
         c = a[5]
         want, got, jax_out = m_geq(a, c), tl.geq_const(_t(a), _t(c)), _j(jl.geq_const, a32,
                                                                          c.astype(np.uint32))
+        args = (_t(a), _t(c))
     elif op == "mask_bits":
         nbits = 32 * k - 5
         want, got = m_mask(a, nbits), tl.mask_bits(_t(a), nbits)
         jax_out = _j(jl.mask_bits, a32, nbits=nbits)
+        args = (_t(a), nbits)
     elif op == "rshift_round":
         t, k_out = (50, k + 1) if k > 2 else (5, k)
         a[8] = 0
         a[8, t // 32] = U(1 << (t % 32 - 1)) if k > 2 else U(1 << 4)   # a tie: rounds down
         want, got = m_rshift_round(a, t, k_out), tl.rshift_round(_t(a), t, k_out)
         jax_out = _j(jl.rshift_round, a.astype(np.uint32), t=t, k_out=k_out)
+        args = (_t(a), t, k_out)
     elif op == "rshift_round_mask":
         t, nbits, k_out = min(50, 32 * k - 1), max(1, 32 * k - 60), max(1, k - 1)
         want, got = m_rescale(a, t, nbits, k_out), tl.rshift_round_mask(_t(a), t, nbits, k_out)
         jax_out = np.zeros_like(want)
         q = _j(jl.mask_bits, _j(jl.rshift_round, a32, t=t), nbits=nbits)
         jax_out[:, :min(k_out, q.shape[-1])] = q[:, :k_out]
+        args = (_t(a), t, nbits, k_out)
     else:
         d = rng.integers(0, 1 << 48, (N, 2 * k + 3), dtype=U)
         d[0] = 0xFFFF                 # every digit propagates ...
@@ -554,8 +570,146 @@ def test_limbs_model(op, k):
         got = tl.from_digits16(torch.from_numpy(d.astype(np.float64)), k)   # the matmul's f64
         assert torch.equal(got, tl.from_digits16(_t(d), k))
         jax_out = _j(jl.from_digits16, d, k_out=k)
+        args = (torch.from_numpy(d.astype(np.float64)), k)
     assert np.array_equal(want, _u(got))
     assert np.array_equal(want, jax_out.astype(want.dtype))
+    # the kernel's work split (limbs.cu as launched, in numpy) on the same inputs
+    assert np.array_equal(want, _u(_row_kernel(op, *args)[0]))
+
+
+# ---------------------------------------------------------------------------
+# K7 and the lift as launched: the row kernels' work split (rowwarp.cuh)
+# ---------------------------------------------------------------------------
+
+# ops/limbs.py's CUDA branch of each entry, up to its launch
+_CUDA_BRANCH = {
+    "add": lambda a, b: limbs_cuda.binary("add", a, b),
+    "sub": lambda a, b: limbs_cuda.binary("sub", a, b),
+    "neg": lambda a: limbs_cuda.launch("neg", tuple(a.shape), a.shape[-1], a),
+    "add_scalar_bit": lambda a, bit: limbs_cuda.launch("add_scalar_bit", tuple(a.shape),
+                                                       a.shape[-1], a, bit=bit),
+    "select": lambda m, a, b: limbs_cuda.select(m, a, b),
+    "geq_const": lambda a, c: limbs_cuda.geq_const(a, c),
+    "mask_bits": lambda a, nbits: (a if nbits // 32 >= a.shape[-1] else limbs_cuda.launch(
+        "mask_bits", tuple(a.shape), a.shape[-1], a, nbits=nbits)),
+    "rshift_round": lambda a, t, k_out: limbs_cuda.launch(
+        "rshift_round", tuple(a.shape[:-1]) + (k_out,), a.shape[-1], a, k_out=k_out, t=t),
+    "rshift_round_mask": lambda a, t, nbits, k_out: limbs_cuda.launch(
+        "rshift_round_mask", tuple(a.shape[:-1]) + (k_out,), a.shape[-1], a, k_out=k_out, t=t,
+        nbits=nbits),
+    "from_digits16": lambda d, k_out: limbs_cuda.launch(
+        "from_digits16", tuple(d.shape[:-1]) + (k_out,), d.shape[-1], d, k_out=k_out, digits=True),
+}
+
+
+def _row_kernel(op, *args):
+    """(output, how it ran) of one launch of K7's `op`, the lift for "_lift",
+    on CPU tensors: the wrapper's argument handling, then the numpy model of
+    the kernel in place of the library.  How it ran: "word" (the word
+    kernel), "warp" (a warp per row group, one chunk) or "chunks" (a row of
+    more than 32 limbs, the warp 32 limbs at a time)."""
+    def how(plan):
+        return plan["design"] if plan["design"] == "word" or plan["chunks"] == 1 else "chunks"
+    if op == "_lift":
+        out, plan = rt.run_lift(*args)
+        return u64_to_torch(out), how(plan)
+    seen = []
+
+    def launch(name, out_shape, k, a, b=None, bit=None, k_out=0, t=0, nbits=0, digits=False):
+        out, plan = rt.run_limbs(name, out_shape, k, a, b, bit, k_out, t, nbits)
+        seen.append(how(plan))
+        return torch.from_numpy(out) if out.dtype == bool else u64_to_torch(out)
+    real = limbs_cuda.launch
+    limbs_cuda.launch = launch
+    try:
+        out = _CUDA_BRANCH[op](*args)
+    finally:
+        limbs_cuda.launch = real
+    return out, seen[0] if seen else None
+
+
+def _defines(path):
+    return {m[0]: int(m[1]) for m in
+            re.findall(r"^#define (\w+) (\d+)", open(path).read(), flags=re.M)}
+
+
+def test_row_kernel_constants_mirror_the_source():
+    """The numpy model holds the constants of rowwarp.cuh, which both
+    kernels' sources include, and of the lift's rns.cu; the lift's chunks
+    hold rns_cuda.MAX_LIMBS limbs."""
+    cuh = os.path.join(cuda_build.CSRC, "rowwarp.cuh")
+    d = _defines(cuh)
+    assert (d["ROWWARP_THREADS"], d["WARP_GROUPS"]) == (rt.ROWWARP_THREADS, rt.WARP_GROUPS)
+    assert _defines(rns_cuda.SOURCE)["MAX_CHUNKS"] == rt.MAX_CHUNKS
+    assert 32 * rt.MAX_CHUNKS == rns_cuda.MAX_LIMBS
+    for m in (limbs_cuda, rns_cuda):
+        assert open(cuh, "rb").read() in cuda_build._with_includes(m.SOURCE)
+
+
+def _lanes_cover(L):
+    """Every limb of a row in exactly one (chunk, lane) of its group, and a
+    spare lane after each group of a row below 32 limbs."""
+    W = rt.lanes_a_group(L)
+    G = 32 // W
+    assert G >= 1 and G * W <= 32 and (L >= 32 or W == L + 1)
+    limbs = sorted(c0 + i for c0 in range(0, L, 32) for i in range(W) if c0 + i < L)
+    assert limbs == list(range(L))
+
+
+@pytest.mark.parametrize("k", EDGE_K)
+def test_row_plans(k):
+    """Each chain's launch at K limbs (and K + 1, K - 1 limbs out): a warp per
+    row group, W = L + 1 lanes a group below 32 limbs (one spare), the whole
+    warp over ceil(L / 32) chunks from 32; EDGE_ROWS rows, the edge cases'
+    count, make two full blocks and a partial one at every K."""
+    for op in LIMB_OPS:
+        if op in ("mask_bits", "select"):
+            continue
+        for k_out in (k, k + 1, max(1, k - 1)):
+            L = rt.chain_limbs(op, k, k_out)
+            assert L == (k_out if op == "from_digits16" or k_out > k else k)
+            _lanes_cover(L)
+            per_block = rt.rows_a_block(L)
+            assert EDGE_ROWS > 2 * per_block and EDGE_ROWS % per_block
+            assert per_block == 4 * rt.WARP_GROUPS * (32 // rt.lanes_a_group(L))
+
+
+def test_lift_plans():
+    """The lift at 1-128 limbs: NCH chunks of 32 limbs (1, 2 or 4) that hold
+    the row, WARP_GROUPS / NCH rows a lane (a lane holds 8 digit sums);
+    EDGE_ROWS rows make two full blocks and a partial one at every width."""
+    for k in range(1, rns_cuda.MAX_LIMBS + 1):
+        nch = rt.lift_chunks(k)
+        assert nch in (1, 2, 4) and k <= 32 * nch and (nch == 1 or k > 16 * nch)
+        assert rt.lift_rows_a_lane(nch) * nch == rt.WARP_GROUPS     # 8 digit sums a lane
+        _lanes_cover(k)
+        per_block = rt.rows_a_block(k, rt.lift_rows_a_lane(nch))
+        assert EDGE_ROWS > 2 * per_block and EDGE_ROWS % per_block
+
+
+@functools.lru_cache(maxsize=1)
+def _edge_cases():
+    return elementwise_edge_cases(torch.device("cpu"))
+
+
+@pytest.mark.parametrize("entry", [f"limbs_{op}" for op in LIMB_OPS] + ["crt_lift"])
+def test_row_kernels_at_tile_edges(entry):
+    """chip_smoke.py's edge cases (the card runs the same ones) through the
+    numpy model of each launch, against the plain torch version: every K of
+    EDGE_K on two full blocks and a partial one, edge rows (a carry and a
+    borrow through every limb, equal rows, rows equal but for the top limb),
+    constant, broadcast, row-strided and limb-strided operands with two
+    leading rows, bool and int64 row bits, the 16-byte pair path and the
+    word path of mask_bits and select, the lift at one, two and four chunks
+    on f64 and int64 digit sums and estimates past both clamps."""
+    cases = [c for c in _edge_cases() if c["entry"] == entry]
+    designs = set()
+    for case in cases:
+        got, design = _row_kernel(case["op"], *case["args"])
+        designs.add(design)
+        assert torch.equal(got, case["plain"]()), case["shape"]
+    want = {"limbs_mask_bits": {"word"}, "limbs_select": {"word"}}.get(entry, {"warp", "chunks"})
+    assert designs == want
 
 
 # ---------------------------------------------------------------------------
@@ -665,6 +819,12 @@ def _bad_calls():
         "limbs shape": (lambda: limbs_cuda.binary("add", limbs, limbs[:, :5]), "broadcast"),
         "limbs row operand": (lambda: limbs_cuda.select(torch.zeros(16, dtype=torch.float32),
                                                         limbs, limbs), "row operand"),
+        "limbs row width": (lambda: rns_cuda.lift(
+            torch.zeros((16, 4), dtype=torch.float64), torch.zeros(16, dtype=torch.float64),
+            plan, True, rns_cuda.MAX_LIMBS + 1), "at most 128 limbs"),
+        "limbs rows": (lambda: limbs_cuda.binary(
+            "add", torch.zeros((1 << 16, 1, 2), dtype=i64), torch.zeros((1 << 15, 2), dtype=i64)),
+            "2\\^31"),
     }
 
 
@@ -781,7 +941,7 @@ def launch_model(fn, plain: bool = False):
     # names bound by `from ... import` in the programs
     for modname in ("gpqhe_tpu_torch.scheme.engine", "gpqhe_tpu_torch.ring.poly",
                     "gpqhe_tpu_torch.parallel.mesh"):
-        mod = sys.modules[modname]
+        mod = importlib.import_module(modname)
         for name in DISPATCHED[tm]:
             if hasattr(mod, name):
                 patches.append((mod, name, counted(getattr(tm, name), "modmath", 1)))
