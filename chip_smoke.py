@@ -10,8 +10,9 @@ non-zero:
              (sm_90a), one process each, started together, and load them;
              the card's name and power limit from nvidia-smi; per kernel
              instantiation ptxas's registers, spills, stack and shared
-             memory where this run built the source; for every K7 and lift
-             instantiation in the libraries as loaded (`row_kernels`),
+             memory where this run built the source; for every K7, lift,
+             decompose and digit-split instantiation in the libraries as
+             loaded (`row_kernels`),
              cuobjdump's registers, stack, shared and local memory, and a
              raise on any stack frame or local memory; static
              multiply-instruction counts from cuobjdump.
@@ -29,13 +30,16 @@ non-zero:
              bounds), the first shape of each timed as the NTT is, and for
              select and mask_bits one PyTorch call of the same function
              timed the same way and the ratio (`ms_over_library`); K7 and
-             the lift timed at logn=15 too, on `kernels15` lines; the rows
-             wider than a warp timed at both (`wide`: the exact lift at the
-             key switch's basis, geq_const at 62 and 125 limbs); then K7
-             and the lift at the edges of their designs
-             (elementwise_edge_cases: 1-3071 limbs, whole chunks of 32 limbs
-             and one more, partial blocks, constant, broadcast and strided
-             operands), each torch.equal to its plain version.
+             the lift timed at logn=15 too, on `kernels15` lines, and
+             decompose and the digit split at the bootstrap's shapes there
+             (retimed15); the rows wider than a warp timed at both (`wide`:
+             the exact lift at the key switch's basis, geq_const at 62 and
+             125 limbs); then K7, the lift, decompose and the digit split at
+             the edges of their designs (elementwise_edge_cases: 1-3071
+             limbs, whole chunks of 32 limbs and one more, partial blocks,
+             tiles of primes, every src_bits edge, the three prime widths,
+             constant, broadcast, strided and misaligned operands), each
+             torch.equal to its plain version.
   golden   — the logn=11 replay of tests/golden/golden_logn11.json (enc,
              add, mul+rs, conj, rot1, moddown) within tests/test_golden.py's
              tolerances.
@@ -46,7 +50,8 @@ non-zero:
              and bootstrap); keygen seconds and the mul_rs median; with it a
              `profile` line: one mul_rs under torch.profiler, its device
              kernels, busy ms and idle share, split by module (ntt, modmath,
-             rns, limbs, other torch).
+             rns by entry: decompose, digit_split, lift; limbs, matmul (the
+             digit matmuls), other torch).
   linalg59, linalg29 — the key-switch and hoisted-gemv path at the same size
              on each chain, the engine built with no device argument:
              keypair, genrlk, genck, genrk (16 keys), enc_pk, mul_rs, rot,
@@ -155,7 +160,9 @@ entries: the six of the logn=14 path, the u32 kernel's three on the logp=9
 chain, the u64 kernel's three at the bootstrap's logn=15 shapes, and forward
 and inverse on per-shard plans for the u64 kernel, the u32 kernel and the u64
 kernel on the logn=15 mesh; then each elementwise entry that the gated paths
-launched, with its launches summed over them), and last {"ok": true,
+launched, with its launches summed over them and split by the ring's logn,
+`launches_by_logn`: 14 for mul_rs, linalg and mesh, 15 for the bootstrap),
+and last {"ok": true,
 "device": {...}}.  --phases a,b,c runs a subset (the last line
 then says "partial"); --iters N sets the timed runs per median.
 
@@ -374,8 +381,8 @@ def phase_build():
 # instantiations of the row kernels by source: K7's eight chains on rows of
 # one chunk and of more, and its word kernel by word and by pair for
 # mask_bits and select; the lift on f64 and int64 digit sums at 1, 2 and 4
-# chunks
-ROW_KERNELS = {"limbs.cu": 20, "rns.cu": 6}
+# chunks, decompose and the digit split
+ROW_KERNELS = {"limbs.cu": 20, "rns.cu": 8}
 
 
 def resource_usage(library: str) -> dict:
@@ -403,15 +410,15 @@ def resource_usage(library: str) -> dict:
 
 def row_kernel_resources(rns_cuda, limbs_cuda) -> dict:
     """The resource usage (resource_usage) of every instantiation of K7 (all
-    of limbs.cu's kernels) and of the CRT lift (rns.cu's rns_lift kernels)
-    in the libraries as loaded, built in this run or earlier.  Raises unless
-    each source has exactly ROW_KERNELS of them."""
+    of limbs.cu's kernels) and of rns.cu's (the CRT lift, decompose, the
+    digit split) in the libraries as loaded, built in this run or earlier.
+    Raises unless each source has exactly ROW_KERNELS of them."""
     from gpqhe_tpu_torch.ops import cuda_build
     out, seen = {}, {}
     for m in (limbs_cuda, rns_cuda):
         src = os.path.basename(m.SOURCE)
         for fn, v in resource_usage(cuda_build.library_path(m.SOURCE)).items():
-            if src == "limbs.cu" or "rns_lift" in fn:
+            if src == "limbs.cu" or "rns_" in fn:
                 out[fn] = v
                 seen[src] = seen.get(src, 0) + 1
     if seen != ROW_KERNELS:
@@ -632,6 +639,17 @@ EW_BATCH = 8       # mul_rs_batch's B
 EW_N1 = 4          # baby steps of a hoisted gemv step at slots=16
 
 
+def decompose_imad(out_words: int, k: int, pmax: int) -> int:
+    """32-bit multiplies of rns.cu's decompose: per output word, for each
+    limb the low and high 32-bit products of the limb and each 32-bit half
+    of its constant (two halves for primes past 32 bits, else one), and one
+    Montgomery reduction (u = lo * pinv, 3, and the high product of u * p,
+    4).  (The earlier design did (k + 1) // 2 Montgomery products of
+    IMAD_MONT: the case's imad_mont.)"""
+    halves = 2 if pmax >> 32 else 1
+    return out_words * (2 * halves * k + 7)
+
+
 def ew_counters() -> dict:
     """{entry: its launch count} over the three elementwise libraries."""
     from gpqhe_tpu_torch.ops import limbs_cuda, modmath_cuda, rns_cuda
@@ -820,8 +838,8 @@ def elementwise_cases(logn: int, logp: int, device, seed: int = 8) -> dict:
         out_words = a.numel() // klv * dim
         add("decompose", a.shape,
             lambda a=a, ba=ba, wts=wts, src=src: rns.decompose(a, ba, wts, src_bits=src), plain,
-            [a, wts], out_words, IMAD_MONT * out_words * ((klv + 1) // 2),
-            signed_bits=src, dim=dim)
+            [a, wts], out_words, decompose_imad(out_words, klv, max(ring.pctx.primes[:dim])),
+            imad_mont=IMAD_MONT * out_words * ((klv + 1) // 2), signed_bits=src, dim=dim)
 
     # K6 the CRT lift: digit_split and lift on their own inputs, and the
     # whole reconstruct (split, matmul, lift) on values that meet its bounds
@@ -1052,6 +1070,132 @@ def elementwise_edge_cases(device, seed: int = 9) -> list:
         sr = torch.from_numpy(rng.integers(0, 1 << 48, size=(R, kd)).astype(np.float64)).to(device)
         for s_, a_ in ((sd, af), (sd.to(torch.int64), af), (sr, noisy)):
             add("_lift", [logp, dim, k_out, R, kd, str(s_.dtype)], s_, a_, plan, center, k_out)
+    return cases + rns_edge_cases(device, rings)
+
+
+# decompose at the edges of its design: (logp, dim, K, src_bits, layout): dims
+# around its tiles of 16 primes (1-47), K = 1 (the c1 of a one-weight row),
+# 2, odd K, 64 and 65 and 125 (one and two staged chunks of 64 limbs), 300
+# (a reduction after 256 limbs and a second group), src_bits at 1, 32 K - 5
+# and 32 K; on the three widths of prime (one, two and three 24-bit chunks a
+# constant); S = 0, three slabs, a row broadcast over two slabs, rows 2K + 3
+# words apart and limbs two words apart (copied by the wrapper)
+DECOMPOSE_EDGES = (
+    (59, 16, 14, None, "lead"), (59, 17, 13, None, "plain"), (59, 47, 28, 32 * 28, "plain"),
+    (59, 31, 28, 32 * 28 - 5, "row_strided"), (59, 8, 1, None, "plain"), (59, 8, 1, 1, "plain"),
+    (59, 33, 2, 59, "broadcast"), (59, 16, 125, None, "plain"),
+    (59, 16, 125, 32 * 125 - 5, "limb_strided"), (59, 5, 64, 32 * 64, "plain"),
+    (59, 5, 65, 1, "plain"), (59, 3, 300, None, "plain"), (59, 3, 300, 32 * 300, "plain"),
+    (59, 16, 14, None, "S0"), (29, 31, 14, None, "plain"), (29, 47, 28, 32 * 28 - 5, "lead"),
+    (29, 16, 1, 1, "plain"), (29, 20, 125, 32 * 125, "broadcast"), (9, 6, 3, None, "plain"),
+    (9, 6, 14, 32 * 14, "lead"), (9, 5, 1, 1, "plain"), (9, 6, 125, 32 * 125 - 5, "plain"),
+    (9, 6, 300, None, "row_strided"))
+# the digit split at the edges of its design: (logp, dim, n, lead, scaled,
+# layout): n a multiple of the block's 64 coefficients, even but not (the
+# 16-byte pairs, a partial block) and odd (word stores), dims around its 8
+# warps of primes (1-47), nd = 4, 2 and 1 digits (the three chains); S = 0,
+# residues broadcast over two slabs, a prime slice of a wider stack, every
+# other coefficient (word loads), a view one word off 16-byte alignment, a
+# strided inv_p, and a mesh shard's plan whose rows past the basis have
+# inv_p = 0 (make_recon_plan(rows=...))
+SPLIT_EDGES = (
+    (59, 16, 1024, (), False, "plain"), (59, 16, 518, (), True, "plain"),
+    (59, 17, 519, (), True, "plain"), (59, 47, 1024, (3,), True, "plain"),
+    (59, 1, 519, (), False, "plain"), (59, 9, 64, (2,), True, "plain"),
+    (59, 16, 518, (), False, "S0"), (59, 24, 518, (), True, "broadcast"),
+    (59, 16, 1024, (), True, "prime_slice"), (59, 17, 518, (), False, "coef_strided"),
+    (59, 16, 518, (2,), True, "unaligned"), (59, 8, 1024, (), False, "inv_p_strided"),
+    (59, 8, 518, (), False, "shard"), (29, 31, 518, (), True, "plain"),
+    (29, 47, 519, (2,), False, "plain"), (29, 16, 1024, (), True, "unaligned"),
+    (9, 6, 16, (), True, "plain"), (9, 5, 519, (), False, "plain"),
+    (9, 6, 518, (3,), True, "broadcast"))
+
+
+def rns_edge_cases(device, rings: dict, seed: int = 10) -> list:
+    """decompose and the digit split at the edges of their designs
+    (DECOMPOSE_EDGES, SPLIT_EDGES), each a dict with entry, shape, op and
+    args (ops/rns_cuda.py's entry and its arguments), kern (the dispatcher)
+    and plain (the plain version on the same tensors).  decompose's rows:
+    EDGE_ROWS (a partial block of 64), the first all 0xFFFFFFFF, all 0 and
+    0xFFFFFFFF below a zero top limb, then the sign bit alone, all bits
+    below it, and p - 1, p, p + 1 of the first prime (where K holds them)."""
+    import numpy as np
+    import torch
+    from gpqhe_tpu_torch.context import PolyContext
+    from gpqhe_tpu_torch.ops import rns
+    from gpqhe_tpu_torch.substrate import bigint
+
+    rng = np.random.default_rng(seed)
+    rings = dict(rings)
+    rings[9] = PolyContext(4, **CRT_CHAIN)
+    cases = []
+
+    def case(entry, shape, op, args, kern, plain):
+        cases.append(dict(entry=entry, shape=list(shape), op=op, args=args, kern=kern,
+                          plain=plain))
+
+    rows = EDGE_ROWS
+    for logp, dim, k, src, layout in DECOMPOSE_EDGES:
+        ring = rings[logp]
+        x = rng.integers(0, 1 << 32, size=(rows, k), dtype=np.int64)
+        x[0], x[1], x[2] = 0xFFFFFFFF, 0, 0xFFFFFFFF
+        x[2, -1] = 0
+        top = (src or 32 * k) - 1
+        p0 = ring.primes[0]
+        for r, v in enumerate((1 << top, (1 << top) - 1, p0 - 1, p0, p0 + 1), start=3):
+            if v < 1 << (32 * k):
+                x[r] = bigint.int_to_limbs(v, k).astype(np.int64)
+        a = torch.from_numpy(x).to(device)
+        if layout == "lead":
+            a = torch.stack([a, a.flip(0), a.flip(1)])
+        elif layout == "S0":
+            a = a[None][:0]
+        elif layout == "broadcast":
+            a = a[None].expand(2, rows, k)
+        elif layout == "row_strided":
+            a = torch.cat([a, a[:, :k + 3]], dim=1)[:, :k]
+        elif layout == "limb_strided":
+            a = torch.stack([a, a], dim=-1).reshape(rows, 2 * k)[:, ::2]
+        ba = rns.make_basis_arrays(ring, dim, device)
+        w = torch.from_numpy(rns.make_decomp_weights(ring, dim, k).view(np.int64)).to(device)
+        args = (a, ba.ps, ba.pinv, w, src)
+        plain = ((lambda a=a, ba=ba, w=w: rns.plain_decompose_core(a, ba.ps, ba.pinv, w))
+                 if src is None else
+                 (lambda a=a, ba=ba, w=w, src=src:
+                  rns.plain_decompose_signed(a, ba.ps, ba.pinv, w, src)))
+        case("decompose", [logp, dim, src, layout] + list(a.shape), "decompose", args,
+             lambda args=args: rns.decompose_core(*args), plain)
+
+    for logp, dim, n, lead, scaled, layout in SPLIT_EDGES:
+        ring = rings[logp]
+        rows_ = dim + 3 if layout == "prime_slice" else dim
+        plan = rns.make_recon_plan(ring, dim, device)
+        ba = rns.make_basis_arrays(ring, rows_, device)
+        wide = {"coef_strided": 2 * n, "unaligned": n + 1}.get(layout, n)
+        y = ew_residues(rng, ring.primes[:rows_], lead + (rows_, wide), device)
+        if layout == "prime_slice":
+            y = y[..., :dim, :]
+        elif layout == "coef_strided":
+            y = y[..., ::2]
+        elif layout == "unaligned":
+            y = y[..., 1:]
+        elif layout == "broadcast":
+            y = y[None].expand((2,) + y.shape)
+        elif layout == "S0":
+            y = y[None][:0]
+        inv_p = plan.inv_p
+        if layout == "inv_p_strided":
+            inv_p = torch.stack([inv_p, inv_p + 1], dim=-1)[:, 0]
+        elif layout == "shard":
+            # rows 4 .. dim + 3 of the basis: the last 4 past it
+            plan = rns.make_recon_plan(ring, dim, device, rows=(4, dim + 4))
+            inv_p = plan.inv_p
+            y = ew_residues(rng, ring.primes[4:dim + 4], (dim, n), device)
+        scale = (ba.phatinv_mont[:dim], ba.ps[:dim], ba.pinv[:dim]) if scaled else None
+        args = (y, plan.nd, inv_p, scale)
+        case("crt_digit_split", [logp, plan.nd, scaled, layout] + list(y.shape), "digit_split",
+             args, lambda args=args: rns.digit_split(*args),
+             lambda args=args: rns.plain_digit_split(*args))
     return cases
 
 
@@ -1075,6 +1219,8 @@ def ew_compare(got, want) -> tuple[bool, float, dict]:
     if isinstance(got, tuple):
         Y, af = got
         pY, paf = want
+        if not af.numel():             # no coefficients (S = 0)
+            return bool(torch.equal(Y, pY) and torch.equal(af, paf)), 0.0, {"af_max_rel": 0.0}
         rel = float(((af - paf).abs() / paf.abs().clamp_min(1e-300)).max().item())
         eq = bool(torch.equal(Y, pY)) and rel <= 2.0 ** -45
         return eq, float((Y - pY).abs().max().item()), {"af_max_rel": rel}
@@ -1088,14 +1234,26 @@ def ew_compare(got, want) -> tuple[bool, float, dict]:
 def ew_bound(case) -> dict:
     t_bytes = case["bytes"] / PEAK_BYTES_S * 1e3
     t_ops = case["imad"] / PEAK_IMAD_S * 1e3
-    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes_ms": t_bytes, "operations_ms": t_ops}
+    out = {"bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes_ms": t_bytes, "operations_ms": t_ops}
+    if "imad_mont" in case:
+        out["mont_operations_ms"] = case["imad_mont"] / PEAK_IMAD_S * 1e3
+    return out
 
 
-def retimed15(entry: str) -> bool:
-    """The entries timed at logn=15 too (`kernels15` lines): K7 and the lift,
-    whose rows are 28 limbs wide there."""
-    return entry.startswith("limbs_") or entry == "crt_lift"
+def retimed15(entry: str) -> tuple:
+    """The cases (indices into elementwise_cases' list of the entry) timed
+    at logn=15 too (`kernels15` lines): K7 and the lift, whose rows are 28
+    limbs wide there, at their main shape; decompose into the product's
+    and the key switch's bases ([2^15, 28] -> 31 and 47 primes); the digit
+    split of the product's three polys and of the key switch's exact
+    reconstruct ([3, 31, 2^15], scaled [47, 2^15])."""
+    if entry == "decompose":
+        return (0, 1)
+    if entry == "crt_digit_split":
+        return (1, 2)
+    return (0,) if entry.startswith("limbs_") or entry == "crt_lift" else ()
 
 
 def phase_elementwise(iters: int, rings=((14, 59), (14, 29), (15, 59)), tag: str = "kernels",
@@ -1125,7 +1283,7 @@ def phase_elementwise(iters: int, rings=((14, 59), (14, 29), (15, 59)), tag: str
         for entry, cases in elementwise_cases(logn, logp, dev).items():
             for i, case in enumerate(cases):
                 main = (logn, logp) == timed_ring and i == 0
-                main15 = (logn, logp) == ring15 and i == 0 and retimed15(entry)
+                main15 = (logn, logp) == ring15 and i in retimed15(entry)
                 at_wide = case.get("wide") and (logn, logp) in (timed_ring, ring15)
                 phase = "kernels15" if main15 or (at_wide and (logn, logp) == ring15) else tag
                 out = {"phase": phase, "ring": [logn, logp]}
@@ -1151,8 +1309,11 @@ def phase_elementwise(iters: int, rings=((14, 59), (14, 29), (15, 59)), tag: str
                     keep["shape"] = case["shape"]
                     if at_wide:
                         wide[phase][f"{entry} {case['shape']}"] = keep
+                    elif main:
+                        result[entry] = keep
                     else:
-                        (result if main else at15)[entry] = keep
+                        at15[entry if i == retimed15(entry)[0] else
+                             f"{entry} {case['shape']}"] = keep
                 emit(out)
                 if not eq:
                     raise AssertionError(f"CUDA {entry} {case['shape']} at logn={logn} "
@@ -1271,15 +1432,21 @@ def profile_op(op: str, fn, host_ops: bool = True, warm: bool = True, **tags) ->
 
 def kernel_module(name: str) -> str:
     """The module whose kernel a device kernel's name is: ntt (csrc/ntt*.cu),
-    modmath, rns or limbs (the elementwise kernels, named by their prefix),
-    else "other torch" (torch's own kernels: matmuls, copies, the plain
-    chains)."""
+    modmath, "rns <entry>" (decompose, digit_split or lift) or limbs (the
+    elementwise kernels, named by their prefix), "matmul" (torch's matrix
+    products: the f64 digit matmuls of the reconstructs), else "other torch"
+    (torch's other kernels: copies, stacks, the plain chains)."""
     import re
     if re.search(r"(?<![A-Za-z_])ntt_(col|row)_pass", name):
         return "ntt"
-    m = re.search(r"(?<![A-Za-z_])(mm|rns|limbs)_[a-z_]*kernel", name)
+    m = re.search(r"(?<![A-Za-z_])rns_(decompose|digit_split|lift)_kernel", name)
     if m:
-        return {"mm": "modmath", "rns": "rns", "limbs": "limbs"}[m.group(1)]
+        return f"rns {m.group(1)}"
+    m = re.search(r"(?<![A-Za-z_])(mm|limbs)_[a-z_]*kernel", name)
+    if m:
+        return {"mm": "modmath", "limbs": "limbs"}[m.group(1)]
+    if re.search(r"gemm|gemv|matmul", name, flags=re.I):
+        return "matmul"
     return "other torch"
 
 
@@ -2656,10 +2823,13 @@ def main(argv=None) -> int:
 
     kernels, launches = {}, {}
     ew_launches = {}            # the elementwise entries' launches over the gated paths
+    ew_by_logn = {}             # the same by the ring's logn: the shape class of a launch
 
-    def add_ew(counts: dict) -> None:
+    def add_ew(counts: dict, logn: int = 14) -> None:
         for k, v in counts.items():
             ew_launches[k] = ew_launches.get(k, 0) + v
+            by = ew_by_logn.setdefault(k, {})
+            by[str(logn)] = by.get(str(logn), 0) + v
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
@@ -2710,7 +2880,7 @@ def main(argv=None) -> int:
         clock("cmp")
     if "bootstrap" in phases:
         boot = phase_bootstrap(args.iters)
-        add_ew(boot["elementwise"])
+        add_ew(boot["elementwise"], logn=15)
         kernels.update(boot["kernels"])
         launches.update({f"ntt15_{k}": v for k, v in boot["launches"].items()})
         if "serialize" in phases:
@@ -2730,7 +2900,8 @@ def main(argv=None) -> int:
     print(gpu_line(), flush=True)
     launches.update(ew_launches)
     if set(phases) != set(PHASES):
-        emit({"ok": True, "partial": phases, "kernels": kernels, "launches": launches})
+        emit({"ok": True, "partial": phases, "kernels": kernels, "launches": launches,
+              "launches_by_logn": ew_by_logn})
         return 0
     # an elementwise entry that no gated path launched (to_mont, summod: the
     # port's programs call neither) has its numbers on the kernels lines
@@ -2739,7 +2910,8 @@ def main(argv=None) -> int:
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": table[name.split("_")[0]]["source"],
          "replaces": EW_REPLACES.get(name, table[name.split("_")[0]]["replaces"]),
-         "launches": launches[name], "library_ms": None, **v}
+         "launches": launches[name], "library_ms": None, **v,
+         **({"launches_by_logn": ew_by_logn[name]} if name in ew_by_logn else {})}
         for name, v in kernels.items()
         if name.split("_")[0] not in EW_KERNELS or launches.get(name, 0) > 0]})
     emit({"ok": True, "device": {"platform": "gpu",

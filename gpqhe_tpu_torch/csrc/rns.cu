@@ -19,17 +19,25 @@
 //
 // What bounds them on the H100: bytes for digit_split and lift (a word in,
 // four f64 digits out; a row of f64 digit sums in, u32 limbs out, in int64);
-// decompose does J = K/2 Montgomery products per output word, 14 IMAD each:
-// at 14 limbs and 16 primes the operations (1.5 us) and the bytes (1.2 us)
-// come out close.  The designs: decompose and digit_split take one thread per
-// coefficient, which walks the limbs (decompose, 2 primes a thread: a
-// [2^14, 14] -> 16-prime call is 1,024 blocks of 128 threads and took 9.8 us
-// on an H100, against 13.2 us at 8 primes a thread in 256 blocks; PERF.md)
-// or the primes (digit_split, whose digit rows a warp stores 32 coefficients
-// at a time: 7.1 us, against 20.6 us when each thread stored its own row)
-// with the running sum in a register.  The lift reads and writes
-// neighbouring words across a warp (rowwarp.cuh): a warp per row group,
-// lane i of a group limb i, which reads digit sums 2i and 2i + 1, brings
+// multiplies for decompose: per output word and limb the 32 x 64-bit product
+// of the limb and its constant, 2 IMAD and 2 IMAD.HI where the primes pass
+// 32 bits.  The designs.  decompose: a block stages a tile of 64 rows'
+// limbs in shared memory once, read coalesced, a signed row's limbs masked
+// as they land; its 8 warps take 2 primes each of a tile of 16 and a lane 2
+// rows, each output the sum over the limbs of limb_i c_i, c_i = 2^(32 i) R
+// mod p made in the block from the weights, in four 32-bit words by a PTX
+// carry chain, and one Montgomery reduction (the earlier design did K/2
+// Montgomery products and modular adds an output, each thread re-reading
+// its row from L2 for every 2 primes; PERF.md has both and the designs
+// tried between, on the tensor cores among them).  digit_split: a block
+// takes 64 coefficients, warp w the primes w, w + 8, ..., a lane a
+// neighbouring pair, so that a warp stores 64 words of a digit row as 16-byte
+// pairs; the estimate af is summed by each thread over its primes, then by
+// warp 0 over the warps, in a fixed order (the earlier design: one thread a
+// coefficient walking every prime, 128 blocks at 2^14 coefficients).  The
+// lift reads and writes neighbouring words across a warp (rowwarp.cuh): a
+// warp per row group, lane i of a group limb i, which reads digit sums 2i
+// and 2i + 1, brings
 // their carries to 0/1 by two shuffles and takes the rest, the compares and
 // the +-P corrections from ballots; a row of more than 32 limbs (the exact
 // path on bases of 17 primes and more: the key switch's 46 limbs at logn=14,
@@ -45,82 +53,325 @@
 #include "mont.cuh"
 #include "rowwarp.cuh"
 
-#define PRIMES_PER_THREAD 2
+typedef unsigned int u32;
+
 #define MAX_CHUNKS 4      // the lift's chunks of 32 limbs a row: at most 128 limbs
 
-// limbs (u32 values in int64) [S, n, K] with strides (ss, sn, 1) -> residues
-// [S, dim, n].  src_bits > 0: the input is two's complement of that width;
-// a negative value decomposes as p - (|value| mod p) (0 stays 0).
-__global__ void rns_decompose_kernel(u64 *out, i64 S, i64 n, int K, i64 ss, i64 sn, int dim, int J,
-                                     const u64 *a, const u64 *w, PerPrime P, PerPrime V,
-                                     int src_bits) {
-    const i64 k = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-    if (k >= n) return;
-    const int d0 = blockIdx.y * PRIMES_PER_THREAD;
-    const int nd = dim - d0 < PRIMES_PER_THREAD ? dim - d0 : PRIMES_PER_THREAD;
-    u64 p[PRIMES_PER_THREAD], pinv[PRIMES_PER_THREAD];
-#pragma unroll
-    for (int e = 0; e < PRIMES_PER_THREAD; ++e) {
-        p[e] = e < nd ? P.at(d0 + e) : 1;
-        pinv[e] = e < nd ? V.at(d0 + e) : 1;
+// decompose: a block takes DEC_ROWS coefficients (two a lane, 32 apart) of
+// one slab against a tile of at most DEC_PRIMES primes (grid.y walks the
+// tiles), warp w the primes w and w + DEC_WARPS of the tile
+#define DEC_WARPS 8
+#define DEC_ROWS 64
+#define DEC_PRIMES 16
+#define DEC_KC 64         // limbs of a row staged in shared memory at a time
+#define DEC_GROUP 256     // limbs summed before a reduction: a group's sum < 2^40 p
+#define DEC_BATCH 8       // staged words a thread has in flight
+#define DEC_RL (DEC_ROWS / 32)          // rows a lane
+#define DEC_PL (DEC_PRIMES / DEC_WARPS) // primes a warp
+
+// digit_split: a block takes SPLIT_COEFS coefficients (a pair a lane) of one
+// slab, warp w the primes w, w + SPLIT_WARPS, ...
+#define SPLIT_WARPS 8
+#define SPLIT_COEFS 64
+#define SPLIT_BATCH 4     // a warp's primes loaded before the first is worked
+
+// c_i = 2^(32 i) R mod p (R = 2^64) of limb i, from the weights w_j = R^(j+1)
+// mod p (row of one prime) and c1 = 2^32 R mod p: c_2j = w_j and
+// c_2j+1 = mont_mul(w_j, c1) = R^(j+1) 2^32.
+__device__ __forceinline__ u64 limb_const(const u64 *w, int i, u64 c1, u64 p, u64 pinv) {
+    const u64 wj = __ldg(w + i / 2);
+    return i & 1 ? mont_mul(wj, c1, p, pinv) : wj;
+}
+
+// c1 = 2^32 R mod p from the weights of one prime: 2^32 mod p =
+// mont_reduce(w0 2^32), times w1 = R^2; with one weight, w0 doubled 32 times.
+__device__ __forceinline__ u64 c1_of(const u64 *w, int J, u64 p, u64 pinv) {
+    const u64 w0 = __ldg(w);
+    if (J > 1) return mont_mul(mont_reduce(w0 >> 32, w0 << 32, p, pinv), __ldg(w + 1), p, pinv);
+    u64 c1 = w0;
+    for (int b = 0; b < 32; ++b) c1 = addmod(c1, c1, p);
+    return c1;
+}
+
+// a[0..3] (a 128-bit sum, 32-bit words) += x * c, c = c.y:c.x (NH = 2) or
+// c.x (NH = 1): the 32 x 64-bit product by lo and hi 32-bit multiplies
+// (IMAD, IMAD.HI) and the carries through the words (IADD3.X).
+template <int NH>
+__device__ __forceinline__ void mad_128(u32 (&a)[4], u32 x, const uint2 &c) {
+    if (NH == 1) {
+        asm("mad.lo.cc.u32 %0, %3, %4, %0;\n\t"
+            "madc.hi.cc.u32 %1, %3, %4, %1;\n\t"
+            "addc.u32 %2, %2, 0;"
+            : "+r"(a[0]), "+r"(a[1]), "+r"(a[2]) : "r"(x), "r"(c.x));
+    } else {
+        asm("mad.lo.cc.u32 %0, %4, %5, %0;\n\t"
+            "madc.hi.cc.u32 %1, %4, %5, %1;\n\t"
+            "madc.hi.cc.u32 %2, %4, %6, %2;\n\t"
+            "addc.u32 %3, %3, 0;\n\t"
+            "mad.lo.cc.u32 %1, %4, %6, %1;\n\t"
+            "addc.cc.u32 %2, %2, 0;\n\t"
+            "addc.u32 %3, %3, 0;"
+            : "+r"(a[0]), "+r"(a[1]), "+r"(a[2]), "+r"(a[3]) : "r"(x), "r"(c.x), "r"(c.y));
     }
-    const int full = src_bits / 32, rem = src_bits % 32;
-    for (i64 s = blockIdx.z; s < S; s += gridDim.z) {
-        const u64 *row = a + s * ss + k * sn;
-        bool neg = false;
-        if (src_bits > 0) neg = (__ldg(row + (src_bits - 1) / 32) >> ((src_bits - 1) % 32)) & 1;
-        u64 acc[PRIMES_PER_THREAD];
+}
+
+struct DecArgs {
+    u64 *out;
+    i64 S, n, ss, sn;
+    int K, dim, J, src_bits;
+    const u64 *a, *w;
+    PerPrime P, V;
+    FastDiv kc_full, kc_last;   // a chunk's limbs: min(K, DEC_KC), and the last chunk's
+};
+
+// Stage rows r0 .. r0 + rows - 1, limbs c0 .. c0 + kc - 1 of one slab into
+// shared memory as u32 (DEC_KC + 1 words a row: the lanes read rows 65 words
+// apart, without bank conflicts), a negative row's limbs masked to
+// src_bits.  The block's rows are neighbouring words of a row-contiguous
+// operand: thread t loads words t, t + 256, ..., DEC_BATCH loads in flight
+// before the first store.
+__device__ __forceinline__ void dec_stage(const DecArgs &g, const u64 *slab, i64 r0, int rows,
+                                          int c0, const FastDiv &kc, const bool *neg,
+                                          u32 *limbs) {
+    const int words = rows * (int)kc.d, full = g.src_bits / 32, rem = g.src_bits % 32;
+    for (int base = threadIdx.x; base < words; base += DEC_BATCH * DEC_WARPS * 32) {
+        u64 x[DEC_BATCH];
 #pragma unroll
-        for (int e = 0; e < PRIMES_PER_THREAD; ++e) acc[e] = 0;
-        u64 carry = 1;                       // the +1 of the negation ~a + 1
-        for (int j = 0; j < J; ++j) {
-            u64 half[2];
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-                const int i = 2 * j + h;
-                u64 x = i < K ? __ldg(row + i) : 0;
-                if (neg && i < K) {
-                    x = (~x & M32) + carry;
-                    carry = x >> 32;
-                    x &= M32;
-                    if (i > full || (i == full && rem == 0)) x = 0;
-                    else if (i == full) x &= (1ull << rem) - 1;
-                }
-                half[h] = x;
+        for (int u = 0; u < DEC_BATCH; ++u) {
+            const int idx = base + u * DEC_WARPS * 32;
+            if (idx < words) {
+                const int rr = kc.div(idx);
+                x[u] = __ldg(slab + (r0 + rr) * g.sn + c0 + idx - rr * (int)kc.d);
             }
-            const u64 c = half[0] | (half[1] << 32);
-#pragma unroll
-            for (int e = 0; e < PRIMES_PER_THREAD; ++e)
-                if (e < nd) acc[e] = addmod(acc[e], mont_mul(c, __ldg(w + (i64)(d0 + e) * J + j),
-                                                             p[e], pinv[e]), p[e]);
         }
 #pragma unroll
-        for (int e = 0; e < PRIMES_PER_THREAD; ++e)
-            if (e < nd) out[(s * dim + d0 + e) * n + k] = neg && acc[e] ? p[e] - acc[e] : acc[e];
+        for (int u = 0; u < DEC_BATCH; ++u) {
+            const int idx = base + u * DEC_WARPS * 32;
+            if (idx < words) {
+                const int rr = kc.div(idx), i = idx - rr * (int)kc.d, li = c0 + i;
+                u64 v = x[u];
+                if (g.src_bits > 0 && neg[rr])
+                    v = li > full || (li == full && rem == 0) ? 0
+                        : li == full ? v & ((1ull << rem) - 1) : v;
+                limbs[rr * (DEC_KC + 1) + i] = (u32)v;
+            }
+        }
+    }
+}
+
+// The constants of limbs c0 .. c0 + kc - 1 for the tile's primes as uint2
+// halves (a broadcast load), and each prime's p and pinv: DEC_CST entries a
+// thread at most, their loads in flight together.
+#define DEC_CST (DEC_PRIMES * DEC_KC / (DEC_WARPS * 32))
+__device__ __forceinline__ void dec_consts(const DecArgs &g, int d0, int np, int c0,
+                                           const FastDiv &kc, uint2 *cst, u64 *tp) {
+    const int entries = np * (int)kc.d;
+#pragma unroll
+    for (int u = 0; u < DEC_CST; ++u) {
+        const int idx = threadIdx.x + u * DEC_WARPS * 32;
+        if (idx < entries) {
+            const int dl = kc.div(idx), i = idx - dl * (int)kc.d, d = d0 + dl;
+            const u64 p = g.P.at(d), pinv = g.V.at(d), *w = g.w + (i64)d * g.J;
+            const u64 c = limb_const(w, c0 + i, c1_of(w, g.J, p, pinv), p, pinv);
+            cst[dl * DEC_KC + i] = make_uint2((u32)c, (u32)(c >> 32));
+            if (i == 0) {
+                tp[2 * dl] = p;
+                tp[2 * dl + 1] = pinv;
+            }
+        }
+    }
+}
+
+// The sums of a thread's rows (lane + 32 j) against its primes (warp + e
+// DEC_WARPS) over the staged chunk, NH halves a constant.
+template <int NH>
+__device__ __forceinline__ void dec_accumulate(u32 (&A)[DEC_RL][DEC_PL][4], const u32 *limbs,
+                                               const uint2 *cst, int kcn) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll 2
+    for (int i = 0; i < kcn; ++i) {
+        u32 x[DEC_RL];
+#pragma unroll
+        for (int j = 0; j < DEC_RL; ++j) x[j] = limbs[(lane + 32 * j) * (DEC_KC + 1) + i];
+#pragma unroll
+        for (int e = 0; e < DEC_PL; ++e) {
+            const uint2 c = cst[(warp + e * DEC_WARPS) * DEC_KC + i];
+#pragma unroll
+            for (int j = 0; j < DEC_RL; ++j) mad_128<NH>(A[j][e], x[j], c);
+        }
+    }
+}
+
+// limbs (u32 values in int64) [S, n, K] with strides (ss, sn, 1) -> residues
+// [S, dim, n]: residue d of a row is sum_i limb_i c_i R^-1 mod p_d, the sum
+// of a group of at most DEC_GROUP limbs below 2^40 p, so that its high
+// 64-bit word is below p, as mont_reduce needs, for primes of any width
+// (the logp=9 chain's 10 bits too); each result in [0, p).  src_bits > 0:
+// the input is two's complement of that width; a negative value
+// decomposes as p - (|value| mod p) (0 stays 0), which is
+// (value mod 2^src_bits) - 2^src_bits mod p.
+// Three blocks an SM: 78 registers a thread, no spill (the build gate).
+__global__ void __launch_bounds__(DEC_WARPS * 32, 3) rns_decompose_kernel(DecArgs g) {
+    __shared__ u32 limbs[DEC_ROWS * (DEC_KC + 1)];
+    __shared__ uint2 cst[DEC_PRIMES * DEC_KC];
+    __shared__ u64 tp[2 * DEC_PRIMES];      // each prime's p and pinv
+    __shared__ bool neg[DEC_ROWS];
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const i64 r0 = (i64)blockIdx.x * DEC_ROWS;
+    const int d0 = blockIdx.y * DEC_PRIMES;
+    const int np = g.dim - d0 < DEC_PRIMES ? g.dim - d0 : DEC_PRIMES;
+    const int rows = (int)(g.n - r0 < DEC_ROWS ? g.n - r0 : DEC_ROWS);
+    // the halves a constant takes: two where a prime of the tile has 33 bits or more
+    const u64 pl = lane < np ? g.P.at(d0 + lane) : 0;
+    const bool wide = __any_sync(~0u, (pl >> 32) != 0);
+    bool ready = false;                     // the constants of a one-chunk row, built
+    for (i64 s = blockIdx.z; s < g.S; s += gridDim.z) {
+        const u64 *slab = g.a + s * g.ss;
+        if (g.src_bits > 0) {
+            // the sign of each row, read once: a negative row's limbs are
+            // taken mod 2^src_bits and 2^src_bits is subtracted at the end
+            __syncthreads();                // the previous slab's readers are done
+            if (tid < rows) {
+                const int hb = g.src_bits - 1;
+                neg[tid] = (__ldg(slab + (r0 + tid) * g.sn + hb / 32) >> (hb % 32)) & 1;
+            }
+            __syncthreads();
+        }
+        u32 A[DEC_RL][DEC_PL][4] = {};
+        u64 r[DEC_RL][DEC_PL] = {};
+        for (int c0 = 0; c0 < g.K; c0 += DEC_KC) {
+            const bool last = c0 + DEC_KC >= g.K;
+            const FastDiv kc = last ? g.kc_last : g.kc_full;
+            dec_stage(g, slab, r0, rows, c0, kc, neg, limbs);
+            if (!ready || g.K > DEC_KC) dec_consts(g, d0, np, c0, kc, cst, tp);
+            __syncthreads();
+            if (wide) dec_accumulate<2>(A, limbs, cst, (int)kc.d);
+            else dec_accumulate<1>(A, limbs, cst, (int)kc.d);
+            if (last || (c0 + DEC_KC) % DEC_GROUP == 0) {
+#pragma unroll
+                for (int e = 0; e < DEC_PL; ++e) {
+                    const int dl = warp + e * DEC_WARPS < np ? warp + e * DEC_WARPS : 0;
+                    const u64 p = tp[2 * dl], pinv = tp[2 * dl + 1];
+#pragma unroll
+                    for (int j = 0; j < DEC_RL; ++j) {
+                        u32 *a = A[j][e];
+                        const u64 lo = ((u64)a[1] << 32) | a[0], hi = ((u64)a[3] << 32) | a[2];
+                        r[j][e] = addmod(r[j][e], mont_reduce(hi, lo, p, pinv), p);
+                        a[0] = a[1] = a[2] = a[3] = 0;
+                    }
+                }
+            }
+            __syncthreads();                // the chunk's readers are done
+        }
+        ready = true;
+#pragma unroll
+        for (int e = 0; e < DEC_PL; ++e) {
+            const int dl = warp + e * DEC_WARPS;
+            if (dl >= np) continue;
+            const u64 p = tp[2 * dl];
+            u64 tsrc = 0;
+            if (g.src_bits > 0) {
+                // 2^src_bits mod p = (c_f 2^e) R^-1, src_bits = 32 f + e, f < K
+                const u64 pinv = tp[2 * dl + 1], *w = g.w + (i64)(d0 + dl) * g.J;
+                const int f = g.src_bits / 32 < g.K ? g.src_bits / 32 : g.K - 1;
+                const int sh = g.src_bits - 32 * f;
+                const u64 c = limb_const(w, f, c1_of(w, g.J, p, pinv), p, pinv);
+                tsrc = mont_reduce(sh ? c >> (64 - sh) : 0, c << sh, p, pinv);
+            }
+            u64 *o = g.out + (s * g.dim + d0 + dl) * g.n + r0;
+#pragma unroll
+            for (int j = 0; j < DEC_RL; ++j) {
+                const int rr = lane + 32 * j;
+                if (rr >= rows) continue;
+                o[rr] = g.src_bits > 0 && neg[rr] ? submod(r[j][e], tsrc, p) : r[j][e];
+            }
+        }
     }
 }
 
 // residues y [S, dim, n] (a view) -> Yt f64 [S, nd * dim, n], row t * dim + d
 // holding digit t of y_d (the matmul takes its transpose, column-major, in
-// place; a warp writes 32 neighbouring coefficients of one row), and af f64
-// [S, n] = sum_d y_d / p_d.  With scale, y_d is first replaced by
-// mont_mul(y_d, scale_d) (the phat^-1 multiply).
-__global__ void rns_digit_split_kernel(double *Y, double *af, i64 S, int dim, i64 n, int nd, View y,
-                                       PerPrime scale, PerPrime P, PerPrime V, const double *inv_p,
-                                       i64 ipd) {
-    const i64 k = (i64)blockIdx.x * blockDim.x + threadIdx.x;
-    if (k >= n) return;
+// place), and af f64 [S, n] = sum_d y_d / p_d.  With scale, y_d is first
+// replaced by mont_mul(y_d, scale_d) (the phat^-1 multiply).  Lane l of warp
+// w takes coefficients 2 l and 2 l + 1 of the block's SPLIT_COEFS and the
+// primes w, w + SPLIT_WARPS, ...: a warp stores 64 neighbouring words of a
+// digit row, a 16-byte pair a lane where n is even.  af: each thread sums
+// its primes in order, then warp 0 the warps' sums in order (a fixed order,
+// not the plain version's).
+__global__ void __launch_bounds__(SPLIT_WARPS * 32)
+rns_digit_split_kernel(double *__restrict__ Y, double *__restrict__ af, i64 S, int dim, i64 n,
+                       int nd, View y, PerPrime scale, PerPrime P, PerPrime V,
+                       const double *__restrict__ inv_p, i64 ipd) {
+    __shared__ double part[SPLIT_WARPS][SPLIT_COEFS];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const i64 k = (i64)blockIdx.x * SPLIT_COEFS + 2 * lane;
+    const bool both = k + 1 < n, pair = both && n % 2 == 0;
+    const bool vload = pair && y.sk == 1 && y.sd % 2 == 0 && y.sa % 2 == 0 &&
+                       (reinterpret_cast<uintptr_t>(y.p) & 15) == 0;
     for (i64 s = blockIdx.y; s < S; s += gridDim.y) {
-        double *col = Y + s * (i64)(nd * dim) * n + k;
-        double acc = 0.0;
-        for (int d = 0; d < dim; ++d) {
-            u64 v = y.at(0, s, d, k);
-            if (scale.p) v = mont_mul(v, scale.at(d), P.at(d), V.at(d));
-            acc += (double)(i64)v * __ldg(inv_p + d * ipd);
-            for (int t = 0; t < nd; ++t)
-                col[(i64)(t * dim + d) * n] = (double)((v >> (16 * t)) & 0xFFFF);
+        double acc0 = 0.0, acc1 = 0.0;
+        // SPLIT_BATCH primes' loads in flight before the first is worked
+        for (int db = warp; k < n && db < dim; db += SPLIT_BATCH * SPLIT_WARPS) {
+            u64 v0[SPLIT_BATCH], v1[SPLIT_BATCH];
+#pragma unroll
+            for (int u = 0; u < SPLIT_BATCH; ++u) {
+                const int d = db + u * SPLIT_WARPS;
+                v0[u] = v1[u] = 0;
+                if (d >= dim) continue;
+                if (vload) {
+                    const longlong2 v = __ldg(reinterpret_cast<const longlong2 *>(
+                        y.p + s * y.sa + d * y.sd + k));
+                    v0[u] = (u64)v.x;
+                    v1[u] = (u64)v.y;
+                } else {
+                    v0[u] = y.at(0, s, d, k);
+                    if (both) v1[u] = y.at(0, s, d, k + 1);
+                }
+            }
+#pragma unroll
+            for (int u = 0; u < SPLIT_BATCH; ++u) {
+                const int d = db + u * SPLIT_WARPS;
+                if (d >= dim) continue;
+                u64 x0 = v0[u], x1 = v1[u];
+                if (scale.p) {
+                    const u64 sc = scale.at(d), p = P.at(d), pv = V.at(d);
+                    x0 = mont_mul(x0, sc, p, pv);
+                    x1 = mont_mul(x1, sc, p, pv);
+                }
+                const double ip = __ldg(inv_p + d * ipd);
+                acc0 += (double)(i64)x0 * ip;
+                acc1 += (double)(i64)x1 * ip;
+                double *row = Y + (s * nd * dim + d) * n + k;
+                for (int t = 0; t < nd; ++t, row += (i64)dim * n) {
+                    const double g0 = (double)((x0 >> (16 * t)) & 0xFFFF);
+                    const double g1 = (double)((x1 >> (16 * t)) & 0xFFFF);
+                    if (pair) {
+                        *reinterpret_cast<double2 *>(row) = make_double2(g0, g1);
+                    } else {
+                        row[0] = g0;
+                        if (both) row[1] = g1;
+                    }
+                }
+            }
         }
-        af[s * n + k] = acc;
+        part[warp][2 * lane] = acc0;
+        part[warp][2 * lane + 1] = acc1;
+        __syncthreads();
+        if (warp == 0 && k < n) {
+            double a0 = part[0][2 * lane], a1 = part[0][2 * lane + 1];
+#pragma unroll
+            for (int w = 1; w < SPLIT_WARPS; ++w) {
+                a0 += part[w][2 * lane];
+                a1 += part[w][2 * lane + 1];
+            }
+            if (pair) {
+                *reinterpret_cast<double2 *>(af + s * n + k) = make_double2(a0, a1);
+            } else {
+                af[s * n + k] = a0;
+                if (both) af[s * n + k + 1] = a1;
+            }
+        }
+        __syncthreads();
     }
 }
 
@@ -220,19 +471,19 @@ rns_lift_kernel(u64 *out, i64 R, int kd, int kuse, const T *sd, const double *af
     }
 }
 
-static unsigned threads_of(i64 n) { return n >= 128 ? 128u : (unsigned)((n + 31) / 32 * 32); }
-
 extern "C" int gpqhe_rns_decompose(i64 S, i64 n, int K, i64 ss, i64 sn, int dim, int J,
                                    void *out, const void *a, const void *w, const void *ps,
                                    i64 psd, const void *pinv, i64 pvd, int src_bits,
                                    void *stream) {
-    const unsigned t = threads_of(n);
-    const dim3 grid((unsigned)((n + t - 1) / t),
-                    (unsigned)((dim + PRIMES_PER_THREAD - 1) / PRIMES_PER_THREAD),
+    if (K < 1) return (int)cudaErrorInvalidValue;
+    const int last = K - (K - 1) / DEC_KC * DEC_KC;
+    const DecArgs g = {(u64 *)out, S, n, ss, sn, K, dim, J, src_bits, (const u64 *)a,
+                       (const u64 *)w, {(const u64 *)ps, psd}, {(const u64 *)pinv, pvd},
+                       FastDiv::of(K < DEC_KC ? K : DEC_KC), FastDiv::of(last)};
+    const dim3 grid((unsigned)((n + DEC_ROWS - 1) / DEC_ROWS),
+                    (unsigned)((dim + DEC_PRIMES - 1) / DEC_PRIMES),
                     (unsigned)(S < 65535 ? S : 65535));
-    const PerPrime P = {(const u64 *)ps, psd}, V = {(const u64 *)pinv, pvd};
-    rns_decompose_kernel<<<grid, t, 0, (cudaStream_t)stream>>>(
-        (u64 *)out, S, n, K, ss, sn, dim, J, (const u64 *)a, (const u64 *)w, P, V, src_bits);
+    rns_decompose_kernel<<<grid, DEC_WARPS * 32, 0, (cudaStream_t)stream>>>(g);
     return (int)cudaGetLastError();
 }
 
@@ -241,12 +492,12 @@ extern "C" int gpqhe_rns_digit_split(i64 S, int dim, i64 n, int nd, void *Y, voi
                                      const void *scale, i64 scd, const void *ps, i64 psd,
                                      const void *pinv, i64 pvd, const void *inv_p, i64 ipd,
                                      void *stream) {
-    const unsigned t = threads_of(n);
-    const dim3 grid((unsigned)((n + t - 1) / t), (unsigned)(S < 65535 ? S : 65535));
+    const dim3 grid((unsigned)((n + SPLIT_COEFS - 1) / SPLIT_COEFS),
+                    (unsigned)(S < 65535 ? S : 65535));
     const View yv = {(const u64 *)y, 0, ys, yd, yk};
     const PerPrime sc = {(const u64 *)scale, scd}, P = {(const u64 *)ps, psd},
                    V = {(const u64 *)pinv, pvd};
-    rns_digit_split_kernel<<<grid, t, 0, (cudaStream_t)stream>>>(
+    rns_digit_split_kernel<<<grid, SPLIT_WARPS * 32, 0, (cudaStream_t)stream>>>(
         (double *)Y, (double *)af, S, dim, n, nd, yv, sc, P, V, (const double *)inv_p, ipd);
     return (int)cudaGetLastError();
 }

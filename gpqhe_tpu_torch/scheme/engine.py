@@ -436,9 +436,10 @@ class CKKS:
 
         def pair(uh):
             # both halves [2, (B,) dim, n] in one inverse-NTT launch, with the
-            # phat^-1 reconstruct multiply fused into the INTT scaling
-            res = self.ring.ntt_i(uh, dim, scale_phatinv=True)
-            return post(res[0]), post(res[1])
+            # phat^-1 reconstruct multiply fused into the INTT scaling, and
+            # through post together: each of its kernels launches once
+            u = post(self.ring.ntt_i(uh, dim, scale_phatinv=True))
+            return u[0], u[1]
         return pair
 
     def mul_step_fn(self, l: int):
@@ -479,14 +480,13 @@ class CKKS:
 
         def f(c10, c11, c20, c21, ek0, ek1):
             # cross terms over the dim_m basis (ref: src/he-mult.c:116-138);
-            # the 4 forward NTTs ride one launch
-            dec = torch.stack([rns_ops.decompose(x, bam, wm)
-                               for x in (c10, c11, c20, c21)])
+            # the 4 polys decomposed in one launch, their forward NTTs in one
+            dec = rns_ops.decompose(torch.stack([c10, c11, c20, c21]), bam, wm)
             # (x0 y0, x0 y1 + x1 y0, x1 y1) of (x0, x1, y0, y1), stacked
             dh = cross_terms(ring.ntt_f(dec, dim_m), pm, pvm, r2m)
-            # the 3 inverse NTTs likewise (phat^-1 fused into the scaling)
-            resb = ring.ntt_i(dh, dim_m, scale_phatinv=True)
-            d0, d1, d2 = back(resb[0]), back(resb[1]), back(resb[2])
+            # the 3 inverse NTTs likewise (phat^-1 fused into the scaling),
+            # and one reconstruct of the three
+            d0, d1, d2 = back(ring.ntt_i(dh, dim_m, scale_phatinv=True))
             # relinearize d2 with rlk over the dim_s basis (ref: he-mult.c:40-85)
             d2hat = ring.ntt_f(rns_ops.decompose(d2, bas, ws), dim_s)
             u0, u1 = ks_pair(key_products(d2hat, ek0[:dim_s], ek1[:dim_s], ps, pvs, r2s))

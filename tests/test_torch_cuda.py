@@ -578,21 +578,27 @@ def _edge_cases(device):
 @pytest.mark.parametrize("entry", ["limbs_add", "limbs_sub", "limbs_neg", "limbs_add_scalar_bit",
                                    "limbs_select", "limbs_geq_const", "limbs_mask_bits",
                                    "limbs_rshift_round", "limbs_rshift_round_mask",
-                                   "limbs_from_digits16", "crt_lift"])
+                                   "limbs_from_digits16", "crt_lift", "decompose",
+                                   "crt_digit_split"])
 def test_cuda_row_kernels_at_tile_edges(cuda_device, entry):
-    """K7 and the CRT lift at the edges of their designs (chip_smoke.py's
-    elementwise_edge_cases): K = 1 .. 3071 limbs around whole chunks of 32,
-    rows not a multiple of a block's, constant, broadcast (two leading rows),
-    row-strided and limb-strided operands through cuda_build.strides3, bool
-    and int64 row bits, the lift at one, two and four chunks; each launch
-    torch.equal to the plain version on the same CUDA tensors."""
-    from chip_smoke import ew_counters
+    """K7, the CRT lift, decompose and the digit split at the edges of their
+    designs (chip_smoke.py's elementwise_edge_cases): K = 1 .. 3071 limbs
+    around whole chunks of 32, rows not a multiple of a block's, constant,
+    broadcast (two leading rows), row-strided and limb-strided operands
+    through cuda_build.strides3, bool and int64 row bits, the lift at one,
+    two and four chunks; decompose around its tiles of primes and staged
+    chunks of limbs, at every src_bits edge, on the three widths of prime;
+    the digit split around its blocks of coefficients and warps of primes,
+    on strided, broadcast and misaligned residues; each launch torch.equal
+    to the plain version on the same CUDA tensors (the split's f64 estimate
+    within a relative 2^-45: chip_smoke.ew_compare)."""
+    from chip_smoke import ew_compare, ew_counters
     cases = [c for c in _edge_cases(cuda_device) if c["entry"] == entry]
     before = ew_counters()[entry]
     for case in cases:
         got, want = case["kern"](), case["plain"]()
         torch.cuda.synchronize()
-        assert torch.equal(got, want), case["shape"]
+        assert ew_compare(got, want)[0], case["shape"]
     assert ew_counters()[entry] > before
 
 
