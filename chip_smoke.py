@@ -11,8 +11,8 @@ non-zero:
              the card's name and power limit from nvidia-smi; per kernel
              instantiation ptxas's registers, spills, stack and shared
              memory where this run built the source; for every K7, lift,
-             decompose and digit-split instantiation in the libraries as
-             loaded (`row_kernels`),
+             decompose, digit-split and K5 (modmath.cu) instantiation in
+             the libraries as loaded (`row_kernels`),
              cuobjdump's registers, stack, shared and local memory, and a
              raise on any stack frame or local memory; static
              multiply-instruction counts from cuobjdump.
@@ -31,15 +31,18 @@ non-zero:
              select and mask_bits one PyTorch call of the same function
              timed the same way and the ratio (`ms_over_library`); K7 and
              the lift timed at logn=15 too, on `kernels15` lines, and
-             decompose and the digit split at the bootstrap's shapes there
-             (retimed15); the rows wider than a warp timed at both (`wide`:
-             the exact lift at the key switch's basis, geq_const at 62 and
-             125 limbs); then K7, the lift, decompose and the digit split at
-             the edges of their designs (elementwise_edge_cases: 1-3071
-             limbs, whole chunks of 32 limbs and one more, partial blocks,
-             tiles of primes, every src_bits edge, the three prime widths,
-             constant, broadcast, strided and misaligned operands), each
-             torch.equal to its plain version.
+             decompose, the digit split and every K5 entry at the
+             bootstrap's shapes there (retimed15; K5 at the shape classes
+             the bootstrap launches most, BOOT15_K5); the rows wider than a
+             warp timed at both (`wide`: the exact lift at the key switch's
+             basis, geq_const at 62 and 125 limbs); then K7, the lift,
+             decompose, the digit split and K5's elementwise entries at the
+             edges of their designs (elementwise_edge_cases: 1-3071 limbs,
+             whole chunks of 32 limbs and one more, partial blocks, tiles of
+             primes, every src_bits edge, rows not a multiple of a thread's
+             words, A past 65535, the three prime widths, constant,
+             broadcast, strided and misaligned operands), each torch.equal
+             to its plain version.
   golden   — the logn=11 replay of tests/golden/golden_logn11.json (enc,
              add, mul+rs, conj, rot1, moddown) within tests/test_golden.py's
              tolerances.
@@ -51,7 +54,7 @@ non-zero:
              `profile` line: one mul_rs under torch.profiler, its device
              kernels, busy ms and idle share, split by module (ntt, modmath,
              rns by entry: decompose, digit_split, lift; limbs, matmul (the
-             digit matmuls), other torch).
+             digit matmuls), other torch) and modmath by entry.
   linalg59, linalg29 — the key-switch and hoisted-gemv path at the same size
              on each chain, the engine built with no device argument:
              keypair, genrlk, genck, genrk (16 keys), enc_pk, mul_rs, rot,
@@ -63,8 +66,8 @@ non-zero:
              (tests/golden/golden_algo_linear.json); every launch counter of
              the chain's kernel > 0 and the other kernel's all 0; the two
              chains' decodes within 1e-9 of each other.  Medians, profiles
-             (rot, mul_rs_batch, both gemv routes), and the kernel against
-             its twin at the gemv's shapes.  After both: a `chains` line,
+             (mulpt, rot, mul_rs_batch, both gemv routes), and the kernel
+             against its twin at the gemv's shapes.  After both: a `chains` line,
              mul_rs on each chain in turns (59, 29, 29, 59).
   suite    — the rest of the JAX package's test suite on the card, every gate
              raising: tests/test_crt_mode.py's logp=9 chain (six primes of
@@ -161,7 +164,8 @@ chain, the u64 kernel's three at the bootstrap's logn=15 shapes, and forward
 and inverse on per-shard plans for the u64 kernel, the u32 kernel and the u64
 kernel on the logn=15 mesh; then each elementwise entry that the gated paths
 launched, with its launches summed over them and split by the ring's logn,
-`launches_by_logn`: 14 for mul_rs, linalg and mesh, 15 for the bootstrap),
+`launches_by_logn`: 14 for mul_rs, linalg and mesh, 15 for the bootstrap; K5's
+entries also by shape class, `launches_by_shape`),
 and last {"ok": true,
 "device": {...}}.  --phases a,b,c runs a subset (the last line
 then says "partial"); --iters N sets the timed runs per median.
@@ -368,21 +372,22 @@ def phase_build():
     secs = time.time() - t0
     ptxas = {os.path.basename(src): ptxas_summary(log)
              for src, log in cuda_build.BUILD_LOGS.items()}
-    rows = row_kernel_resources(rns_cuda, limbs_cuda)
+    rows = row_kernel_resources(rns_cuda, limbs_cuda, modmath_cuda)
     emit({"phase": "build", "seconds": secs, "gpu": gpu_line(), "ptxas": ptxas,
           "row_kernels": rows,
           "sass_multiplies": {os.path.basename(m.SOURCE):
                               sass_multiplies(cuda_build.library_path(m.SOURCE)) for m in mods}})
     local = {k: v for k, v in rows.items() if v.get("STACK", 1) or v.get("LOCAL", 1)}
     if local:
-        raise AssertionError(f"row kernels with a stack frame or local memory: {local}")
+        raise AssertionError(f"kernels with a stack frame or local memory: {local}")
 
 
-# instantiations of the row kernels by source: K7's eight chains on rows of
+# instantiations of the gated kernels by source: K7's eight chains on rows of
 # one chunk and of more, and its word kernel by word and by pair for
 # mask_bits and select; the lift on f64 and int64 digit sums at 1, 2 and 4
-# chunks, decompose and the digit split
-ROW_KERNELS = {"limbs.cu": 20, "rns.cu": 8}
+# chunks, decompose and the digit split; K5's elementwise kernel by op, the
+# cross terms, the key products and the sum by mode
+ROW_KERNELS = {"limbs.cu": 20, "rns.cu": 8, "modmath.cu": 9}
 
 
 def resource_usage(library: str) -> dict:
@@ -408,17 +413,18 @@ def resource_usage(library: str) -> dict:
     return usage
 
 
-def row_kernel_resources(rns_cuda, limbs_cuda) -> dict:
+def row_kernel_resources(rns_cuda, limbs_cuda, modmath_cuda) -> dict:
     """The resource usage (resource_usage) of every instantiation of K7 (all
-    of limbs.cu's kernels) and of rns.cu's (the CRT lift, decompose, the
-    digit split) in the libraries as loaded, built in this run or earlier.
-    Raises unless each source has exactly ROW_KERNELS of them."""
+    of limbs.cu's kernels), of rns.cu's (the CRT lift, decompose, the digit
+    split) and of K5 (all of modmath.cu's) in the libraries as loaded, built
+    in this run or earlier.  Raises unless each source has exactly
+    ROW_KERNELS of them."""
     from gpqhe_tpu_torch.ops import cuda_build
     out, seen = {}, {}
-    for m in (limbs_cuda, rns_cuda):
+    for m in (limbs_cuda, rns_cuda, modmath_cuda):
         src = os.path.basename(m.SOURCE)
         for fn, v in resource_usage(cuda_build.library_path(m.SOURCE)).items():
-            if src == "limbs.cu" or "rns_" in fn:
+            if src != "rns.cu" or "rns_" in fn:
                 out[fn] = v
                 seen[src] = seen.get(src, 0) + 1
     if seen != ROW_KERNELS:
@@ -635,8 +641,19 @@ EW_REPLACES = {
 # product (4) and the low product (3) of a * b, the low product u = lo * pinv
 # (3) and the high product of u * p (4); a mulmod is two of them
 IMAD_MONT = 14
+# the elementwise kernel's mulmod: one Barrett reduction a word (the 128-bit
+# product a b, 7; the high product of x mu, 4; the low product q p, 3)
+IMAD_BARRETT = 14
 EW_BATCH = 8       # mul_rs_batch's B
-EW_N1 = 4          # baby steps of a hoisted gemv step at slots=16
+EW_N1 = 4          # baby steps of a hoisted gemv step (slots=16 BSGS; slots=4 fully hoisted)
+# K5's shape classes that the bootstrap (logn=15) launches most, timed on the
+# kernels15 lines: (entry, dim, leading axes, multipliers of a sum); the
+# bootstrap phase counts its launches by shape class (modmath_cuda.SHAPES)
+# and fails where one of these is no longer among them
+BOOT15_K5 = (("modmath_cross_terms", 26, (4,), 0), ("modmath_key_products", 47, (), 0),
+             ("modmath_key_products", 44, (), 0), ("modmath_mulmod_sum", 47, (EW_N1,), 2),
+             ("modmath_mulmod_sum", 16, (EW_N1,), 0), ("modmath_mulmod", 14, (), 0),
+             ("modmath_mulmod", 16, (), 0))
 
 
 def decompose_imad(out_words: int, k: int, pmax: int) -> int:
@@ -651,9 +668,13 @@ def decompose_imad(out_words: int, k: int, pmax: int) -> int:
 
 
 def ew_counters() -> dict:
-    """{entry: its launch count} over the three elementwise libraries."""
+    """{entry: its launch count} over the three elementwise libraries, and
+    K5's launches by shape class, "modmath_<entry> [shape]" (the launch's
+    broadcast shape; " xW" after a sum against W multipliers)."""
     from gpqhe_tpu_torch.ops import limbs_cuda, modmath_cuda, rns_cuda
     out = {f"modmath_{k}": v for k, v in modmath_cuda.LAUNCHES.items()}
+    for (e, shape, nw), v in getattr(modmath_cuda, "SHAPES", {}).items():
+        out[f"modmath_{e} {list(shape)}" + (f" x{nw}" if nw else "")] = v
     out.update({"decompose": rns_cuda.LAUNCHES["decompose"],
                 "crt_digit_split": rns_cuda.LAUNCHES["digit_split"],
                 "crt_lift": rns_cuda.LAUNCHES["lift"]})
@@ -677,10 +698,12 @@ def ew_copies() -> int:
 
 
 def ew_by_kernel(counts: dict) -> dict:
-    """Launches per kernel (K4-K7) from per-entry counts."""
+    """Launches per kernel (K4-K7) from per-entry counts (the counts by
+    shape class left out)."""
     out = {k: 0 for k in EW_KERNELS}
     for name, v in counts.items():
-        out[name.split("_")[0]] += v
+        if " " not in name:
+            out[name.split("_")[0]] += v
     return out
 
 
@@ -698,7 +721,8 @@ def ew_residues(rng, ps, shape, device):
     import torch
     p = np.asarray(ps, dtype=np.uint64).reshape(-1, 1)
     x = rng.integers(0, 1 << 63, size=shape, dtype=np.uint64) % p
-    x[..., :3] = np.concatenate([np.zeros_like(p), np.ones_like(p), p - 1], axis=1)
+    w = min(3, shape[-1])
+    x[..., :w] = np.concatenate([np.zeros_like(p), np.ones_like(p), p - 1], axis=1)[:, :w]
     return torch.from_numpy(x.view(np.int64)).to(device)
 
 
@@ -708,7 +732,8 @@ def ew_words(rng, shape, device, bits: int = 64):
     import numpy as np
     import torch
     x = rng.integers(0, (1 << bits) - 1, size=shape, dtype=np.uint64, endpoint=True)
-    x[..., :3] = np.array([0, 1 << (bits - 1), (1 << bits) - 1], dtype=np.uint64)
+    w = min(3, shape[-1])
+    x[..., :w] = np.array([0, 1 << (bits - 1), (1 << bits) - 1], dtype=np.uint64)[:w]
     return torch.from_numpy(x.view(np.int64)).to(device)
 
 
@@ -750,8 +775,10 @@ def elementwise_cases(logn: int, logp: int, device, seed: int = 8) -> dict:
     The shapes are those the paths give the entries at the ring of logn
     (logq 438 or 881) on the logp chain: the product's dim_mul basis, the
     key switch's dim_swk basis against the key bank's dimswk_h rows, batch
-    EW_BATCH, a hoisted gemv step of EW_N1 baby steps, the ciphertext's
-    limbs; the first case of an entry is its main-path shape."""
+    EW_BATCH, a hoisted gemv step of EW_N1 baby steps, the plaintext
+    product's basis, the ciphertext's limbs, and at logn=15 K5 at the
+    bootstrap's shape classes (BOOT15_K5, marked boot15); the first case of
+    an entry is its main-path shape."""
     import dataclasses
 
     import numpy as np
@@ -785,34 +812,51 @@ def elementwise_cases(logn: int, logp: int, device, seed: int = 8) -> dict:
             bytes=(nbytes(*inputs) if read_bytes is None else read_bytes) + 8 * out_words, **kw))
 
     # K5 modmath
-    cm, cs = consts(dim_m), consts(dim_s)
-    for lead in ((), (B,)):
-        x = res(dim_m, (4,) + lead)
-        add("modmath_cross_terms", x.shape, lambda x=x: mm.cross_terms(x, *cm),
-            lambda x=x: mm.plain_cross_terms(x, *cm), [x], 3 * x[0].numel(),
-            4 * 2 * IMAD_MONT * x[0].numel())
     bank = [res(dh), res(dh)]
+
+    def cross_case(dim, lead, **kw):
+        # lead: (4, ...), the stacked (x0, x1, y0, y1)
+        x, c = res(dim, lead), consts(dim)
+        add("modmath_cross_terms", x.shape, lambda x=x, c=c: mm.cross_terms(x, *c),
+            lambda x=x, c=c: mm.plain_cross_terms(x, *c), [x], 3 * x[0].numel(),
+            4 * 2 * IMAD_MONT * x[0].numel(), **kw)
+
+    def keyprod_case(dim, lead, **kw):
+        # the key halves: row slices [:dim] of the bank's dimswk_h rows
+        d, c, e0, e1 = res(dim, lead), consts(dim), bank[0][:dim], bank[1][:dim]
+        add("modmath_key_products", d.shape,
+            lambda d=d, e0=e0, e1=e1, c=c: mm.key_products(d, e0, e1, *c),
+            lambda d=d, e0=e0, e1=e1, c=c: mm.plain_key_products(d, e0, e1, *c), [d, e0, e1],
+            2 * d.numel(), 2 * 2 * IMAD_MONT * d.numel(), **kw)
+
+    def sum_case(dim, lead, nw, **kw):
+        # a hoisted step: c1p ptx against the rotation keys' [:, :dim] slices
+        x, y, c = res(dim, lead), res(dim, lead), consts(dim)
+        ws = [res(dh, lead)[:, :dim] for _ in range(nw)]
+        add("modmath_mulmod_sum", x.shape,
+            lambda x=x, y=y, c=c, ws=ws: mm.mulmod_sum(x, y, *c, ws=ws),
+            lambda x=x, y=y, c=c, ws=ws: mm.plain_mulmod_sum(x, y, *c, ws=ws), [x, y, *ws],
+            max(nw, 1) * dim * n, (1 + nw) * 2 * IMAD_MONT * x.numel(), **kw)
+
+    def mulmod_case(dim, lead, **kw):
+        x, y, c = res(dim, lead), res(dim, lead), consts(dim)
+        add("modmath_mulmod", x.shape, lambda x=x, y=y, c=c: mm.mulmod(x, y, *c),
+            lambda x=x, y=y, c=c: mm.plain_mulmod(x, y, *c), [x, y], x.numel(),
+            IMAD_BARRETT * x.numel(), imad_mont=2 * IMAD_MONT * x.numel(), **kw)
+
+    cm, cs = consts(dim_m), consts(dim_s)
+    for lead in ((4,), (4, B)):
+        cross_case(dim_m, lead)
     for lead in ((), (B,)):
-        d = res(dim_s, lead)
-        e0, e1 = bank[0][:dim_s], bank[1][:dim_s]
-        add("modmath_key_products", d.shape, lambda d=d, e0=e0, e1=e1: mm.key_products(d, e0, e1, *cs),
-            lambda d=d, e0=e0, e1=e1: mm.plain_key_products(d, e0, e1, *cs), [d, e0, e1],
-            2 * d.numel(), 2 * 2 * IMAD_MONT * d.numel())
-    c1p, ptx = res(dim_s, (n1,)), res(dim_s, (n1,))
-    rk = [res(dh, (n1,))[:, :dim_s] for _ in range(2)]
-    add("modmath_mulmod_sum", c1p.shape,
-        lambda: mm.mulmod_sum(c1p, ptx, *cs, ws=rk),
-        lambda: mm.plain_mulmod_sum(c1p, ptx, *cs, ws=rk), [c1p, ptx, *rk],
-        2 * dim_s * n, 3 * 2 * IMAD_MONT * c1p.numel())
-    c0p, ptb = res(dim_m, (n1,)), res(dim_m, (n1,))
-    add("modmath_mulmod_sum", c0p.shape, lambda: mm.mulmod_sum(c0p, ptb, *cm),
-        lambda: mm.plain_mulmod_sum(c0p, ptb, *cm), [c0p, ptb], dim_m * n,
-        2 * IMAD_MONT * c0p.numel())
-    for lead in ((), (B,)):
-        x, y = res(dim_m, lead), res(dim_m, lead)
-        add("modmath_mulmod", x.shape, lambda x=x, y=y: mm.mulmod(x, y, *cm),
-            lambda x=x, y=y: mm.plain_mulmod(x, y, *cm), [x, y], x.numel(),
-            2 * IMAD_MONT * x.numel())
+        keyprod_case(dim_s, lead)
+    sum_case(dim_s, (n1,), 2)
+    sum_case(dim_m, (n1,), 0)
+    c1p = res(dim_s, (n1,))
+    # mulmod on the product's basis, batched, and on a plaintext product's
+    # (mulpt's dim_mulpt at a plaintext of the scale Delta)
+    dim_pt = ctx.dim_mulpt(L, float(delta))
+    for dim, lead in ((dim_m, ()), (dim_m, (B,)), (dim_pt, ())):
+        mulmod_case(dim, lead)
     w, v = ew_words(rng, (dim_s, n), device), res(dim_s)
     add("modmath_mont_mul", w.shape, lambda: mm.mont_mul(w, v, *cs[:2]),
         lambda: mm.plain_mont_mul(w, v, *cs[:2]), [w, v], w.numel(), IMAD_MONT * w.numel())
@@ -825,6 +869,14 @@ def elementwise_cases(logn: int, logp: int, device, seed: int = 8) -> dict:
         lambda: mm.plain_submod(u, z, cm[0]), [u, z], u.numel(), 0)
     add("modmath_summod", c1p.shape, lambda: mm.summod(c1p, cs[0]),
         lambda: mm.plain_summod(c1p, cs[0]), [c1p], dim_s * n, 0)
+    if logn == 15:
+        make = {"modmath_cross_terms": cross_case, "modmath_key_products": keyprod_case,
+                "modmath_mulmod": mulmod_case}
+        for entry, dim, lead, nw in BOOT15_K5:
+            if entry == "modmath_mulmod_sum":
+                sum_case(dim, lead, nw, boot15=True)
+            else:
+                make[entry](dim, lead, boot15=True)
 
     # K4 decompose
     for dim, lead, src in ((dim_m, (), None), (dim_s, (), None), (dim_m, (B,), None),
@@ -1070,7 +1122,7 @@ def elementwise_edge_cases(device, seed: int = 9) -> list:
         sr = torch.from_numpy(rng.integers(0, 1 << 48, size=(R, kd)).astype(np.float64)).to(device)
         for s_, a_ in ((sd, af), (sd.to(torch.int64), af), (sr, noisy)):
             add("_lift", [logp, dim, k_out, R, kd, str(s_.dtype)], s_, a_, plan, center, k_out)
-    return cases + rns_edge_cases(device, rings)
+    return cases + rns_edge_cases(device, rings) + modmath_edge_cases(device, rings)
 
 
 # decompose at the edges of its design: (logp, dim, K, src_bits, layout): dims
@@ -1199,6 +1251,86 @@ def rns_edge_cases(device, rings: dict, seed: int = 10) -> list:
     return cases
 
 
+# K5's elementwise kernel (mulmod, mont_mul, addmod, submod, to_mont) at the
+# edges of its design: (logp, dim, leading axes, n, layout).  n around a
+# block's 1024 words and a thread's 4 in 16-byte pairs (1, 5, 518, 1030,
+# 2050: tails; 16, 1024: whole blocks); A past the grid's 65535; the three
+# widths of prime; layouts: "offset" x and y one word into rows n + 1 words
+# apart (row 0 off 16-byte alignment, then every other row), "const_n" y and
+# "const_x" x a per-row constant (stride 0 along n), "bcast_a" y broadcast
+# over the leading axis, "bcast_d" y one row broadcast over the primes,
+# "bank_rows" and "bank_cols" y the key bank's [:dim] and [:, :dim] slices,
+# "strided" every other word (word loads), "words" mont_mul of any u64
+# words (0, 2^63, 2^64 - 1 among them) against y < p
+MODMATH_EDGES = (
+    (59, 3, (), 1, "plain"), (59, 3, (), 5, "plain"), (59, 5, (), 1024, "plain"),
+    (59, 3, (2,), 1030, "plain"), (59, 2, (), 2050, "plain"), (59, 1, (65537,), 2, "plain"),
+    (59, 3, (), 1024, "offset"), (59, 3, (2,), 518, "offset"), (59, 3, (2,), 1024, "const_n"),
+    (59, 3, (), 1030, "const_x"), (59, 3, (2,), 1024, "bcast_a"), (59, 3, (), 1030, "bcast_d"),
+    (59, 5, (), 1024, "bank_rows"), (59, 5, (EW_N1,), 1030, "bank_cols"),
+    (59, 3, (), 1026, "strided"), (59, 3, (2,), 1030, "words"),
+    (29, 4, (2,), 1030, "plain"), (29, 3, (), 1024, "offset"), (29, 3, (), 518, "const_n"),
+    (29, 3, (), 1024, "words"),
+    (9, 6, (), 16, "plain"), (9, 5, (2,), 1030, "plain"), (9, 6, (), 1024, "offset"),
+    (9, 6, (), 1030, "bcast_d"), (9, 6, (), 1024, "words"))
+
+
+def modmath_edge_cases(device, rings: dict, seed: int = 11) -> list:
+    """K5's elementwise entries at the edges of its design (MODMATH_EDGES),
+    each a dict with entry, shape, op and args (ops/modmath_cuda.py's
+    `elementwise` and its arguments), kern (the dispatcher) and plain (the
+    plain version on the same tensors); residues carry the edge words 0, 1
+    and p - 1."""
+    import numpy as np
+    from gpqhe_tpu_torch.context import PolyContext
+    from gpqhe_tpu_torch.ops import modmath as mm
+    from gpqhe_tpu_torch.ops import rns
+
+    rng = np.random.default_rng(seed)
+    rings = dict(rings)
+    rings[9] = PolyContext(4, **CRT_CHAIN)
+    cases = []
+    for logp, dim, lead, n, layout in MODMATH_EDGES:
+        primes = rings[logp].primes
+        ba = rns.make_basis_arrays(rings[logp], dim, device)
+        p, pinv, r2 = ba.ps[:, None], ba.pinv[:, None], ba.r2[:, None]
+
+        def res(rows, lead=lead, width=n):
+            return ew_residues(rng, primes[:rows], lead + (rows, width), device)
+        x, y = res(dim), res(dim)
+        if layout == "offset":
+            x, y = res(dim, width=n + 1)[..., 1:], res(dim, width=n + 1)[..., 1:]
+        elif layout == "const_n":
+            y = res(dim, width=1)
+        elif layout == "const_x":
+            x = res(dim, width=1)
+        elif layout == "bcast_a":
+            x, y = res(dim, lead=(2,) + lead), res(dim)
+        elif layout == "bcast_d":
+            y = ew_residues(rng, [min(primes[:dim])], lead + (1, n), device)
+        elif layout == "bank_rows":
+            y = res(dim + 3)[..., :dim, :]
+        elif layout == "bank_cols":
+            y = res(dim + 3)[:, :dim]
+        elif layout == "strided":
+            x, y = res(dim, width=2 * n)[..., ::2], res(dim, width=2 * n)[..., 1::2]
+        elif layout == "words":
+            x = ew_words(rng, lead + (dim, n), device)
+        ops = (("mont_mul",) if layout == "words" else
+               ("mulmod", "mont_mul", "addmod", "submod", "to_mont"))
+        for op in ops:
+            consts = {"mulmod": (p, pinv, r2), "mont_mul": (p, pinv), "addmod": (p,),
+                      "submod": (p,), "to_mont": (p, pinv, r2)}[op]
+            # the dispatcher's arguments, and the wrapper's (to_mont: x against r2)
+            xs = (x,) + consts if op == "to_mont" else (x, y) + consts
+            args = (op, x, r2, p, pinv) if op == "to_mont" else (op,) + xs
+            cases.append(dict(
+                entry=f"modmath_{op}", shape=[logp, layout] + list(x.shape), op="elementwise",
+                args=args, kern=lambda f=getattr(mm, op), xs=xs: f(*xs),
+                plain=lambda f=getattr(mm, f"plain_{op}"), xs=xs: f(*xs)))
+    return cases
+
+
 def ew_cpu(consts):
     """A copy of a frozen dataclass of constants (BasisArrays, ReconPlan)
     with every tensor on the CPU."""
@@ -1242,18 +1374,27 @@ def ew_bound(case) -> dict:
     return out
 
 
+def boot15_key(entry: str, dim: int, lead: tuple, nw: int) -> str:
+    """ew_counters' key of a BOOT15_K5 shape class."""
+    return f"{entry} {list(lead) + [dim, 1 << 15]}" + (f" x{nw}" if nw else "")
+
+
 def retimed15(entry: str) -> tuple:
     """The cases (indices into elementwise_cases' list of the entry) timed
     at logn=15 too (`kernels15` lines): K7 and the lift, whose rows are 28
     limbs wide there, at their main shape; decompose into the product's
     and the key switch's bases ([2^15, 28] -> 31 and 47 primes); the digit
     split of the product's three polys and of the key switch's exact
-    reconstruct ([3, 31, 2^15], scaled [47, 2^15])."""
+    reconstruct ([3, 31, 2^15], scaled [47, 2^15]); every K5 entry at its
+    main shape, but those the bootstrap launches, which are timed at its
+    shape classes instead (BOOT15_K5)."""
     if entry == "decompose":
         return (0, 1)
     if entry == "crt_digit_split":
         return (1, 2)
-    return (0,) if entry.startswith("limbs_") or entry == "crt_lift" else ()
+    if entry in {e for e, *_ in BOOT15_K5}:
+        return ()          # timed at the bootstrap's shape classes (the boot15 cases)
+    return (0,) if entry.startswith(("limbs_", "modmath_")) or entry == "crt_lift" else ()
 
 
 def phase_elementwise(iters: int, rings=((14, 59), (14, 29), (15, 59)), tag: str = "kernels",
@@ -1283,7 +1424,8 @@ def phase_elementwise(iters: int, rings=((14, 59), (14, 29), (15, 59)), tag: str
         for entry, cases in elementwise_cases(logn, logp, dev).items():
             for i, case in enumerate(cases):
                 main = (logn, logp) == timed_ring and i == 0
-                main15 = (logn, logp) == ring15 and i in retimed15(entry)
+                main15 = (logn, logp) == ring15 and (i in retimed15(entry)
+                                                    or case.get("boot15", False))
                 at_wide = case.get("wide") and (logn, logp) in (timed_ring, ring15)
                 phase = "kernels15" if main15 or (at_wide and (logn, logp) == ring15) else tag
                 out = {"phase": phase, "ring": [logn, logp]}
@@ -1312,8 +1454,7 @@ def phase_elementwise(iters: int, rings=((14, 59), (14, 29), (15, 59)), tag: str
                     elif main:
                         result[entry] = keep
                     else:
-                        at15[entry if i == retimed15(entry)[0] else
-                             f"{entry} {case['shape']}"] = keep
+                        at15[entry if entry not in at15 else f"{entry} {case['shape']}"] = keep
                 emit(out)
                 if not eq:
                     raise AssertionError(f"CUDA {entry} {case['shape']} at logn={logn} "
@@ -1417,17 +1558,20 @@ def profile_op(op: str, fn, host_ops: bool = True, warm: bool = True, **tags) ->
         return "ntt" in name and ("_pass" in name or "_kernel" in name)
     ntt_us = sum(v for k, v in by_name.items() if is_ntt(k))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    by_module = {}
+    by_module, modmath = {}, {}
     for e in kernels:
-        m = by_module.setdefault(kernel_module(e.name), {"launches": 0, "ms": 0.0})
-        m["launches"] += 1
-        m["ms"] += e.time_range.elapsed_us() / 1e3
+        for key, into in ((kernel_module(e.name), by_module), (modmath_entry(e.name), modmath)):
+            if key:
+                m = into.setdefault(key, {"launches": 0, "ms": 0.0})
+                m["launches"] += 1
+                m["ms"] += e.time_range.elapsed_us() / 1e3
     emit({"phase": "profile", "op": op, **tags, "wall_ms": wall_us / 1e3,
           "device_busy_ms": busy_us / 1e3,
           "idle_share": 1 - busy_us / wall_us, "device_kernels": len(kernels),
           "ntt_kernels": sum(1 for e in kernels if is_ntt(e.name)),
           "ntt_ms": ntt_us / 1e3, "ntt_share_of_busy": ntt_us / busy_us,
-          "by_module": by_module, "top_ms": [[k[:60], v / 1e3] for k, v in top]})
+          "by_module": by_module, "modmath_by_entry": modmath,
+          "top_ms": [[k[:60], v / 1e3] for k, v in top]})
 
 
 def kernel_module(name: str) -> str:
@@ -1448,6 +1592,20 @@ def kernel_module(name: str) -> str:
     if re.search(r"gemm|gemv|matmul", name, flags=re.I):
         return "matmul"
     return "other torch"
+
+
+def modmath_entry(name: str):
+    """The K5 entry a device kernel's name is (mm_ew_kernel by its op:
+    "mont_mul" covers to_mont; the sum by mode: "mulmod_sum" both modes
+    with products), or None for any other kernel."""
+    import re
+    m = re.search(r"(?<![A-Za-z_])mm_(ew|cross|keyprod|sum)_kernel(?:<(\d)>|ILi(\d)E)?", name)
+    if not m:
+        return None
+    mode = int(m.group(2) or m.group(3) or 0)
+    return {"ew": ("mont_mul", "mulmod", "addmod", "submod")[mode], "cross": "cross_terms",
+            "keyprod": "key_products",
+            "sum": "summod" if mode == 0 else "mulmod_sum"}[m.group(1)]
 
 
 def phase_mul_rs(iters: int) -> dict:
@@ -1600,15 +1758,17 @@ def phase_linalg(name: str, logp: int, iters: int, earlier: dict | None) -> dict
     dims_full = eng.gemv_dims(l, plan.bound_max_full(eng) * ctx.slots)
     dims_bsgs = plan.dims(eng, l)[:2]
     few = max(3, iters // 4)
+    pt2 = eng.ecd(m2)
     times = {
         "mul_rs_ms": cuda_ms(lambda: eng.mul_rs(ct, ct2, rlk), few),
+        "mulpt_ms": cuda_ms(lambda: eng.mulpt(ct, pt2), few),
         "rot_ms": cuda_ms(lambda: eng.rot(ct, 1, rk), few),
         "conj_ms": cuda_ms(lambda: eng.conj(ct, ck), few),
         "mul_rs_batch_ms_per_ct": cuda_ms(lambda: eng.mul_rs_batch(cts1, cts2, rlk), few) / BATCH,
         "gemv_full_ms": cuda_ms(lambda: linalg.gemv_hoisted(eng, plan, ct, rk), few),
         "gemv_bsgs_ms": cuda_ms(lambda: linalg.gemv_hoisted(eng, plan, ct, bank), few),
     }
-    for op, fn in (("rot", lambda: eng.rot(ct, 1, rk)),
+    for op, fn in (("mulpt", lambda: eng.mulpt(ct, pt2)), ("rot", lambda: eng.rot(ct, 1, rk)),
                    ("mul_rs_batch8", lambda: eng.mul_rs_batch(cts1, cts2, rlk)),
                    ("gemv_full", lambda: linalg.gemv_hoisted(eng, plan, ct, rk)),
                    ("gemv_bsgs", lambda: linalg.gemv_hoisted(eng, plan, ct, bank))):
@@ -2406,6 +2566,11 @@ def phase_bootstrap(iters: int) -> dict:
         raise AssertionError(f"bootstrap decode diff {diff} >= 1e-2")
     require_launches("bootstrap", launches, foreign)
     require_ew_launches("bootstrap", ew)
+    if any(k.startswith("modmath_") and " " in k for k in ew):       # counted by shape class
+        gone = [c for c in BOOT15_K5 if ew.get(boot15_key(*c), 0) <= 0]
+        if gone:
+            raise AssertionError(f"the bootstrap no longer launches K5 at the kernels15 shapes "
+                                 f"{gone}: update BOOT15_K5")
     return {"kernels": kernels, "launches": launches, "elementwise": ew,
             "objects": dict(ctx=ctx, eng=eng, sk=sk, rlk=rlk, ck=ck, rk=rk, ct=ct_top, boot=boot)}
 
@@ -2905,13 +3070,19 @@ def main(argv=None) -> int:
         return 0
     # an elementwise entry that no gated path launched (to_mont, summod: the
     # port's programs call neither) has its numbers on the kernels lines
-    # only; every NTT entry is listed and must have its count
+    # only; every NTT entry is listed and must have its count.  K5's entries
+    # carry their launches by shape class and logn too
     table = {**KERNELS, **EW_KERNELS}
+
+    def by_shape(name):
+        out = {k[len(name) + 1:]: v for k, v in ew_by_logn.items() if k.startswith(name + " ")}
+        return {"launches_by_shape": out} if out else {}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": table[name.split("_")[0]]["source"],
          "replaces": EW_REPLACES.get(name, table[name.split("_")[0]]["replaces"]),
          "launches": launches[name], "library_ms": None, **v,
-         **({"launches_by_logn": ew_by_logn[name]} if name in ew_by_logn else {})}
+         **({"launches_by_logn": ew_by_logn[name]} if name in ew_by_logn else {}),
+         **by_shape(name)}
         for name, v in kernels.items()
         if name.split("_")[0] not in EW_KERNELS or launches.get(name, 0) > 0]})
     emit({"ok": True, "device": {"platform": "gpu",

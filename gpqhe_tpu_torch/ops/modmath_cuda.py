@@ -13,6 +13,9 @@ Operands are [..., dim, n] residue stacks of u64 words in int64, broadcast
 against each other as torch would; per-prime constants (p, pinv, r2) are
 [dim, 1] (any shape that broadcasts to the operands along the prime axis
 only).  Views are read in place through their strides (cuda_build.strides3).
+The elementwise kernel's mulmod reduces once (Barrett) against a per-prime
+table made once per basis (barrett_table); the fused entries take two
+Montgomery products.  SHAPES counts the launches by shape class.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from __future__ import annotations
 import ctypes
 import os
 
+import numpy as np
 import torch
 
 from . import cuda_build
@@ -29,13 +33,21 @@ SOURCE = os.path.join(cuda_build.CSRC, "modmath.cu")
 LAUNCHES = {"mont_mul": 0, "to_mont": 0, "mulmod": 0, "addmod": 0, "submod": 0, "summod": 0,
             "cross_terms": 0, "key_products": 0, "mulmod_sum": 0}
 
+# mulmod's Barrett constants by prime table (barrett_table)
+_MU = {}
+
+# launches by shape class: (entry, the launch's broadcast shape, multipliers
+# of a sum), counted where LAUNCHES is
+SHAPES = {}
+
 OP = {"mont_mul": 0, "to_mont": 0, "mulmod": 1, "addmod": 2, "submod": 3}
 SUM_PLAIN, SUM_PRODUCTS, SUM_PRODUCTS_TIMES = 0, 1, 2
+EW_MAX_N = 1 << 30          # mm_ew_kernel indexes a row's words in 32 bits
 
 _VP, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _V3 = [_VP, _I64, _I64, _I64]             # an [A, dim, n] view
 _V4 = [_VP, _I64, _I64, _I64, _I64]       # an [M, A, dim, n] view
-_CONSTS = [_VP, _I64] * 3                 # p, pinv, r2 with their prime strides
+_CONSTS = [_VP, _I64] * 3                 # p, pinv, r2 (ew: mu) with their prime strides
 _ARGTYPES = {
     "gpqhe_modmath_ew": [_I32, _I64, _I64, _I64, _VP] + _V3 * 2 + _CONSTS + [_VP],
     "gpqhe_modmath_cross": [_I64, _I64, _I64, _VP] + _V4 + _CONSTS + [_VP],
@@ -49,6 +61,13 @@ _lib = None
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    SHAPES.clear()
+
+
+def _counted(entry: str, shape: tuple, nw: int = 0) -> None:
+    LAUNCHES[entry] += 1
+    key = (entry, shape, nw)
+    SHAPES[key] = SHAPES.get(key, 0) + 1
 
 
 def load_library() -> ctypes.CDLL:
@@ -121,16 +140,43 @@ def _check(rc: int, entry: str) -> None:
         raise RuntimeError(f"modmath kernel {entry} failed to launch: cudaError {rc}")
 
 
+def barrett_table(p, stride: int, dim: int) -> torch.Tensor:
+    """mulmod's per-prime constant mu = floor(2^(k+63) / p), k the bit length
+    of p, for the dim primes of the table p, stride words apart along the
+    prime axis (a contiguous [dim] on p's device): built once per basis from
+    the primes' values (one copy to the host), then looked up by the
+    primes' address, stride, count and device.  An entry holds p, so that
+    its memory, and with it the key, stays its own while the entry lives;
+    prime tables are constants, never written in place."""
+    key = (p.data_ptr(), stride, dim, p.device)
+    hit = _MU.get(key)
+    if hit is None:
+        primes = torch.as_strided(p, (dim,), (stride,), p.storage_offset())
+        mu = [(1 << (q.bit_length() + 63)) // q for q in
+              (int(v) for v in primes.cpu().numpy().view(np.uint64))]
+        hit = _MU[key] = (p, torch.from_numpy(np.array(mu, dtype=np.uint64).view(np.int64))
+                          .to(p.device))
+    return hit[1]
+
+
 def elementwise(entry: str, x, y, p, pinv=None, r2=None) -> torch.Tensor:
-    """One of mont_mul, to_mont, mulmod, addmod, submod on [..., dim, n]."""
+    """One of mont_mul, to_mont, mulmod, addmod, submod on [..., dim, n].
+    mulmod takes residues x, y < p and reduces once (Barrett) against
+    barrett_table(p); r2 is checked, not read.  mont_mul takes any u64 x
+    against y < p."""
     shape = cuda_build.broadcast_shape(x.shape, y.shape, p.shape)
+    if shape[-1] >= EW_MAX_N:
+        raise ValueError(f"the elementwise kernel takes rows of fewer than {EW_MAX_N} words, "
+                         f"got {shape[-1]}")
     args, keep, cargs = _checked(shape, 0, (x, y), (p, pinv, r2))
+    if entry == "mulmod":
+        cargs[4:6] = [barrett_table(p, cargs[1], shape[-2]).data_ptr(), 1]
     out = torch.empty(shape, dtype=torch.int64, device=x.device)
     if out.numel():
         _check(load_library().gpqhe_modmath_ew(
             OP[entry], *_grid(shape, 0), out.data_ptr(), *args, *cargs,
             cuda_build.stream_of(x.device)), entry)
-        LAUNCHES[entry] += 1
+        _counted(entry, shape)
     return out
 
 
@@ -145,7 +191,7 @@ def cross_terms(x, p, pinv, r2) -> torch.Tensor:
         _check(load_library().gpqhe_modmath_cross(
             *_grid(shape, 1), out.data_ptr(), *args, *cargs,
             cuda_build.stream_of(x.device)), "cross_terms")
-        LAUNCHES["cross_terms"] += 1
+        _counted("cross_terms", shape)
     return out
 
 
@@ -158,7 +204,7 @@ def key_products(x, e0, e1, p, pinv, r2) -> torch.Tensor:
         _check(load_library().gpqhe_modmath_keyprod(
             *_grid(shape, 0), out.data_ptr(), *args, *cargs,
             cuda_build.stream_of(x.device)), "key_products")
-        LAUNCHES["key_products"] += 1
+        _counted("key_products", shape)
     return out
 
 
@@ -180,5 +226,5 @@ def sums(entry: str, x, y, ws, p, pinv, r2) -> torch.Tensor:
         _check(load_library().gpqhe_modmath_sum(
             mode, shape[0], *_grid(shape, 1), out.data_ptr(), *args, *cargs,
             cuda_build.stream_of(x.device)), entry)
-        LAUNCHES[entry] += 1
+        _counted(entry, shape, len(ws))
     return out

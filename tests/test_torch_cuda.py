@@ -603,6 +603,26 @@ def test_cuda_row_kernels_at_tile_edges(cuda_device, entry):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["modmath_mulmod", "modmath_mont_mul", "modmath_addmod",
+                                   "modmath_submod", "modmath_to_mont"])
+def test_cuda_modmath_at_the_edges_of_its_design(cuda_device, entry):
+    """K5's elementwise kernel at the edges of its design (chip_smoke.py's
+    MODMATH_EDGES): rows and n that are not a multiple of a thread's 4 words
+    or a block's 1024, views one word off 16-byte alignment, stride-0
+    operands on each axis, the key bank's row and column slices, A past
+    65535, the three widths of prime, mont_mul on any u64 words; each
+    launch torch.equal to the plain version on the same CUDA tensors."""
+    from chip_smoke import ew_compare, ew_counters
+    cases = [c for c in _edge_cases(cuda_device) if c["entry"] == entry]
+    before = ew_counters()[entry]
+    for case in cases:
+        got, want = case["kern"](), case["plain"]()
+        torch.cuda.synchronize()
+        assert ew_compare(got, want)[0], case["shape"]
+    assert ew_counters()[entry] >= before + len(cases)
+
+
+@pytest.mark.cuda
 def test_cuda_elementwise_kernels_reject_bad_operands(cuda_device):
     from gpqhe_tpu_torch.ops import limbs, modmath, rns
     x = torch.zeros((3, 16), dtype=torch.int64, device=cuda_device)
