@@ -5,14 +5,15 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases, each printing JSON lines; any failure raises and the script exits
 non-zero:
-  build    — compile the five CUDA sources (csrc/ntt.cu, ntt32.cu, and the
-             elementwise kernels modmath.cu, rns.cu, limbs.cu) with nvcc
-             (sm_90a), one process each, started together, and load them;
+  build    — compile the six CUDA sources (csrc/ntt.cu, ntt32.cu, the
+             elementwise kernels modmath.cu, rns.cu, limbs.cu, and the
+             four-step NTT's ntt4.cu) with nvcc (sm_90a), one process each,
+             started together, and load them;
              the card's name and power limit from nvidia-smi; per kernel
              instantiation ptxas's registers, spills, stack and shared
              memory where this run built the source; for every K7, lift,
-             decompose, digit-split and K5 (modmath.cu) instantiation in
-             the libraries as loaded (`row_kernels`),
+             decompose, digit-split, K5 (modmath.cu) and K8 (ntt4.cu)
+             instantiation in the libraries as loaded (`row_kernels`),
              cuobjdump's registers, stack, shared and local memory, and a
              raise on any stack frame or local memory; static
              multiply-instruction counts from cuobjdump.
@@ -69,6 +70,24 @@ non-zero:
              (mulpt, rot, mul_rs_batch, both gemv routes), and the kernel
              against its twin at the gemv's shapes.  After both: a `chains` line,
              mul_rs on each chain in turns (59, 29, 29, 59).
+  ntt4     — K8, the four-step ("matmul") NTT's split and combine
+             (csrc/ntt4.cu) around the f64 digit GEMM (torch.bmm), against
+             their plain versions on the card: at the path's shapes on both
+             chains every step and the whole transform torch.equal, and the
+             round trip; the first shape of each mode timed (each step's
+             device ms, host µs, plain ms and bound; each GEMM against the
+             FP64 tensor-core bound; the whole transform beside the
+             butterfly kernel's at the same shape); at the edges (every logn
+             4-16, batches of 1 and 8, words all 0 or all p - 1, the logp=9
+             chain) and at combine's largest digit sums.  Then the path on
+             ntt_impl="matmul", each chain (keypair, genrlk, genck, genrk,
+             enc_pk, mul_rs, rot, conj, mulpt, mul_rs_batch(8), the classic
+             gemv, gemv_hoisted, dec, dcd): decodes within 1e-5, every
+             ciphertext torch.equal to a butterfly engine's from the same
+             stream, plan.fallbacks == 1, K8's launches > 0 and K1-K3's 0;
+             walls and keygen seconds on both backends, and `profile` lines
+             of mul_rs and rot on both with `by_module` splitting the four-
+             step NTT into ntt4 split / combine / gemm.
   suite    — the rest of the JAX package's test suite on the card, every gate
              raising: tests/test_crt_mode.py's logp=9 chain (six primes of
              10-11 bits at n=2^4, the u32 kernel): decompose, reconstruct
@@ -158,8 +177,9 @@ non-zero:
   cli      — `python -m gpqhe_tpu_torch mul pk` and `... exp` as
              subprocesses at their defaults on the card: exit code 0, an
              [ok] line, NTT launches > 0.
-Then: the nvidia-smi line, the per-kernel JSON line (the NTT's eighteen
-entries: the six of the logn=14 path, the u32 kernel's three on the logp=9
+Then: the nvidia-smi line, the per-kernel JSON line (K8's split and combine
+at the forward [4, 16, 2^14] with their launches over the ntt4 phase's
+paths; the NTT's eighteen entries: the six of the logn=14 path, the u32 kernel's three on the logp=9
 chain, the u64 kernel's three at the bootstrap's logn=15 shapes, and forward
 and inverse on per-shard plans for the u64 kernel, the u32 kernel and the u64
 kernel on the logn=15 mesh; then each elementwise entry that the gated paths
@@ -362,9 +382,9 @@ def ntt_bound(word: int, mode: str, shape) -> dict:
 
 
 def phase_build():
-    from gpqhe_tpu_torch.ops import (cuda_build, limbs_cuda, modmath_cuda, ntt_cuda, ntt_cuda32,
-                                     rns_cuda)
-    mods = (ntt_cuda, ntt_cuda32, modmath_cuda, rns_cuda, limbs_cuda)
+    from gpqhe_tpu_torch.ops import (cuda_build, limbs_cuda, modmath_cuda, ntt4_cuda, ntt_cuda,
+                                     ntt_cuda32, rns_cuda)
+    mods = (ntt_cuda, ntt_cuda32, modmath_cuda, rns_cuda, limbs_cuda, ntt4_cuda)
     t0 = time.time()
     cuda_build.build([m.SOURCE for m in mods])          # one nvcc each, all together
     for m in mods:
@@ -372,7 +392,7 @@ def phase_build():
     secs = time.time() - t0
     ptxas = {os.path.basename(src): ptxas_summary(log)
              for src, log in cuda_build.BUILD_LOGS.items()}
-    rows = row_kernel_resources(rns_cuda, limbs_cuda, modmath_cuda)
+    rows = row_kernel_resources(rns_cuda, limbs_cuda, modmath_cuda, ntt4_cuda)
     emit({"phase": "build", "seconds": secs, "gpu": gpu_line(), "ptxas": ptxas,
           "row_kernels": rows,
           "sass_multiplies": {os.path.basename(m.SOURCE):
@@ -386,8 +406,9 @@ def phase_build():
 # one chunk and of more, and its word kernel by word and by pair for
 # mask_bits and select; the lift on f64 and int64 digit sums at 1, 2 and 4
 # chunks, decompose and the digit split; K5's elementwise kernel by op, the
-# cross terms, the key products and the sum by mode
-ROW_KERNELS = {"limbs.cu": 20, "rns.cu": 8, "modmath.cu": 9}
+# cross terms, the key products and the sum by mode; K8's split by digit
+# planes (1-4) and transpose, its combine by digit planes
+ROW_KERNELS = {"limbs.cu": 20, "rns.cu": 8, "modmath.cu": 9, "ntt4.cu": 12}
 
 
 def resource_usage(library: str) -> dict:
@@ -413,15 +434,15 @@ def resource_usage(library: str) -> dict:
     return usage
 
 
-def row_kernel_resources(rns_cuda, limbs_cuda, modmath_cuda) -> dict:
+def row_kernel_resources(rns_cuda, limbs_cuda, modmath_cuda, ntt4_cuda) -> dict:
     """The resource usage (resource_usage) of every instantiation of K7 (all
     of limbs.cu's kernels), of rns.cu's (the CRT lift, decompose, the digit
-    split) and of K5 (all of modmath.cu's) in the libraries as loaded, built
-    in this run or earlier.  Raises unless each source has exactly
-    ROW_KERNELS of them."""
+    split), of K5 (all of modmath.cu's) and of K8 (all of ntt4.cu's) in the
+    libraries as loaded, built in this run or earlier.  Raises unless each
+    source has exactly ROW_KERNELS of them."""
     from gpqhe_tpu_torch.ops import cuda_build
     out, seen = {}, {}
-    for m in (limbs_cuda, rns_cuda, modmath_cuda):
+    for m in (limbs_cuda, rns_cuda, modmath_cuda, ntt4_cuda):
         src = os.path.basename(m.SOURCE)
         for fn, v in resource_usage(cuda_build.library_path(m.SOURCE)).items():
             if src != "rns.cu" or "rns_" in fn:
@@ -1554,13 +1575,13 @@ def profile_op(op: str, fn, host_ops: bool = True, warm: bool = True, **tags) ->
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    def is_ntt(name):
-        return "ntt" in name and ("_pass" in name or "_kernel" in name)
-    ntt_us = sum(v for k, v in by_name.items() if is_ntt(k))
+    modules = kernel_modules(kernels)
+    ntt_us = sum(e.time_range.elapsed_us() for e, m in zip(kernels, modules)
+                 if m.startswith("ntt"))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     by_module, modmath = {}, {}
-    for e in kernels:
-        for key, into in ((kernel_module(e.name), by_module), (modmath_entry(e.name), modmath)):
+    for e, module in zip(kernels, modules):
+        for key, into in ((module, by_module), (modmath_entry(e.name), modmath)):
             if key:
                 m = into.setdefault(key, {"launches": 0, "ms": 0.0})
                 m["launches"] += 1
@@ -1568,7 +1589,7 @@ def profile_op(op: str, fn, host_ops: bool = True, warm: bool = True, **tags) ->
     emit({"phase": "profile", "op": op, **tags, "wall_ms": wall_us / 1e3,
           "device_busy_ms": busy_us / 1e3,
           "idle_share": 1 - busy_us / wall_us, "device_kernels": len(kernels),
-          "ntt_kernels": sum(1 for e in kernels if is_ntt(e.name)),
+          "ntt_kernels": sum(1 for m in modules if m.startswith("ntt")),
           "ntt_ms": ntt_us / 1e3, "ntt_share_of_busy": ntt_us / busy_us,
           "by_module": by_module, "modmath_by_entry": modmath,
           "top_ms": [[k[:60], v / 1e3] for k, v in top]})
@@ -1576,13 +1597,16 @@ def profile_op(op: str, fn, host_ops: bool = True, warm: bool = True, **tags) ->
 
 def kernel_module(name: str) -> str:
     """The module whose kernel a device kernel's name is: ntt (csrc/ntt*.cu),
-    modmath, "rns <entry>" (decompose, digit_split or lift) or limbs (the
+    "ntt4 split" or "ntt4 combine" (csrc/ntt4.cu), modmath, "rns <entry>" (decompose, digit_split or lift) or limbs (the
     elementwise kernels, named by their prefix), "matmul" (torch's matrix
     products: the f64 digit matmuls of the reconstructs), else "other torch"
     (torch's other kernels: copies, stacks, the plain chains)."""
     import re
     if re.search(r"(?<![A-Za-z_])ntt_(col|row)_pass", name):
         return "ntt"
+    m = re.search(r"(?<![A-Za-z_])ntt4_(split|combine)_kernel", name)
+    if m:
+        return f"ntt4 {m.group(1)}"
     m = re.search(r"(?<![A-Za-z_])rns_(decompose|digit_split|lift)_kernel", name)
     if m:
         return f"rns {m.group(1)}"
@@ -1592,6 +1616,27 @@ def kernel_module(name: str) -> str:
     if re.search(r"gemm|gemv|matmul", name, flags=re.I):
         return "matmul"
     return "other torch"
+
+
+def kernel_modules(events) -> list:
+    """kernel_module of each device kernel event, with torch's kernels that
+    run between a K8 split and the next K8 combine on the stream (the
+    four-step NTT's digit GEMM) as "ntt4 gemm", apart from the
+    reconstructs' "matmul"; a matrix product right before a K8 combine is
+    one too (the profiler drops an event now and then, a split among
+    them)."""
+    out = [kernel_module(e.name) for e in events]
+    order = sorted(range(len(events)), key=lambda i: events[i].time_range.start)
+    inside = False
+    for k, i in enumerate(order):
+        if out[i] == "ntt4 split":
+            inside = True
+        elif out[i] == "ntt4 combine":
+            inside = False
+        elif inside or (out[i] == "matmul" and k + 1 < len(order)
+                        and out[order[k + 1]] == "ntt4 combine"):
+            out[i] = "ntt4 gemm"
+    return out
 
 
 def modmath_entry(name: str):
@@ -2954,8 +2999,383 @@ def phase_suite(iters: int, linalg59: dict | None) -> dict:
     return {"kernels": kernels, "launches": {f"ntt32p9_{k}": v for k, v in launches.items()}}
 
 
-PHASES = ("build", "kernels", "golden", "mul_rs", "linalg59", "linalg29", "suite", "mesh",
-          "mesh_mp", "nonlinear", "cmp", "bootstrap", "serialize", "cli")
+# ---------------------------------------------------------------------------
+# K8 (csrc/ntt4.cu): the four-step ("matmul") NTT's split and combine around
+# the f64 digit GEMM, and the engine on that backend
+# ---------------------------------------------------------------------------
+
+KERNELS["ntt4"] = {"source": "gpqhe_tpu_torch/csrc/ntt4.cu",
+                   "replaces": "gpqhe_tpu/ops/ntt4.py:130"}
+# the JAX code each entry stands in for: _moddot's digit planes (with the
+# pre-twist and the transpose), its sums, carries and reduction (with the
+# twiddle, the untwist and phat^-1)
+NTT4_REPLACES = {"ntt4_split": "gpqhe_tpu/ops/ntt4.py:132",
+                 "ntt4_combine": "gpqhe_tpu/ops/ntt4.py:146"}
+# the main path's transforms at logn=14 by chain, (mode, leading axes and
+# primes): the butterfly path's shapes; the first of each mode timed
+NTT4_PATH = {logp: [(mode, shape[:-1]) for mode, shape in CASES[k] if shape[-1] == N14]
+             for logp, k in ((59, "ntt"), (29, "ntt32"))}
+PEAK_F64_TC_S = 67e12      # FP64 on the tensor cores, dense (NVIDIA's data sheet)
+
+
+def ntt4_edge_cases(max_logn: int = 16) -> list:
+    """K8 at the edges of its design: every logn from 4 to max_logn on both
+    chains (odd logn: n1 != n2, e.g. 15: 128 x 256), a batch of 1 and of 8,
+    words all 0, all p - 1 or random, each mode; the logp=9 chain (one digit
+    plane) at its ring.  A case names the ring (context arguments), dim, the
+    leading axes, the mode and the fill; ntt4_input makes its words."""
+    cases = []
+    for logp in (59, 29):
+        for logn in range(4, max_logn + 1):
+            for mode, lead, fill in (("fwd", (1,), "pmax"), ("fwd", (8,), "zero"),
+                                     ("inv", (8,), "random"), ("inv_scaled", (1,), "pmax")):
+                cases.append(dict(logp=logp, logn=logn, dim=3, lead=lead, mode=mode, fill=fill,
+                                  ctx=dict(q=1 << 20, logp=logp, dim_cap=8)))
+    for mode in MODES:
+        for fill in ("pmax", "random"):
+            cases.append(dict(logp=9, logn=4, dim=6, lead=(2,), mode=mode, fill=fill,
+                              ctx=dict(CRT_CHAIN)))
+    for c in cases:
+        c["id"] = f"p{c['logp']}-n{c['logn']}-{c['mode']}-b{c['lead'][0]}-{c['fill']}"
+    return cases
+
+
+def ntt4_input(case, plan, device):
+    """The case's [*lead, dim, n] residues on the device."""
+    import numpy as np
+    import torch
+    from gpqhe_tpu_torch.ops.modmath import torch_to_u64
+    ps = torch_to_u64(plan.ps)[:, None]
+    shape = tuple(case["lead"]) + (plan.dim, plan.n1 * plan.n2)
+    if case["fill"] == "zero":
+        x = np.zeros(shape, dtype=np.uint64)
+    elif case["fill"] == "pmax":
+        x = np.broadcast_to(ps - np.uint64(1), shape).copy()
+    else:
+        rng = np.random.default_rng(100 * case["logn"] + case["logp"])
+        x = rng.integers(0, 1 << 62, size=shape, dtype=np.uint64) % ps
+    return torch.from_numpy(x.view(np.int64)).to(device)
+
+
+def ntt4_compare(x, plan, mode: str):
+    """K8 against its plain version on one transform: each of its four steps
+    (split, combine, split, combine) run by the kernel and by the plain
+    version on the same inputs, the kernel's output handed on, then the
+    whole kernel transform against the plain one.  Returns (every step and
+    the whole equal, [(entry, args, kernel output)], the transform)."""
+    import torch
+    from gpqhe_tpu_torch.ops import ntt4, ntt4_cuda
+    steps, eq = [], []
+
+    def step(entry, kern, plain):
+        def run(*a):
+            got = kern(*a)
+            eq.append(bool(torch.equal(got, plain(*a))))
+            steps.append((entry, a, got))
+            return got
+        return run
+    inverse = mode != "fwd"
+    scale = plan.phatinv if mode == "inv_scaled" else None
+    ntt4.transform(x, plan, inverse, scale,
+                    step("ntt4_split", ntt4_cuda.split, ntt4.plain_ntt4_split),
+                    step("ntt4_combine", ntt4_cuda.combine, ntt4.plain_ntt4_combine))
+    if inverse:
+        got = ntt4.kernel_intt4(x, plan, scale is not None)
+        want = ntt4.plain_intt4(x, plan, scale is not None)
+    else:
+        got, want = ntt4.kernel_ntt4(x, plan), ntt4.plain_ntt4(x, plan)
+    eq.append(bool(torch.equal(got, want)))
+    return all(eq), steps, got
+
+
+def ntt4_max_sums(plan, P: int, device):
+    """combine's largest digit sums: every product entry at its bound
+    256 (2^16 - 1)^2 (k = 256, logn = 16), P planes a side, B = 2, with the
+    untwist table and phat^-1; returns combine's arguments."""
+    import dataclasses
+    import torch
+    plan = dataclasses.replace(plan, planes=P)
+    m, j = plan.n1, plan.n2
+    y = torch.full((plan.dim, P * m, 2 * P * j), float(256 * 65535 ** 2), dtype=torch.float64,
+                   device=device)
+    return (y, plan, (2,), m, j, plan.twist_i, plan.phatinv)
+
+
+def ntt4_bound(entry: str, args) -> dict:
+    """The least time of one launch: every input byte read once and every
+    output byte written once (split: a word, its table word, P f64 planes;
+    combine: its P^2 f64 products, its table word, a word), against the
+    Montgomery products (IMAD_MONT each: split's pre-multiply; combine's
+    NL reductions and its post-multiplies)."""
+    import math
+    from gpqhe_tpu_torch.ops.ntt4 import limbs_of
+    if entry == "ntt4_split":
+        x, plan, _, _, _, table = args
+        N = x.numel()
+        nbytes = 8 * N * (1 + plan.planes) + (8 * table.numel() if table is not None else 0)
+        imad = N * IMAD_MONT * (table is not None)
+    else:
+        y, plan, lead, m, j, table, scale = args
+        N = math.prod(lead) * plan.dim * m * j
+        nbytes = 8 * (y.numel() + N) + (8 * table.numel() if table is not None else 0)
+        imad = N * IMAD_MONT * (limbs_of(plan.planes) + (table is not None)
+                                + (scale is not None))
+    return ew_bound({"bytes": nbytes, "imad": imad})
+
+
+def gemm_bound(w, x) -> dict:
+    """The digit GEMM's least time: its flops at the FP64 tensor-core rate,
+    or its operands and product once over the memory rate."""
+    flops = 2 * w.shape[0] * w.shape[1] * w.shape[2] * x.shape[2]
+    t_ops = flops / PEAK_F64_TC_S * 1e3
+    nbytes = 8 * (w.numel() + x.numel() + w.shape[0] * w.shape[1] * x.shape[2])
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes
+            else "bytes", "flops": flops, "operations_ms": t_ops, "bytes_ms": t_bytes}
+
+
+def ntt4_time(x, plan, mode: str, steps, bring, iters: int) -> dict:
+    """The transform's launches timed on the card as the NTT's are (device ms
+    in two turns, host µs, the plain version's ms, the bound), its two GEMMs
+    (device ms against the FP64 tensor-core bound), and the whole transform
+    beside the butterfly kernel's at the same shape (bring: the butterfly
+    ring on the same primes)."""
+    import torch
+    from gpqhe_tpu_torch.ops import ntt4, ntt4_cuda
+    few = max(3, iters // 4)
+    kern = {"ntt4_split": ntt4_cuda.split, "ntt4_combine": ntt4_cuda.combine}
+    plain = {"ntt4_split": ntt4.plain_ntt4_split, "ntt4_combine": ntt4.plain_ntt4_combine}
+    out = {"steps": []}
+    for entry, args, _ in steps:
+        runs = [device_ms_runs(lambda f=kern[entry], a=args: f(*a), iters) for _ in range(2)]
+        out["steps"].append({
+            "entry": entry, "ms": median(runs[0] + runs[1]), "turn_ms": [median(r) for r in runs],
+            "host_us": host_us(lambda f=kern[entry], a=args: f(*a)),
+            "plain_ms": cuda_ms(lambda f=plain[entry], a=args: f(*a), few),
+            "table": args[-1 if entry == "ntt4_split" else -2] is not None,
+            **({"transpose": args[4]} if entry == "ntt4_split" else
+               {"scale": args[-1] is not None}),
+            **ntt4_bound(entry, args)})
+    ws = ((plan.w2dig_i, plan.w1dig_i) if mode != "fwd" else (plan.w1dig, plan.w2dig))
+    xs = [got for entry, _, got in steps if entry == "ntt4_split"]
+    out["gemm"] = []
+    for w, xx in zip(ws, xs):
+        b = gemm_bound(w, xx)
+        ms = median(device_ms_runs(lambda w=w, xx=xx: torch.bmm(w, xx), iters))
+        out["gemm"].append({"ms": ms, "tflop_s": b["flops"] / ms / 1e9, **b})
+    scaled = mode == "inv_scaled"
+    if mode == "fwd":
+        def whole():
+            return ntt4.kernel_ntt4(x, plan)
+
+        def butterfly():
+            return bring.ntt_mod.ntt(x, bring.ntt_plan(plan.dim))
+    else:
+        def whole():
+            return ntt4.kernel_intt4(x, plan, scaled)
+
+        def butterfly():
+            return bring.ntt_mod.intt(x, bring.ntt_plan(plan.dim), scaled=scaled)
+    out["transform_ms"] = median(device_ms_runs(whole, iters))
+    out["transform_host_us"] = host_us(whole)
+    out["butterfly_ms"] = median(device_ms_runs(butterfly, iters))
+    out["gemm_share"] = sum(g["ms"] for g in out["gemm"]) / out["transform_ms"]
+    return out
+
+
+NTT4_RING = dict(logn=14, q=1 << 438, slots=16, Delta=1 << 50)      # configuration (a)
+
+
+def ntt4_path(logp: int, iters: int, ring: dict = NTT4_RING, device=None) -> dict:
+    """The slice's path on the four-step backend at the ring (logn=14/
+    logq=438/slots=16/Delta=2^50) on the logp-bit chain, the engine built
+    with no device argument (device: the CPU rehearsal's) and
+    ntt_impl="matmul": keypair, genrlk, genck, genrk (16
+    keys), ecd + enc_pk, mul_rs, rot, conj, mulpt, mul_rs_batch (8), the
+    classic gemv, gemv_hoisted (which falls back to it here, as in JAX),
+    dec, dcd; first the same sequence on a butterfly engine from the same
+    Surf stream.  Gates: decodes within 1e-5; every ciphertext torch.equal
+    to the butterfly engine's (gemv_hoisted to its classic gemv);
+    plan.fallbacks == 1; over the matmul
+    engine's run (counters zeroed just before it, read just after) K8's
+    launches > 0, every elementwise kernel's > 0, K1-K3's 0.  Then walls,
+    keygen seconds and profiles of mul_rs and rot on both engines."""
+    import warnings
+
+    import numpy as np
+    import torch
+    from gpqhe_tpu_torch.algo import linalg
+    from gpqhe_tpu_torch.context import HeContext
+    from gpqhe_tpu_torch.ops import ntt4_cuda
+    from gpqhe_tpu_torch.ring import sample as smp
+    from gpqhe_tpu_torch.scheme.engine import CKKS
+    from gpqhe_tpu_torch.substrate.surf import Surf
+
+    BATCH = 8
+    ctx = HeContext(**ring, logp=logp)
+    slots = ctx.slots
+
+    def run(impl: str) -> dict:
+        t0 = time.time()
+        eng = CKKS(ctx, rng=Surf(), device=device, ntt_impl=impl)   # None: the card
+        if device is None and eng.device.type != "cuda":
+            raise AssertionError(f"CKKS(ctx, ntt_impl={impl!r}) chose {eng.device}")
+        pk, sk = eng.keypair()
+        rlk, ck, rk = eng.genrlk(sk), eng.genck(sk), eng.genrk(sk)
+        torch.cuda.synchronize()
+        keygen_s = time.time() - t0
+        v, m2 = smp.sample_z01vec(eng.rng, slots), smp.sample_z01vec(eng.rng, slots)
+        A = smp.sample_z01vec(eng.rng, slots * slots)
+        rng = np.random.default_rng(438)
+        ms = rng.random((BATCH, 2, slots)) + 1j * rng.random((BATCH, 2, slots))
+        ct, ct2 = eng.enc_pk(eng.ecd(v), pk), eng.enc_pk(eng.ecd(m2), pk)
+        cts1 = [eng.enc_pk(eng.ecd(m[0]), pk) for m in ms]
+        cts2 = [eng.enc_pk(eng.ecd(m[1]), pk) for m in ms]
+        plan = linalg.HoistedGemvPlan(eng, A)
+        Av = A.reshape(slots, slots) @ v
+        out = {"mul_rs": (eng.mul_rs(ct, ct2, rlk), v * m2),
+               "rot": (eng.rot(ct, 1, rk), np.roll(v, -1)),
+               "conj": (eng.conj(ct, ck), np.conj(v)),
+               "mulpt": (eng.rs(eng.mulpt(ct, eng.ecd(m2))), v * m2),
+               "gemv_classic": (linalg.gemv(eng, None, ct, rk, plan=plan), Av)}
+        for i, c in enumerate(eng.mul_rs_batch(cts1, cts2, rlk)):
+            out[f"batch{i}"] = (c, ms[i, 0] * ms[i, 1])
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out["gemv_hoisted"] = (linalg.gemv_hoisted(eng, plan, ct, rk), Av)
+        diffs = {k: float(np.max(np.abs(eng.dcd(eng.dec(c, sk)) - want)))
+                 for k, (c, want) in out.items()}
+        torch.cuda.synchronize()
+        return {"eng": eng, "cts": {k: c for k, (c, _) in out.items()}, "diffs": diffs,
+                "fallbacks": plan.fallbacks, "keygen_s": keygen_s,
+                "warned": sum("falling back" in str(w.message) for w in caught),
+                "ops": {"mul_rs": lambda: eng.mul_rs(ct, ct2, rlk),
+                        "rot": lambda: eng.rot(ct, 1, rk)}}
+
+    ref = run("butterfly")
+    mine, other = chain_counters(logp)
+    ntt4_cuda.reset_launches()
+    ew_reset()
+    got = run("matmul")
+    k8, ew = {f"ntt4_{k}": v for k, v in ntt4_cuda.LAUNCHES.items()}, ew_counters()
+    butterfly_launches = {**dict(mine), **{f"other_{k}": v for k, v in other.items()}}
+
+    # the matmul engine's gemv_hoisted is the classic gemv (the butterfly
+    # engine's hoists: another algorithm, another ciphertext)
+    same = {k: ref["cts"]["gemv_classic" if k == "gemv_hoisted" else k] for k in got["cts"]}
+    unequal = {k: equal_cts(c, same[k]) for k, c in got["cts"].items()
+               if not (torch.equal(c.c0, same[k].c0) and torch.equal(c.c1, same[k].c1)
+                       and (c.l, c.nu, c.B) == (same[k].l, same[k].nu, same[k].B))}
+    few = max(3, iters // 4)
+    walls = {f"{op}_ms": {impl: cuda_ms(r["ops"][op], few) for impl, r in
+                          (("butterfly", ref), ("matmul", got))} for op in ("mul_rs", "rot")}
+    emit({"phase": "ntt4", "path": True, "logp": logp, "logn": ctx.poly.logn,
+          "logq": ctx.q[ctx.L].bit_length() - 1, "slots": slots,
+          "logDelta": int(ctx.Delta).bit_length() - 1, "L": ctx.L, "decode_diffs": got["diffs"],
+          "butterfly_decode_diffs": ref["diffs"], "fallbacks": got["fallbacks"],
+          "fallback_warnings": got["warned"], "ciphertexts_equal_butterfly": not unequal,
+          "unequal": unequal, "keygen_s": {"butterfly": ref["keygen_s"], "matmul": got["keygen_s"]},
+          **walls, "launches": k8, "butterfly_ntt_launches": butterfly_launches,
+          "elementwise_launches": {k: v for k, v in ew.items() if v},
+          "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20})
+    bad = {k: d for k, d in got["diffs"].items() if not d < 1e-5}
+    if bad:
+        raise AssertionError(f"ntt4 path logp={logp}: decode diffs {bad} >= 1e-5")
+    if unequal:
+        raise AssertionError(f"ntt4 path logp={logp}: ciphertexts differ from the butterfly "
+                             f"engine's: {unequal}")
+    if got["fallbacks"] != 1 or ref["fallbacks"] != 0:
+        raise AssertionError(f"ntt4 path logp={logp}: gemv_hoisted fallbacks "
+                             f"{got['fallbacks']} (matmul), {ref['fallbacks']} (butterfly)")
+    if any(v <= 0 for v in k8.values()) or any(butterfly_launches.values()):
+        raise AssertionError(f"ntt4 path logp={logp}: K8 launches {k8}, "
+                             f"butterfly NTT launches {butterfly_launches}")
+    require_ew_launches(f"ntt4 path logp={logp}", ew)
+    for op in ("mul_rs", "rot"):
+        for impl, r in (("butterfly", ref), ("matmul", got)):
+            profile_op(op, r["ops"][op], impl=impl, logp=logp)
+    return {"launches": k8, "elementwise": ew}
+
+
+def phase_ntt4(iters: int) -> dict:
+    """K8 against its plain version at the path's shapes on both chains (each
+    step and the whole transform torch.equal, the round trip), the first
+    shape of each mode timed (ntt4_time); then at its edges
+    (ntt4_edge_cases, every logn 4-16) and at combine's largest digit sums
+    for P = 1..4; then the slice's path on both chains (ntt4_path).  Returns
+    K8's kernel-line entries (the 59-bit chain's forward [4, 16, 2^14]: its
+    first split and combine), their launches over the paths, and the
+    elementwise launches."""
+    import numpy as np
+    import torch
+    from gpqhe_tpu_torch.context import PolyContext
+    from gpqhe_tpu_torch.ops import ntt4, ntt4_cuda
+    from gpqhe_tpu_torch.ring.poly import RingEngine
+
+    dev = torch.device("cuda")
+    result = {}
+    for logp in (59, 29):
+        ring = RingEngine(PolyContext(14, 1 << 438, logp=logp), device=dev, ntt_impl="matmul")
+        bring = kernel_ring("ntt" if logp == 59 else "ntt32", 14, 16)
+        rng = np.random.default_rng(logp + 4)
+        timed = set()
+        for mode, lead_dim in NTT4_PATH[logp]:
+            plan = ring.ntt4_plan(lead_dim[-1])
+            ps = torch.from_numpy(np.asarray(ring.pctx.primes[:plan.dim], dtype=np.int64))
+            x = (torch.from_numpy(rng.integers(0, 1 << 62, size=lead_dim + (N14,),
+                                                dtype=np.int64)) % ps[:, None]).to(dev)
+            equal, steps, fwd = ntt4_compare(x, plan, mode)
+            back = (ntt4.kernel_intt4(fwd, plan) if mode == "fwd" else
+                    ntt4.kernel_ntt4(ntt4.kernel_intt4(x, plan), plan))
+            round_trip = bool(torch.equal(back, x))
+            line = {"phase": "ntt4", "logp": logp, "mode": mode, "shape": list(lead_dim) + [N14],
+                    "planes": plan.planes, "equal": equal, "round_trip": round_trip}
+            if mode not in timed:
+                timed.add(mode)
+                line.update(ntt4_time(x, plan, mode, steps, bring, iters))
+                if logp == 59 and mode == "fwd":
+                    for entry in ("ntt4_split", "ntt4_combine"):
+                        s = next(s for s in line["steps"] if s["entry"] == entry)
+                        result[entry] = {"max_abs_err": 0.0, "shape": line["shape"],
+                                         **{k: s[k] for k in ("ms", "host_us", "plain_ms",
+                                                              "bound_ms", "bound_by")}}
+            emit(line)
+            if not (equal and round_trip):
+                raise AssertionError(f"K8 {mode} {line['shape']} logp={logp}: equal={equal}, "
+                                     f"round trip={round_trip}")
+    plans, n_edges = {}, 0
+    for case in ntt4_edge_cases():
+        key = (case["logp"], case["logn"])
+        if key not in plans:
+            plans[key] = ntt4.make_ntt4_plan(PolyContext(case["logn"], **case["ctx"]),
+                                             case["dim"], dev)
+        plan = plans[key]
+        x = ntt4_input(case, plan, dev)
+        equal, _, fwd = ntt4_compare(x, plan, case["mode"])
+        if case["mode"] == "fwd":
+            equal = equal and bool(torch.equal(ntt4.kernel_intt4(fwd, plan), x))
+        n_edges += 1
+        if not equal:
+            emit({"phase": "ntt4", "edge": case["id"], "equal": False})
+            raise AssertionError(f"K8 differs from its plain version at the edge {case['id']}")
+    for P in (1, 2, 3, 4):
+        args = ntt4_max_sums(plans[(59, 16)], P, dev)
+        if not torch.equal(ntt4_cuda.combine(*args), ntt4.plain_ntt4_combine(*args)):
+            raise AssertionError(f"K8 combine differs at its largest digit sums, P={P}")
+    emit({"phase": "ntt4", "summary": "edges", "cases": n_edges, "equal": True,
+          "max_sums_planes": [1, 2, 3, 4]})
+    launches, ew_total = {}, {}
+    for logp in (59, 29):
+        r = ntt4_path(logp, iters)
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        for k, v in r["elementwise"].items():
+            ew_total[k] = ew_total.get(k, 0) + v
+    return {"kernels": result, "launches": launches, "elementwise": ew_total}
+
+
+PHASES = ("build", "kernels", "golden", "mul_rs", "linalg59", "linalg29", "ntt4", "suite",
+          "mesh", "mesh_mp", "nonlinear", "cmp", "bootstrap", "serialize", "cli")
 
 
 def main(argv=None) -> int:
@@ -3021,6 +3441,12 @@ def main(argv=None) -> int:
         emit({"phase": "chains", "order": list(order),
               "mul_rs_ms": [cuda_ms(chains[logp]["mul_rs"], args.iters) for logp in order]})
     clock("linalg")
+    if "ntt4" in phases:
+        r = phase_ntt4(args.iters)
+        add_ew(r["elementwise"])
+        kernels.update(r["kernels"])
+        launches.update(r["launches"])
+        clock("ntt4")
     if "suite" in phases:
         r = phase_suite(args.iters, chains.get(59))
         kernels.update(r["kernels"])
@@ -3079,7 +3505,8 @@ def main(argv=None) -> int:
         return {"launches_by_shape": out} if out else {}
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": table[name.split("_")[0]]["source"],
-         "replaces": EW_REPLACES.get(name, table[name.split("_")[0]]["replaces"]),
+         "replaces": {**EW_REPLACES, **NTT4_REPLACES}.get(name,
+                                                          table[name.split("_")[0]]["replaces"]),
          "launches": launches[name], "library_ms": None, **v,
          **({"launches_by_logn": ew_by_logn[name]} if name in ew_by_logn else {}),
          **by_shape(name)}

@@ -208,7 +208,7 @@ def gemv_hoisted_full(eng: CKKS, plan: HoistedGemvPlan, ct: Ciphertext,
         return None
     bnd_sum = plan.bound_max_full(eng) * slots
     dims_h, dimc = eng.gemv_dims(l, bnd_sum)
-    if dims_h > eng.dimswk_h:
+    if dims_h > eng.dimswk_h or eng.ring.ntt_impl == "matmul":
         return None
     pts = plan.pts_full(eng)
     nu_max = max(pt.nu for pt in pts.values())
@@ -238,16 +238,18 @@ def gemv_hoisted(eng: CKKS, plan: HoistedGemvPlan, ct: Ciphertext,
     if full is not None:
         return full
     l = ct.l
-    if eng.gemv_dims(l, plan.bound_max() * plan.n1)[0] > eng.dimswk_h:
-        # plaintext scale exceeds the switch-key hoisting margin — classic
-        # path.  This is a LARGE perf cliff (n1 key switches per giant step
-        # instead of 1), so it is loud: one warning + a counter on the plan.
+    if (eng.gemv_dims(l, plan.bound_max() * plan.n1)[0] > eng.dimswk_h
+            or eng.ring.ntt_impl == "matmul"):
+        # plaintext scale exceeds the switch-key hoisting margin (or the
+        # backend's NTT ordering has no permutation tables) — classic path.
+        # This is a LARGE perf cliff (n1 key switches per giant step instead
+        # of 1), so it is loud: one warning + a counter on the plan.
         import warnings
         plan.fallbacks += 1
         warnings.warn(
             f"hoisted gemv falling back to the classic path at level {l} "
             f"(dim_hoist={eng.dim_hoist(l, plan.bound_max() * plan.n1)} > "
-            f"dimswk_h={eng.dimswk_h}); "
+            f"dimswk_h={eng.dimswk_h} or ntt_impl={eng.ring.ntt_impl!r}); "
             "raise hoist_bits at engine construction to keep hoisting",
             stacklevel=2)
         return gemv(eng, None, ct, rk, plan=plan)

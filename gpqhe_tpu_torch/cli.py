@@ -4,10 +4,13 @@ binary surface (ref: tests/gpqhe.c:1277-1408) and gpqhe_tpu/cli.py:
     python -m gpqhe_tpu_torch <op> [sk|pk] [--logn=..] [--logq=..] [--slots=..]
                              [--logDelta=..] [--iter=..] [--alpha=..] [--idx=..]
                              [--logp=29] [--device=cuda|cpu]
+                             [--impl=butterfly|matmul|pallas]
                              [--mesh=LxSxB[:virtual]]
 
 --device defaults to cuda, and the engine raises where there is no card;
 --logp=29 selects the 30-bit prime chain (and with it the u32 NTT kernel).
+--impl selects the NTT backend (default butterfly; pallas is the same
+butterfly NTT; matmul the four-step NTT of ops/ntt4.py, not on a mesh).
 --mesh=LxSxB runs the key-switch-heavy ops on a (limb, coeff, batch) mesh of
 L*S*B distinct GPUs (parallel/engine.py) and returns 2 where the machine has
 fewer; --mesh=LxSxB:virtual makes the mesh on the one --device, repeated.
@@ -38,7 +41,8 @@ NONLINEAR_OPS = ("exp", "log", "sigmoid", "inv", "sqrt", "cmp", "rlsin")
 def set_params(op: str, args: list[str]) -> dict:
     """Default parameter selection (ref: tests/gpqhe.c:1277-1345)."""
     p = dict(logn=14, logq=438, slots=16, logDelta=50, iter=5, alpha=2, idx=0,
-             logp=params.LOGP, device="cuda", mesh=None, mesh_virtual=False)
+             logp=params.LOGP, device="cuda", impl="butterfly", mesh=None,
+             mesh_virtual=False)
     if op in NONLINEAR_OPS or op in ("coeff2slot", "bootstrap"):
         p.update(slots=4, logDelta=30)
     if op == "sqrt":
@@ -59,6 +63,8 @@ def set_params(op: str, args: list[str]) -> dict:
                 p[key] = int(a.split("=", 1)[1])
         if a.startswith("--device="):
             p["device"] = a.split("=", 1)[1]
+        if a.startswith("--impl="):
+            p["impl"] = a.split("=", 1)[1]
         if a.startswith("--mesh="):
             # LxSxB over (limb, coeff, batch), ":virtual" for a mesh that
             # repeats the one device
@@ -82,7 +88,8 @@ def main(argv: list[str] | None = None) -> int:
     if not argv or argv[0] not in OPS:
         print(f"usage: python -m gpqhe_tpu_torch <{'/'.join(OPS)}> [sk/pk] "
               f"--logn=num --logq=num --slots=num --logDelta=num --iter=num "
-              f"--logp=29 --device=cuda|cpu --mesh=LxSxB[:virtual]")
+              f"--logp=29 --device=cuda|cpu --impl=butterfly|matmul|pallas "
+              f"--mesh=LxSxB[:virtual]")
         return 1
     op = argv[0]
     key = argv[1] if len(argv) > 1 and argv[1] in ("sk", "pk") else "sk"
@@ -91,6 +98,14 @@ def main(argv: list[str] | None = None) -> int:
     if p["device"] not in ("cuda", "cpu"):
         print(f"--device={p['device']}: expected cuda or cpu")
         return 1
+    if p["impl"] not in ("butterfly", "matmul", "pallas"):
+        print(f"--impl={p['impl']}: expected butterfly, matmul or pallas")
+        return 1
+    if p["impl"] == "matmul" and p["mesh"]:
+        # the mesh's sharded programs run the butterfly NTT (MeshCKKS refuses)
+        print("--impl=matmul does not run on a mesh: the sharded programs use the "
+              "butterfly NTT's order; drop --mesh or use --impl=butterfly")
+        return 2
 
     from .algo import linalg, nonlinear
     from .context import HeContext
@@ -123,7 +138,8 @@ def main(argv: list[str] | None = None) -> int:
         eng = MeshCKKS(ctx, mesh, rng=Surf())
     else:
         # "cuda" is the engine's own default: it raises where there is no card
-        eng = CKKS(ctx, rng=Surf(), device=None if p["device"] == "cuda" else "cpu")
+        eng = CKKS(ctx, rng=Surf(), device=None if p["device"] == "cuda" else "cpu",
+                   ntt_impl=p["impl"])
     show_ctx_params(ctx)
     m0 = smp.sample_z01vec(eng.rng, ctx.slots)
 
@@ -241,9 +257,12 @@ def main(argv: list[str] | None = None) -> int:
             ok = check_diff("bootstrap", eng.dcd(eng.dec(out, sk)), m0, tol=1e-2)
     if eng.device.type == "cuda":
         import torch
-        from .ops import ntt_cuda, ntt_cuda32
-        counts = (ntt_cuda32.LAUNCHES32 if eng.ring.ntt_mod is ntt_cuda32
-                  else ntt_cuda.LAUNCHES)
+        from .ops import ntt4_cuda, ntt_cuda, ntt_cuda32
+        if eng.ring.ntt_impl == "matmul":
+            counts = ntt4_cuda.LAUNCHES
+        else:
+            counts = (ntt_cuda32.LAUNCHES32 if eng.ring.ntt_mod is ntt_cuda32
+                      else ntt_cuda.LAUNCHES)
         print(f"device {torch.cuda.get_device_name(eng.device)}: "
               f"NTT kernel launches {dict(counts)}")
     if p["mesh"]:

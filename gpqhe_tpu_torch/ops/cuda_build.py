@@ -6,7 +6,7 @@ root; the file name carries the hash of the source, of the package headers
 it includes (#include "x.cuh") and of the flags, so an unchanged source is
 not rebuilt.  build() compiles several sources at once,
 one nvcc process each, all started together.  The libraries are loaded with
-ctypes by the modules that bind them (ops/ntt_cuda.py, ops/ntt_cuda32.py).
+ctypes by the modules that bind them (ops/*_cuda.py).
 """
 
 from __future__ import annotations

@@ -37,6 +37,13 @@ class MeshCKKS(CKKS):
     engine's own device is this process's first device of the mesh."""
 
     def __init__(self, ctx, mesh: mesh_ops.HeMesh, **kw):
+        if kw.get("ntt_impl", "butterfly") == "matmul":
+            # the sharded programs run the butterfly NTT on coefficient
+            # shards (parallel/mesh.py): on keys held in the four-step order
+            # they would decode wrong, as the JAX package's mesh does
+            raise ValueError("MeshCKKS does not take ntt_impl='matmul': its sharded programs "
+                             "run the butterfly NTT, whose order the four-step NTT's keys "
+                             "do not have")
         device = kw.pop("device", None)
         if device is not None and torch.device(device) != mesh.first_device:
             raise ValueError(f"device={device} contradicts the mesh, whose first device is "

@@ -6,7 +6,10 @@ decompose -> NTT -> pointwise -> INTT -> CRT-reconstruct on the engine's
 device as eager torch calls.  The NTTs go through ops/ntt_cuda.py (primes
 of up to 60 bits) or ops/ntt_cuda32.py (a chain whose primes are all below
 2^30, i.e. logp <= 29): the CUDA kernel for every CUDA tensor, the plain
-twin for a CPU tensor.
+twin for a CPU tensor.  ntt_impl="matmul" selects the four-step NTT of
+ops/ntt4.py instead (its CUDA halves in ops/ntt4_cuda.py), whose
+NTT-resident order differs: all NTT-resident objects of one engine share
+one backend.
 
 Every ciphertext modulus is q_l = 2^logq_l, and 2^(32K) is a multiple of
 q_l, so two's-complement limb arithmetic mod 2^(32K) preserves values mod
@@ -21,6 +24,7 @@ import torch
 from .. import params
 from ..context import PolyContext
 from ..ops import limbs as lb
+from ..ops import ntt4 as ntt4_ops
 from ..ops import ntt_cuda, ntt_cuda32
 from ..ops import rns as rns_ops
 from ..ops.modmath import mulmod, u64_to_torch
@@ -37,10 +41,17 @@ class RingEngine:
     """Per-PolyContext plan caches and composites on one torch device.
 
     device=None means the GPU ("cuda") and raises where there is none; CPU
-    callers pass device="cpu"."""
+    callers pass device="cpu".  ntt_impl selects the NTT backend:
+    "butterfly" and "pallas" the butterfly NTT (the JAX package holds its
+    two bit-identical), "matmul" the four-step NTT (ops/ntt4.py)."""
 
-    def __init__(self, pctx: PolyContext, device=None):
+    NTT_IMPLS = ("butterfly", "matmul", "pallas")
+
+    def __init__(self, pctx: PolyContext, device=None, ntt_impl: str = "butterfly"):
+        if ntt_impl not in self.NTT_IMPLS:
+            raise ValueError(f"ntt_impl={ntt_impl!r}: expected one of {self.NTT_IMPLS}")
         self.pctx = pctx
+        self.ntt_impl = ntt_impl
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -54,6 +65,7 @@ class RingEngine:
         self._weights: dict[tuple[int, int], torch.Tensor] = {}
         self._r2: dict[int, torch.Tensor] = {}
         self._ntt: dict[int, ntt_cuda.NttPlan] = {}
+        self._ntt4: dict[int, ntt4_ops.Ntt4Plan] = {}
         self._tables: ntt_cuda.KernelTables | None = None
         self._galois: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
 
@@ -89,6 +101,11 @@ class RingEngine:
                                                     self._tables)
         return self._ntt[dim]
 
+    def ntt4_plan(self, dim: int) -> ntt4_ops.Ntt4Plan:
+        if dim not in self._ntt4:
+            self._ntt4[dim] = ntt4_ops.make_ntt4_plan(self.pctx, dim, self.device)
+        return self._ntt4[dim]
+
     def galois_map(self, rot: int | None) -> tuple[torch.Tensor, torch.Tensor]:
         """(src_index [n], neg_flag [n]) for output slot k, on the device.
         rot=None means conjugation.
@@ -117,13 +134,17 @@ class RingEngine:
     # -- NTT dispatch -------------------------------------------------------
 
     def ntt_f(self, res, dim: int):
-        """Forward NTT of [..., dim, n] residues."""
+        """Forward NTT of [..., dim, n] residues with the selected backend."""
+        if self.ntt_impl == "matmul":
+            return ntt4_ops.ntt4(res, self.ntt4_plan(dim))
         return self.ntt_mod.ntt(res, self.ntt_plan(dim))
 
     def ntt_i(self, res, dim: int, scale_phatinv: bool = False):
         """Inverse NTT.  scale_phatinv=True fuses the CRT reconstruct's
         per-prime phat^-1 multiply into the final n^-1 scaling (callers then
         pass pre_scaled=True to rns.reconstruct)."""
+        if self.ntt_impl == "matmul":
+            return ntt4_ops.intt4(res, self.ntt4_plan(dim), scale_phatinv)
         return self.ntt_mod.intt(res, self.ntt_plan(dim), scaled=scale_phatinv)
 
     # -- decompose ----------------------------------------------------------

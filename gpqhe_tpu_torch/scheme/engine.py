@@ -48,12 +48,15 @@ from .types import (Ciphertext, Plaintext, PublicKey, SecretKey, SwitchKey,
 
 class CKKS:
     """Scheme engine bound to one HeContext and one torch device.
-    device=None means the GPU ("cuda") and raises where there is none."""
+    device=None means the GPU ("cuda") and raises where there is none.
+    ntt_impl selects the ring's NTT backend (RingEngine): "matmul" is the
+    four-step NTT, whose order has no hoisting permutation, so the hoisted
+    gemv falls back to the classic path (algo/linalg.py)."""
 
     def __init__(self, ctx: HeContext, rng: Surf | None = None, device=None,
-                 hoist_bits: int | None = None):
+                 hoist_bits: int | None = None, ntt_impl: str = "butterfly"):
         self.ctx = ctx
-        self.ring = RingEngine(ctx.poly, device=device)
+        self.ring = RingEngine(ctx.poly, device=device, ntt_impl=ntt_impl)
         self.device = self.ring.device
         self.rng = rng if rng is not None else default_rng()
         self._fns: dict = {}
@@ -688,6 +691,8 @@ class CKKS:
                             lambda: self._build_hoisted_prep(n1, dims_h, dimc))
 
     def _build_hoisted_prep(self, n1: int, dims_h: int, dimc: int):
+        assert self.ring.ntt_impl in ("butterfly", "pallas"), \
+            "hoisted rotations need the butterfly NTT-domain ordering"
         assert dims_h <= self.dimswk_h, \
             (f"hoist basis {dims_h} exceeds switch-key limbs "
              f"{self.dimswk_h}; raise hoist_bits at engine construction")

@@ -680,3 +680,90 @@ def test_cuda_keyswitch_path_launches_the_elementwise_kernels(cuda_device, logp)
     mid = after
     _run_keyswitch(torch.device("cpu"), logp)
     assert ew_by_kernel(ew_counters()) == mid
+
+
+# ---------------------------------------------------------------------------
+# K8 (csrc/ntt4.cu): the four-step NTT's split and combine, and the engine
+# on ntt_impl="matmul"
+# ---------------------------------------------------------------------------
+
+from chip_smoke import (NTT4_PATH, ntt4_compare, ntt4_edge_cases, ntt4_input,  # noqa: E402
+                        ntt4_max_sums)
+from gpqhe_tpu_torch.ops import ntt4, ntt4_cuda  # noqa: E402
+
+_ntt4_plans = {}
+
+
+def _ntt4_plan(pctx, dim, device, key):
+    if key not in _ntt4_plans:
+        _ntt4_plans[key] = ntt4.make_ntt4_plan(pctx, dim, device)
+    return _ntt4_plans[key]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logp,mode,shape", [(logp, mode, shape) for logp in (59, 29)
+                                             for mode, shape in NTT4_PATH[logp]])
+def test_cuda_ntt4_matches_plain_at_the_paths_shapes(cuda_device, logp, mode, shape):
+    """Each of a transform's four launches, and the whole transform, at the
+    main path's shapes (logn=14) torch.equal to the plain versions, and
+    every launch counted."""
+    plan = _ntt4_plan(PolyContext(14, 1 << 438, logp=logp), shape[-1], cuda_device,
+                      (logp, 14, shape[-1]))
+    ps = np.array(plan.ps.cpu().numpy(), dtype=np.uint64)[:, None]
+    rng = np.random.default_rng(len(shape) + shape[-1])
+    x = u64_to_torch(rng.integers(0, 1 << 62, shape + (1 << 14,), dtype=np.uint64) % ps,
+                     cuda_device)
+    before = dict(ntt4_cuda.LAUNCHES)
+    equal, steps, _ = ntt4_compare(x, plan, mode)
+    torch.cuda.synchronize()
+    assert equal and [s[0] for s in steps] == ["ntt4_split", "ntt4_combine"] * 2
+    assert all(ntt4_cuda.LAUNCHES[k] == before[k] + 4 for k in ("split", "combine"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ntt4_edge_cases(), ids=lambda c: c["id"])
+def test_cuda_ntt4_at_the_edges(cuda_device, case):
+    plan = _ntt4_plan(PolyContext(case["logn"], **case["ctx"]), case["dim"], cuda_device,
+                      (case["logp"], case["logn"], case["dim"]))
+    x = ntt4_input(case, plan, cuda_device)
+    equal, _, out = ntt4_compare(x, plan, case["mode"])
+    assert equal
+    if case["mode"] == "fwd":
+        assert torch.equal(ntt4.kernel_intt4(out, plan), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 2, 3, 4])
+def test_cuda_ntt4_combine_at_the_largest_digit_sums(cuda_device, P):
+    plan = _ntt4_plan(PolyContext(16, q=1 << 20, dim_cap=8), 3, cuda_device, (59, 16, 3))
+    args = ntt4_max_sums(plan, P, cuda_device)
+    assert torch.equal(ntt4_cuda.combine(*args), ntt4.plain_ntt4_combine(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logp", [59, 29])
+def test_cuda_matmul_engine_mul_rs_equals_butterfly(cuda_device, logp):
+    """The same stream through both backends at the main path's ring: the
+    keys differ (another NTT order), mul_rs's ciphertext is the same, and
+    the matmul engine launches K8 and no butterfly NTT."""
+    ctx = HeContext(logn=14, q=1 << 438, slots=16, Delta=1 << 50, logp=logp)
+    out = {}
+    for impl in ("butterfly", "matmul"):
+        eng = CKKS(ctx, rng=Surf(), device=cuda_device, ntt_impl=impl)
+        pk, sk = eng.keypair()
+        rlk = eng.genrlk(sk)
+        m1, m2 = (sample.sample_z01vec(eng.rng, ctx.slots) for _ in range(2))
+        ct1, ct2 = eng.enc_pk(eng.ecd(m1), pk), eng.enc_pk(eng.ecd(m2), pk)
+        counts = (dict(ntt_cuda.LAUNCHES), dict(ntt_cuda32.LAUNCHES32), dict(ntt4_cuda.LAUNCHES))
+        ct = eng.mul_rs(ct1, ct2, rlk)
+        torch.cuda.synchronize()
+        after = (ntt_cuda.LAUNCHES, ntt_cuda32.LAUNCHES32, ntt4_cuda.LAUNCHES)
+        out[impl] = (ct, rlk, [sum(a.values()) - sum(b.values()) for a, b in zip(after, counts)],
+                     np.max(np.abs(eng.dcd(eng.dec(ct, sk)) - m1 * m2)))
+    (cb, kb, nb, db), (cm, km, nm, dm) = out["butterfly"], out["matmul"]
+    assert torch.equal(cb.c0, cm.c0) and torch.equal(cb.c1, cm.c1)
+    assert (cb.l, cb.nu, cb.B) == (cm.l, cm.nu, cm.B)
+    assert not torch.equal(kb.p0hat, km.p0hat)
+    assert db < 1e-5 and dm < 1e-5
+    assert nb[2] == 0 and nb[0] + nb[1] == 4          # four transforms, one launch each
+    assert nm[0] == nm[1] == 0 and nm[2] == 16         # two splits, two combines each

@@ -870,7 +870,7 @@ _ENTRIES = [(tm, "modmath", DISPATCHED[tm]),
 def launch_model(fn, plain: bool = False):
     """Run fn on the CPU with every dispatched entry counted as the kernel
     launches it makes on a card (an NTT transform two: its column and row
-    passes) and every other aten op that is not a view counted as one torch
+    passes; a four-step split or combine one, "ntt4") and every other aten op that is not a view counted as one torch
     kernel; returns {module: launches} with torch's ops by name under
     "other torch".  plain=True models the port before its elementwise
     kernels: each aten op inside a dispatched entry counts as one launch of
@@ -879,8 +879,8 @@ def launch_model(fn, plain: bool = False):
 
     from torch.utils._python_dispatch import TorchDispatchMode
 
-    from gpqhe_tpu_torch.ops import ntt_cuda, ntt_cuda32
-    counts = {"ntt": 0, "modmath": 0, "rns": 0, "limbs": 0, "other torch": {}}
+    from gpqhe_tpu_torch.ops import ntt4, ntt_cuda, ntt_cuda32
+    counts = {"ntt": 0, "ntt4": 0, "modmath": 0, "rns": 0, "limbs": 0, "other torch": {}}
     inside = []                       # the modules of the entries being run
 
     class Count(TorchDispatchMode):
@@ -913,6 +913,10 @@ def launch_model(fn, plain: bool = False):
             patches.append((mod, name, counted(getattr(mod, name), kernel, 1)))
     for m in (ntt_cuda, ntt_cuda32):
         patches += [(m, "ntt", counted(m.ntt, "ntt", 2)), (m, "intt", counted(m.intt, "ntt", 2))]
+    # the four-step NTT: a split or a combine is one K8 launch, its digit
+    # GEMM (torch.bmm, between them) one torch launch
+    patches += [(ntt4, name, counted(getattr(ntt4, name), "ntt4", 1))
+                for name in ("plain_ntt4_split", "plain_ntt4_combine")]
     # names bound by `from ... import` in the programs
     for modname in ("gpqhe_tpu_torch.scheme.engine", "gpqhe_tpu_torch.ring.poly",
                     "gpqhe_tpu_torch.parallel.mesh"):
@@ -964,6 +968,35 @@ def test_launch_model_of_the_main_path():
     before = launch_model(lambda: eng.mul_rs(ct, ct, rlk), plain=True)
     assert before["ntt"] == 8 and before["other torch"] == mul["other torch"]
     assert before["rns"] > 50 * mul["rns"] and before["modmath"] > 100 * mul["modmath"]
+
+
+def test_launch_model_of_mul_rs_on_the_matmul_backend():
+    """mul_rs with ntt_impl="matmul": each of its four transforms is two K8
+    splits, two K8 combines and two torch.bmm digit GEMMs in place of one
+    butterfly launch of two passes; every other launch is the butterfly
+    engine's."""
+    from gpqhe_tpu_torch import CKKS, HeContext, Surf
+    ctx = HeContext(logn=9, q=1 << 120, slots=4, Delta=1 << 30)
+    got = {}
+    for impl in ("butterfly", "matmul"):
+        eng = CKKS(ctx, rng=Surf(), device="cpu", ntt_impl=impl)
+        pk, sk = eng.keypair()
+        rlk = eng.genrlk(sk)
+        ct = eng.enc_pk(eng.ecd(np.arange(4) / 8), pk)
+        eng.mul_rs(ct, ct, rlk)                   # programs built outside the count
+        got[impl] = launch_model(lambda: eng.mul_rs(ct, ct, rlk))
+    bf, mm = got["butterfly"], got["matmul"]
+    assert bf["ntt"] == 8 and bf["ntt4"] == 0
+    assert mm["ntt"] == 0 and mm["ntt4"] == 4 * 4
+    # the reconstructs' digit matmuls are bmm launches on both backends
+    other = dict(mm["other torch"])
+    other["bmm"] -= 4 * 2
+    assert other == bf["other torch"]
+    assert all(mm[k] == bf[k] for k in ("rns", "modmath", "limbs"))
+    # 39 launches on the butterfly backend, 39 - 8 + 16 + 8 = 55 on matmul
+    total = {k: sum(v[m] for m in ("ntt", "ntt4", "rns", "modmath", "limbs"))
+             + sum(v["other torch"].values()) for k, v in got.items()}
+    assert total == {"butterfly": 39, "matmul": 55}, total
 
 
 def test_launch_model_counts_a_plain_mulmod():
