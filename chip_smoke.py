@@ -16,7 +16,9 @@ non-zero:
              instantiation in the libraries as loaded (`row_kernels`),
              cuobjdump's registers, stack, shared and local memory, and a
              raise on any stack frame or local memory; static
-             multiply-instruction counts from cuobjdump.
+             multiply-instruction and tensor-core-product (IMMA, HGMMA)
+             counts from cuobjdump, and a raise where a K8 instantiation
+             has no tensor-core product.
   kernels  — each CUDA NTT (u64 words on the 59-bit chain, u32 words on the
              logp=29 chain) against the plain torch twin on the card:
              torch.equal on random residues at the paths' shapes; the
@@ -70,24 +72,27 @@ non-zero:
              (mulpt, rot, mul_rs_batch, both gemv routes), and the kernel
              against its twin at the gemv's shapes.  After both: a `chains` line,
              mul_rs on each chain in turns (59, 29, 29, 59).
-  ntt4     — K8, the four-step ("matmul") NTT's split and combine
-             (csrc/ntt4.cu) around the f64 digit GEMM (torch.bmm), against
-             their plain versions on the card: at the path's shapes on both
-             chains every step and the whole transform torch.equal, and the
-             round trip; the first shape of each mode timed (each step's
-             device ms, host µs, plain ms and bound; each GEMM against the
-             FP64 tensor-core bound; the whole transform beside the
-             butterfly kernel's at the same shape); at the edges (every logn
-             4-16, batches of 1 and 8, words all 0 or all p - 1, the logp=9
-             chain) and at combine's largest digit sums.  Then the path on
+  ntt4     — K8, the four-step ("matmul") NTT's stage (csrc/ntt4.cu: one
+             launch a stage, u8 digit planes on the tensor cores), against
+             its plain version (split, f64 torch.bmm, combine) on the card:
+             at the path's shapes on both chains every stage and the whole
+             transform torch.equal, and the round trip; each shape timed
+             (each stage's device ms, host µs, plain ms, the
+             f64 torch.bmm of the plain version's planes alone as
+             library_ms, the bound and the shares of its int8-operation and
+             byte bounds; the whole transform beside the butterfly kernel's
+             at the same shape, with its own bound); at the edges (every
+             logn 4-16, batches of 1 and 8, words all 0 or all p - 1, the
+             logp=9 chain) and at a stage's largest digit sums (K = 256,
+             every byte 255, P8 = 2, 4, 8).  Then the path on
              ntt_impl="matmul", each chain (keypair, genrlk, genck, genrk,
              enc_pk, mul_rs, rot, conj, mulpt, mul_rs_batch(8), the classic
              gemv, gemv_hoisted, dec, dcd): decodes within 1e-5, every
              ciphertext torch.equal to a butterfly engine's from the same
              stream, plan.fallbacks == 1, K8's launches > 0 and K1-K3's 0;
              walls and keygen seconds on both backends, and `profile` lines
-             of mul_rs and rot on both with `by_module` splitting the four-
-             step NTT into ntt4 split / combine / gemm.
+             of mul_rs and rot on both (the four-step NTT's stages under
+             `by_module` "ntt4").
   suite    — the rest of the JAX package's test suite on the card, every gate
              raising: tests/test_crt_mode.py's logp=9 chain (six primes of
              10-11 bits at n=2^4, the u32 kernel): decompose, reconstruct
@@ -177,10 +182,10 @@ non-zero:
   cli      — `python -m gpqhe_tpu_torch mul pk` and `... exp` as
              subprocesses at their defaults on the card: exit code 0, an
              [ok] line, NTT launches > 0.
-Then: the nvidia-smi line, the per-kernel JSON line (K8's split and combine
-at the forward [4, 16, 2^14] with their launches over the ntt4 phase's
-paths; the NTT's eighteen entries: the six of the logn=14 path, the u32 kernel's three on the logp=9
-chain, the u64 kernel's three at the bootstrap's logn=15 shapes, and forward
+Then: the nvidia-smi line, the per-kernel JSON line (K8's stage at the
+forward [4, 16, 2^14] with its launches over the ntt4 phase's paths; the
+NTT's eighteen entries: the six of the logn=14 path, the u32 kernel's three
+on the logp=9 chain, the u64 kernel's three at the bootstrap's logn=15 shapes, and forward
 and inverse on per-shard plans for the u64 kernel, the u32 kernel and the u64
 kernel on the logn=15 mesh; then each elementwise entry that the gated paths
 launched, with its launches summed over them and split by the ring's logn,
@@ -393,22 +398,25 @@ def phase_build():
     ptxas = {os.path.basename(src): ptxas_summary(log)
              for src, log in cuda_build.BUILD_LOGS.items()}
     rows = row_kernel_resources(rns_cuda, limbs_cuda, modmath_cuda, ntt4_cuda)
+    sass = {os.path.basename(m.SOURCE): sass_multiplies(cuda_build.library_path(m.SOURCE))
+            for m in mods}
     emit({"phase": "build", "seconds": secs, "gpu": gpu_line(), "ptxas": ptxas,
-          "row_kernels": rows,
-          "sass_multiplies": {os.path.basename(m.SOURCE):
-                              sass_multiplies(cuda_build.library_path(m.SOURCE)) for m in mods}})
+          "row_kernels": rows, "sass_multiplies": sass})
     local = {k: v for k, v in rows.items() if v.get("STACK", 1) or v.get("LOCAL", 1)}
     if local:
         raise AssertionError(f"kernels with a stack frame or local memory: {local}")
+    mma = sass["ntt4.cu"] and {k: v["tensor_core"] for k, v in sass["ntt4.cu"].items()}
+    if mma is not None and (len(mma) != ROW_KERNELS["ntt4.cu"] or not all(mma.values())):
+        raise AssertionError(f"K8 instantiations without tensor-core products in SASS: {mma}")
 
 
 # instantiations of the gated kernels by source: K7's eight chains on rows of
 # one chunk and of more, and its word kernel by word and by pair for
 # mask_bits and select; the lift on f64 and int64 digit sums at 1, 2 and 4
 # chunks, decompose and the digit split; K5's elementwise kernel by op, the
-# cross terms, the key products and the sum by mode; K8's split by digit
-# planes (1-4) and transpose, its combine by digit planes
-ROW_KERNELS = {"limbs.cu": 20, "rns.cu": 8, "modmath.cu": 9, "ntt4.cu": 12}
+# cross terms, the key products and the sum by mode; K8's stage by byte
+# planes (2, 4, 8) and transpose
+ROW_KERNELS = {"limbs.cu": 20, "rns.cu": 8, "modmath.cu": 9, "ntt4.cu": 6}
 
 
 def resource_usage(library: str) -> dict:
@@ -487,9 +495,11 @@ def ptxas_summary(log: str) -> dict:
 
 def sass_multiplies(library: str):
     """Static count of integer multiply instructions (IMAD*, IMUL*) per
-    kernel in the built library, from cuobjdump -sass; None without the tool.
-    It covers a kernel's whole body (both butterflies, the final scaling and
-    the index arithmetic), so it bounds IMAD_PER_MUL from above."""
+    kernel in the built library, and of its tensor-core products
+    ("tensor_core": IMMA or HGMMA), from cuobjdump -sass; None without the
+    tool.  It covers a kernel's whole body (both butterflies, the final
+    scaling and the index arithmetic), so it bounds IMAD_PER_MUL from
+    above."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
@@ -502,7 +512,10 @@ def sass_multiplies(library: str):
     for ln in out.stdout.splitlines():
         if "Function :" in ln:
             fn = short_kernel_name(ln.split("Function :")[1].strip())
-            counts[fn] = {"IMAD": 0, "IMAD.WIDE": 0, "IMAD.HI": 0, "IMAD.MOV": 0, "other_mul": 0}
+            counts[fn] = {"IMAD": 0, "IMAD.WIDE": 0, "IMAD.HI": 0, "IMAD.MOV": 0, "other_mul": 0,
+                          "tensor_core": 0}
+        elif fn and (" IMMA" in ln or " HGMMA" in ln):
+            counts[fn]["tensor_core"] += 1
         elif fn and (" IMAD" in ln or " IMUL" in ln or " UIMAD" in ln):
             op = ln.split("*/")[1].split()[0] if "*/" in ln else ""
             if op.startswith("@"):
@@ -1575,7 +1588,7 @@ def profile_op(op: str, fn, host_ops: bool = True, warm: bool = True, **tags) ->
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    modules = kernel_modules(kernels)
+    modules = [kernel_module(e.name) for e in kernels]
     ntt_us = sum(e.time_range.elapsed_us() for e, m in zip(kernels, modules)
                  if m.startswith("ntt"))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
@@ -1596,17 +1609,17 @@ def profile_op(op: str, fn, host_ops: bool = True, warm: bool = True, **tags) ->
 
 
 def kernel_module(name: str) -> str:
-    """The module whose kernel a device kernel's name is: ntt (csrc/ntt*.cu),
-    "ntt4 split" or "ntt4 combine" (csrc/ntt4.cu), modmath, "rns <entry>" (decompose, digit_split or lift) or limbs (the
-    elementwise kernels, named by their prefix), "matmul" (torch's matrix
-    products: the f64 digit matmuls of the reconstructs), else "other torch"
-    (torch's other kernels: copies, stacks, the plain chains)."""
+    """The module whose kernel a device kernel's name is: ntt (csrc/ntt.cu,
+    ntt32.cu), ntt4 (the four-step stage, csrc/ntt4.cu), modmath, "rns
+    <entry>" (decompose, digit_split or lift) or limbs (the elementwise
+    kernels, named by their prefix), "matmul" (torch's matrix products: the
+    f64 digit matmuls of the reconstructs), else "other torch" (torch's
+    other kernels: copies, stacks, the plain chains)."""
     import re
     if re.search(r"(?<![A-Za-z_])ntt_(col|row)_pass", name):
         return "ntt"
-    m = re.search(r"(?<![A-Za-z_])ntt4_(split|combine)_kernel", name)
-    if m:
-        return f"ntt4 {m.group(1)}"
+    if re.search(r"(?<![A-Za-z_])ntt4_stage_kernel", name):
+        return "ntt4"
     m = re.search(r"(?<![A-Za-z_])rns_(decompose|digit_split|lift)_kernel", name)
     if m:
         return f"rns {m.group(1)}"
@@ -1616,27 +1629,6 @@ def kernel_module(name: str) -> str:
     if re.search(r"gemm|gemv|matmul", name, flags=re.I):
         return "matmul"
     return "other torch"
-
-
-def kernel_modules(events) -> list:
-    """kernel_module of each device kernel event, with torch's kernels that
-    run between a K8 split and the next K8 combine on the stream (the
-    four-step NTT's digit GEMM) as "ntt4 gemm", apart from the
-    reconstructs' "matmul"; a matrix product right before a K8 combine is
-    one too (the profiler drops an event now and then, a split among
-    them)."""
-    out = [kernel_module(e.name) for e in events]
-    order = sorted(range(len(events)), key=lambda i: events[i].time_range.start)
-    inside = False
-    for k, i in enumerate(order):
-        if out[i] == "ntt4 split":
-            inside = True
-        elif out[i] == "ntt4 combine":
-            inside = False
-        elif inside or (out[i] == "matmul" and k + 1 < len(order)
-                        and out[order[k + 1]] == "ntt4 combine"):
-            out[i] = "ntt4 gemm"
-    return out
 
 
 def modmath_entry(name: str):
@@ -3000,30 +2992,31 @@ def phase_suite(iters: int, linalg59: dict | None) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# K8 (csrc/ntt4.cu): the four-step ("matmul") NTT's split and combine around
-# the f64 digit GEMM, and the engine on that backend
+# K8 (csrc/ntt4.cu): the four-step ("matmul") NTT's stage, one launch of a
+# u8 tensor-core product a stage, and the engine on that backend
 # ---------------------------------------------------------------------------
 
 KERNELS["ntt4"] = {"source": "gpqhe_tpu_torch/csrc/ntt4.cu",
                    "replaces": "gpqhe_tpu/ops/ntt4.py:130"}
-# the JAX code each entry stands in for: _moddot's digit planes (with the
-# pre-twist and the transpose), its sums, carries and reduction (with the
-# twiddle, the untwist and phat^-1)
-NTT4_REPLACES = {"ntt4_split": "gpqhe_tpu/ops/ntt4.py:132",
-                 "ntt4_combine": "gpqhe_tpu/ops/ntt4.py:146"}
+# the JAX code the entry stands in for: _moddot (digit planes, sums,
+# carries, reduction) with the multiplies around it (pre-twist 182, twiddle
+# 187 / 206, transpose 189 / 205, untwist 209, phat^-1 ring/poly.py:199)
+NTT4_REPLACES = {"ntt4_stage": "gpqhe_tpu/ops/ntt4.py:130"}
 # the main path's transforms at logn=14 by chain, (mode, leading axes and
-# primes): the butterfly path's shapes; the first of each mode timed
+# primes): the butterfly path's shapes, each timed
 NTT4_PATH = {logp: [(mode, shape[:-1]) for mode, shape in CASES[k] if shape[-1] == N14]
              for logp, k in ((59, "ntt"), (29, "ntt32"))}
-PEAK_F64_TC_S = 67e12      # FP64 on the tensor cores, dense (NVIDIA's data sheet)
+PEAK_INT8_S = 1979e12      # int8 on the tensor cores, dense (NVIDIA's data sheet), ops a second
 
 
 def ntt4_edge_cases(max_logn: int = 16) -> list:
     """K8 at the edges of its design: every logn from 4 to max_logn on both
-    chains (odd logn: n1 != n2, e.g. 15: 128 x 256), a batch of 1 and of 8,
-    words all 0, all p - 1 or random, each mode; the logp=9 chain (one digit
-    plane) at its ring.  A case names the ring (context arguments), dim, the
-    leading axes, the mode and the fill; ntt4_input makes its words."""
+    chains (odd logn: n1 != n2, e.g. 15: 128 x 256; a contraction below
+    the mma's depth of 32 and outputs past the block's tile below logn 12),
+    a batch of 1 and of 8, words all 0, all p - 1 or random, each mode; the
+    logp=9 chain (two byte planes) at its ring.  A case names the ring
+    (context arguments), dim, the leading axes, the mode and the fill;
+    ntt4_input makes its words."""
     cases = []
     for logp in (59, 29):
         for logn in range(4, max_logn + 1):
@@ -3058,27 +3051,23 @@ def ntt4_input(case, plan, device):
 
 
 def ntt4_compare(x, plan, mode: str):
-    """K8 against its plain version on one transform: each of its four steps
-    (split, combine, split, combine) run by the kernel and by the plain
-    version on the same inputs, the kernel's output handed on, then the
-    whole kernel transform against the plain one.  Returns (every step and
-    the whole equal, [(entry, args, kernel output)], the transform)."""
+    """K8 against its plain version on one transform: each of its two stages
+    run by the kernel and by the plain version (split, torch.bmm, combine)
+    on the same inputs, the kernel's output handed on, then the whole kernel
+    transform against the plain one.  Returns (every stage and the whole
+    equal, [(entry, args, kernel output)], the transform)."""
     import torch
     from gpqhe_tpu_torch.ops import ntt4, ntt4_cuda
     steps, eq = [], []
 
-    def step(entry, kern, plain):
-        def run(*a):
-            got = kern(*a)
-            eq.append(bool(torch.equal(got, plain(*a))))
-            steps.append((entry, a, got))
-            return got
-        return run
+    def stage(*a):
+        got = ntt4_cuda.stage(*a)
+        eq.append(bool(torch.equal(got, ntt4.plain_ntt4_stage(*a))))
+        steps.append(("ntt4_stage", a, got))
+        return got
     inverse = mode != "fwd"
     scale = plan.phatinv if mode == "inv_scaled" else None
-    ntt4.transform(x, plan, inverse, scale,
-                    step("ntt4_split", ntt4_cuda.split, ntt4.plain_ntt4_split),
-                    step("ntt4_combine", ntt4_cuda.combine, ntt4.plain_ntt4_combine))
+    ntt4.transform(x, plan, inverse, scale, stage)
     if inverse:
         got = ntt4.kernel_intt4(x, plan, scale is not None)
         want = ntt4.plain_intt4(x, plan, scale is not None)
@@ -3088,81 +3077,77 @@ def ntt4_compare(x, plan, mode: str):
     return all(eq), steps, got
 
 
-def ntt4_max_sums(plan, P: int, device):
-    """combine's largest digit sums: every product entry at its bound
-    256 (2^16 - 1)^2 (k = 256, logn = 16), P planes a side, B = 2, with the
-    untwist table and phat^-1; returns combine's arguments."""
+def ntt4_max_sums(plan, P8: int, device, K: int = 256, J: int = 32):
+    """A stage at its largest anti-diagonal sums: a contraction of K = 256,
+    every byte of W and of X 255 (words 2^(8 P8) - 1: P8 byte planes a
+    side for the kernel, the same words' 16-bit planes for the plain
+    version), B = 2, no pre-table, a post-table and phat^-1.  Returns the
+    stage's arguments (x, plan, "w1", rows, cols, transpose, pre, post,
+    scale) on the plan's primes."""
     import dataclasses
+    import numpy as np
     import torch
-    plan = dataclasses.replace(plan, planes=P)
-    m, j = plan.n1, plan.n2
-    y = torch.full((plan.dim, P * m, 2 * P * j), float(256 * 65535 ** 2), dtype=torch.float64,
-                   device=device)
-    return (y, plan, (2,), m, j, plan.twist_i, plan.phatinv)
+    from gpqhe_tpu_torch.ops.modmath import torch_to_u64, u64_to_torch
+    dim, P = plan.dim, P8 // 2
+    big = dataclasses.replace(
+        plan, planes=P, planes8=P8,
+        w1u8=torch.full((dim, P8, K, K), 255, dtype=torch.uint8, device=device),
+        w1dig=torch.full((dim, P * K, K), 65535.0, dtype=torch.float64, device=device))
+    word = np.uint64((1 << 8 * P8) - 1)
+    x = u64_to_torch(np.full((2, dim, K * J), word, dtype=np.uint64), device)
+    rng = np.random.default_rng(P8)
+    ps = torch_to_u64(plan.ps)[:, None]
+    post = u64_to_torch(rng.integers(0, 1 << 62, size=(dim, K * J), dtype=np.uint64) % ps,
+                        device)
+    return (x, big, "w1", K, J, False, None, post, plan.phatinv)
 
 
-def ntt4_bound(entry: str, args) -> dict:
-    """The least time of one launch: every input byte read once and every
-    output byte written once (split: a word, its table word, P f64 planes;
-    combine: its P^2 f64 products, its table word, a word), against the
-    Montgomery products (IMAD_MONT each: split's pre-multiply; combine's
-    NL reductions and its post-multiplies)."""
+def ntt4_bound(args) -> dict:
+    """The least time of one stage launch: the larger of its bytes (every
+    word read once and written once, its tables and W's byte planes once)
+    over the memory rate and its u8 tensor-core operations (2 M K J P8^2 a
+    slab) over the int8 rate."""
     import math
-    from gpqhe_tpu_torch.ops.ntt4 import limbs_of
-    if entry == "ntt4_split":
-        x, plan, _, _, _, table = args
-        N = x.numel()
-        nbytes = 8 * N * (1 + plan.planes) + (8 * table.numel() if table is not None else 0)
-        imad = N * IMAD_MONT * (table is not None)
-    else:
-        y, plan, lead, m, j, table, scale = args
-        N = math.prod(lead) * plan.dim * m * j
-        nbytes = 8 * (y.numel() + N) + (8 * table.numel() if table is not None else 0)
-        imad = N * IMAD_MONT * (limbs_of(plan.planes) + (table is not None)
-                                + (scale is not None))
-    return ew_bound({"bytes": nbytes, "imad": imad})
-
-
-def gemm_bound(w, x) -> dict:
-    """The digit GEMM's least time: its flops at the FP64 tensor-core rate,
-    or its operands and product once over the memory rate."""
-    flops = 2 * w.shape[0] * w.shape[1] * w.shape[2] * x.shape[2]
-    t_ops = flops / PEAK_F64_TC_S * 1e3
-    nbytes = 8 * (w.numel() + x.numel() + w.shape[0] * w.shape[1] * x.shape[2])
+    x, plan, w, rows, cols, transpose, pre, post, scale = args
+    K, J = (cols, rows) if transpose else (rows, cols)
+    slabs = math.prod(x.shape[:-1])
+    nbytes = (16 * x.numel() + plan.w(w, "u8").numel()
+              + sum(8 * t.numel() for t in (pre, post, scale) if t is not None))
+    ops = 2 * K * K * J * plan.planes8 ** 2 * slabs
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes
-            else "bytes", "flops": flops, "operations_ms": t_ops, "bytes_ms": t_bytes}
+    t_ops = ops / PEAK_INT8_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bytes_ms": t_bytes, "int8_ms": t_ops, "int8_ops": ops, "bytes": nbytes}
 
 
 def ntt4_time(x, plan, mode: str, steps, bring, iters: int) -> dict:
     """The transform's launches timed on the card as the NTT's are (device ms
-    in two turns, host µs, the plain version's ms, the bound), its two GEMMs
-    (device ms against the FP64 tensor-core bound), and the whole transform
-    beside the butterfly kernel's at the same shape (bring: the butterfly
-    ring on the same primes)."""
+    in two turns, host µs, the plain version's ms, the bound and the shares
+    of its int8-operation and byte bounds), beside each the f64 torch.bmm of
+    the plain version's digit planes alone (library_ms: what the GEMM cost
+    before the fused kernel), and the whole transform beside the butterfly
+    kernel's at the same shape (bring: the butterfly ring on the same
+    primes)."""
     import torch
     from gpqhe_tpu_torch.ops import ntt4, ntt4_cuda
     few = max(3, iters // 4)
-    kern = {"ntt4_split": ntt4_cuda.split, "ntt4_combine": ntt4_cuda.combine}
-    plain = {"ntt4_split": ntt4.plain_ntt4_split, "ntt4_combine": ntt4.plain_ntt4_combine}
     out = {"steps": []}
-    for entry, args, _ in steps:
-        runs = [device_ms_runs(lambda f=kern[entry], a=args: f(*a), iters) for _ in range(2)]
+    for _, args, _ in steps:
+        x_, plan_, w, rows, cols, transpose, pre = args[:7]
+        runs = [device_ms_runs(lambda a=args: ntt4_cuda.stage(*a), iters) for _ in range(2)]
+        ms = median(runs[0] + runs[1])
+        dig = plan_.w(w, "dig")
+        xd = ntt4.plain_ntt4_split(x_, plan_, rows, cols, transpose, pre)
+        b = ntt4_bound(args)
         out["steps"].append({
-            "entry": entry, "ms": median(runs[0] + runs[1]), "turn_ms": [median(r) for r in runs],
-            "host_us": host_us(lambda f=kern[entry], a=args: f(*a)),
-            "plain_ms": cuda_ms(lambda f=plain[entry], a=args: f(*a), few),
-            "table": args[-1 if entry == "ntt4_split" else -2] is not None,
-            **({"transpose": args[4]} if entry == "ntt4_split" else
-               {"scale": args[-1] is not None}),
-            **ntt4_bound(entry, args)})
-    ws = ((plan.w2dig_i, plan.w1dig_i) if mode != "fwd" else (plan.w1dig, plan.w2dig))
-    xs = [got for entry, _, got in steps if entry == "ntt4_split"]
-    out["gemm"] = []
-    for w, xx in zip(ws, xs):
-        b = gemm_bound(w, xx)
-        ms = median(device_ms_runs(lambda w=w, xx=xx: torch.bmm(w, xx), iters))
-        out["gemm"].append({"ms": ms, "tflop_s": b["flops"] / ms / 1e9, **b})
+            "entry": "ntt4_stage", "ms": ms, "turn_ms": [median(r) for r in runs],
+            "host_us": host_us(lambda a=args: ntt4_cuda.stage(*a)),
+            "plain_ms": cuda_ms(lambda a=args: ntt4.plain_ntt4_stage(*a), few),
+            "library_ms": median(device_ms_runs(lambda: torch.bmm(dig, xd), iters)),
+            "transpose": transpose, "pre": pre is not None, "post": args[7] is not None,
+            "scale": args[8] is not None, **b,
+            "share_of_int8": b["int8_ms"] / ms, "share_of_bytes": b["bytes_ms"] / ms})
     scaled = mode == "inv_scaled"
     if mode == "fwd":
         def whole():
@@ -3179,7 +3164,17 @@ def ntt4_time(x, plan, mode: str, steps, bring, iters: int) -> dict:
     out["transform_ms"] = median(device_ms_runs(whole, iters))
     out["transform_host_us"] = host_us(whole)
     out["butterfly_ms"] = median(device_ms_runs(butterfly, iters))
-    out["gemm_share"] = sum(g["ms"] for g in out["gemm"]) / out["transform_ms"]
+    # the transform's bound: its words in and out once, each stage's tables
+    # and W's planes once (the intermediate between the stages is the
+    # design's, not the work), against both stages' operations
+    nbytes = 16 * x.numel() + sum(st["bytes"] - 16 * x.numel() for st in out["steps"])
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = sum(st["int8_ms"] for st in out["steps"])
+    out.update({"transform_bound_ms": max(t_bytes, t_ops),
+                "transform_bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "transform_int8_ms": t_ops, "transform_bytes_ms": t_bytes,
+                "transform_share_of_int8": t_ops / out["transform_ms"],
+                "transform_share_of_bytes": t_bytes / out["transform_ms"]})
     return out
 
 
@@ -3299,12 +3294,12 @@ def ntt4_path(logp: int, iters: int, ring: dict = NTT4_RING, device=None) -> dic
 
 def phase_ntt4(iters: int) -> dict:
     """K8 against its plain version at the path's shapes on both chains (each
-    step and the whole transform torch.equal, the round trip), the first
-    shape of each mode timed (ntt4_time); then at its edges
-    (ntt4_edge_cases, every logn 4-16) and at combine's largest digit sums
-    for P = 1..4; then the slice's path on both chains (ntt4_path).  Returns
-    K8's kernel-line entries (the 59-bit chain's forward [4, 16, 2^14]: its
-    first split and combine), their launches over the paths, and the
+    stage and the whole transform torch.equal, the round trip), each shape
+    timed (ntt4_time); then at its edges
+    (ntt4_edge_cases, every logn 4-16) and at a stage's largest digit sums
+    for P8 = 2, 4, 8 (ntt4_max_sums); then the slice's path on both chains
+    (ntt4_path).  Returns K8's kernel-line entry (the 59-bit chain's forward
+    [4, 16, 2^14]: its first stage), its launches over the paths, and the
     elementwise launches."""
     import numpy as np
     import torch
@@ -3318,7 +3313,6 @@ def phase_ntt4(iters: int) -> dict:
         ring = RingEngine(PolyContext(14, 1 << 438, logp=logp), device=dev, ntt_impl="matmul")
         bring = kernel_ring("ntt" if logp == 59 else "ntt32", 14, 16)
         rng = np.random.default_rng(logp + 4)
-        timed = set()
         for mode, lead_dim in NTT4_PATH[logp]:
             plan = ring.ntt4_plan(lead_dim[-1])
             ps = torch.from_numpy(np.asarray(ring.pctx.primes[:plan.dim], dtype=np.int64))
@@ -3329,16 +3323,14 @@ def phase_ntt4(iters: int) -> dict:
                     ntt4.kernel_ntt4(ntt4.kernel_intt4(x, plan), plan))
             round_trip = bool(torch.equal(back, x))
             line = {"phase": "ntt4", "logp": logp, "mode": mode, "shape": list(lead_dim) + [N14],
-                    "planes": plan.planes, "equal": equal, "round_trip": round_trip}
-            if mode not in timed:
-                timed.add(mode)
-                line.update(ntt4_time(x, plan, mode, steps, bring, iters))
-                if logp == 59 and mode == "fwd":
-                    for entry in ("ntt4_split", "ntt4_combine"):
-                        s = next(s for s in line["steps"] if s["entry"] == entry)
-                        result[entry] = {"max_abs_err": 0.0, "shape": line["shape"],
-                                         **{k: s[k] for k in ("ms", "host_us", "plain_ms",
-                                                              "bound_ms", "bound_by")}}
+                    "planes8": plan.planes8, "equal": equal, "round_trip": round_trip}
+            line.update(ntt4_time(x, plan, mode, steps, bring, iters))
+            if "ntt4_stage" not in result:          # the 59-bit chain's forward [4, 16, 2^14]
+                s = line["steps"][0]
+                result["ntt4_stage"] = {"max_abs_err": 0.0, "shape": line["shape"],
+                                        **{k: s[k] for k in ("ms", "host_us", "plain_ms",
+                                                             "library_ms", "bound_ms",
+                                                             "bound_by")}}
             emit(line)
             if not (equal and round_trip):
                 raise AssertionError(f"K8 {mode} {line['shape']} logp={logp}: equal={equal}, "
@@ -3358,12 +3350,12 @@ def phase_ntt4(iters: int) -> dict:
         if not equal:
             emit({"phase": "ntt4", "edge": case["id"], "equal": False})
             raise AssertionError(f"K8 differs from its plain version at the edge {case['id']}")
-    for P in (1, 2, 3, 4):
-        args = ntt4_max_sums(plans[(59, 16)], P, dev)
-        if not torch.equal(ntt4_cuda.combine(*args), ntt4.plain_ntt4_combine(*args)):
-            raise AssertionError(f"K8 combine differs at its largest digit sums, P={P}")
+    for P8 in (2, 4, 8):
+        args = ntt4_max_sums(plans[(59, 16)], P8, dev)
+        if not torch.equal(ntt4_cuda.stage(*args), ntt4.plain_ntt4_stage(*args)):
+            raise AssertionError(f"K8 differs at its largest digit sums, P8={P8}")
     emit({"phase": "ntt4", "summary": "edges", "cases": n_edges, "equal": True,
-          "max_sums_planes": [1, 2, 3, 4]})
+          "max_sums_planes8": [2, 4, 8]})
     launches, ew_total = {}, {}
     for logp in (59, 29):
         r = ntt4_path(logp, iters)

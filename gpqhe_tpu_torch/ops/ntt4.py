@@ -3,15 +3,14 @@
 Port of gpqhe_tpu/ops/ntt4.py, the "matmul" NTT backend.  n = n1 * n2 is
 transformed as two modular matrix products (DFT_n1 over the columns, a
 twiddle, DFT_n2 over the rows) after a pre-twist by psi^i that makes the
-negacyclic transform cyclic.  Each modular product W @ X over a prime runs
-as exact f64 products of 16-bit digit planes, W_v @ X_u, whose
-anti-diagonal sums are carried into u64 limbs and reduced mod p (every
-product entry <= k (2^16 - 1)^2 < 2^40 for k <= 256, every sum < 2^42).
-The output order is the natural four-step order of the JAX module (out
-index k1 + n1 k2), not the butterfly NTT's: the two families must not be
-mixed on NTT-resident data (keys are NTT-resident), so an engine takes one.
+negacyclic transform cyclic.  The output order is the natural four-step
+order of the JAX module (out index k1 + n1 k2), not the butterfly NTT's:
+the two families must not be mixed on NTT-resident data (keys are
+NTT-resident), so an engine takes one.
 
-A stage is three steps:
+A stage is out = post * scale * (W @ (pre * X)) mod p on each (poly,
+prime) slab, X the slab seen as [K, J] (transposed for the second stage).
+Its plain version is JAX's _moddot in three steps:
   split    u64 residues -> the GEMM's f64 operand [dim, K, B P J]: P 16-bit
            digit planes of each word, after the Montgomery multiply that
            precedes the stage (the pre-twist in ntt4, the twiddle in intt4)
@@ -24,15 +23,19 @@ A stage is three steps:
            c_pow (JAX's _moddot), then the Montgomery multiply that follows
            the stage (the twiddle in ntt4, the untwist * n^-1 and p^-1 in
            intt4).
-P is the digit count of the plan's widest prime (4 on the 59-bit chain, 2
-for primes below 2^32, 1 below 2^16): JAX's further planes are zero, so
-the results are equal.  Every step is exact, so results equal JAX's bit for
-bit.
+Every product entry is <= k (2^16 - 1)^2 < 2^40 for k <= 256, every sum
+< 2^42, so the f64 values are exact.  P is the digit count of the plan's
+widest prime (4 on the 59-bit chain, 2 for primes below 2^32, 1 below
+2^16): JAX's further planes are zero, so the results are equal.
 
-Dispatch: ntt4/intt4 run the plain versions (plain_*, pure torch: the
-plain split and combine around torch.bmm) on a CPU tensor and, on a CUDA
-tensor, the kernels of ops/ntt4_cuda.py (csrc/ntt4.cu) around the same
-torch.bmm; a kernel raises where it cannot run: there is no fallback.
+On a CUDA tensor a stage is one launch of K8 (ops/ntt4_cuda.py,
+csrc/ntt4.cu): the same function on u8 digit planes (P8 of them, the
+plan's byte planes of W) on the tensor cores, nothing but the residues in
+device memory.  Every step is exact, so both equal JAX's bit for bit.
+
+Dispatch: ntt4/intt4 run the plain versions (plain_*, pure torch) on a CPU
+tensor and the kernel on a CUDA tensor; the kernel raises where it cannot
+run: there is no fallback.
 
 Plan tables are built in numpy: one power table of psi per prime (length
 2n, by doubling over Python-int object arrays), gathered at each table's
@@ -51,19 +54,22 @@ import torch
 from . import ntt4_cuda
 from .modmath import plain_addmod, plain_mont_mul, u64_to_torch
 
-LOGN_MIN, LOGN_MAX = 4, 16       # n1, n2 <= 256: the f64 digit sums stay exact
+LOGN_MIN, LOGN_MAX = 4, 16       # n1, n2 <= 256: the digit sums stay exact
 
 
 @dataclass(frozen=True)
 class Ntt4Plan:
     """Per-basis constants of the four-step NTT over dim primes (u64 bit
-    patterns in int64, the digit planes in f64, on one device).  The digit
-    planes are in the GEMM's layout: W's plane v is rows v m .. v m + m - 1
-    of w1dig [dim, P n1, n1] (JAX: [dim, 4, n1, n1])."""
+    patterns in int64, the 16-bit digit planes in f64, the byte planes in
+    u8, on one device).  The 16-bit planes (the plain version's) are in the
+    GEMM's layout: W's plane v is rows v m .. v m + m - 1 of w1dig
+    [dim, P n1, n1] (JAX: [dim, 4, n1, n1]); the byte planes (the kernel's)
+    are w1u8 [dim, P8, n1, n1], byte v of W in plane v."""
     n1: int
     n2: int
     dim: int
     planes: int               # P: 16-bit digits of the widest prime
+    planes8: int              # P8: its bytes, rounded up to 2, 4 or 8
     ps: torch.Tensor          # [dim]
     pinv: torch.Tensor        # [dim]
     # forward
@@ -78,6 +84,18 @@ class Ntt4Plan:
     twist_i: torch.Tensor     # [dim, n] Montgomery psi^-i n^-1 (post-twist)
     c_pow: torch.Tensor       # [dim, 3]: (2^0, 2^64, 2^128) R mod p
     phatinv: torch.Tensor     # [dim] Montgomery phat^-1 (the scaled inverse)
+    # the kernel's byte planes of the four W, and its fold constants
+    w1u8: torch.Tensor        # u8[dim, P8, n1, n1]
+    w2u8: torch.Tensor        # u8[dim, P8, n2, n2]
+    w1u8_i: torch.Tensor
+    w2u8_i: torch.Tensor
+    c32: torch.Tensor         # [dim, 4]: 2^(32 q) R mod p, q < 4
+
+    def w(self, name: str, kind: str) -> torch.Tensor:
+        """W's planes of a stage, name "w1", "w2", "w1_i" or "w2_i", as the
+        plain version's 16-bit f64 planes (kind "dig") or the kernel's byte
+        planes ("u8")."""
+        return getattr(self, name[:2] + kind + name[2:])
 
 
 def split_logn(logn: int) -> tuple[int, int]:
@@ -103,6 +121,12 @@ def _digit_planes(m: np.ndarray, planes: int) -> np.ndarray:
     v rows .. (v + 1) rows - 1."""
     return np.concatenate([((m >> np.uint64(16 * v)) & np.uint64(0xFFFF)).astype(np.float64)
                            for v in range(planes)])
+
+
+def _byte_planes(m: np.ndarray, planes8: int) -> np.ndarray:
+    """u64 [rows, k] -> u8 [planes8, rows, k]: byte v in plane v."""
+    return np.stack([((m >> np.uint64(8 * v)) & np.uint64(0xFF)).astype(np.uint8)
+                     for v in range(planes8)])
 
 
 @functools.lru_cache(maxsize=256)
@@ -132,6 +156,7 @@ def _prime_tables(p: int, logn: int, R: int) -> dict:
         "twid": gather(2 * k1i2, R % p), "twid_i": gather(-2 * k1i2, R % p),
         "twist": gather(i, R % p), "twist_i": gather(-i, ninv * R % p),
         "c_pow": np.array([R % p, (1 << 64) * R % p, (1 << 128) * R % p], dtype=np.uint64),
+        "c32": np.array([(1 << 32 * q) * R % p for q in range(4)], dtype=np.uint64),
     }
 
 
@@ -141,13 +166,20 @@ def planes_of(primes) -> int:
     return max(1, -(-bits // 16))
 
 
+def planes8_of(primes) -> int:
+    """The kernel's byte planes: the bytes of the widest prime's residues,
+    rounded up to an instantiation of csrc/ntt4.cu (2, 4 or 8)."""
+    bits = max(int(p) - 1 for p in primes).bit_length()
+    return next(P8 for P8 in (2, 4, 8) if 8 * P8 >= bits)
+
+
 def make_ntt4_plan(pctx, dim: int, device=None) -> Ntt4Plan:
     logn = pctx.logn
     if not LOGN_MIN <= logn <= LOGN_MAX:
         raise ValueError(f"logn = {logn}: the four-step NTT supports logn {LOGN_MIN}..{LOGN_MAX}")
     n1, n2 = split_logn(logn)
     primes = [int(p) for p in pctx.primes[:dim]]
-    P = planes_of(primes)
+    P, P8 = planes_of(primes), planes8_of(primes)
     tabs = [_prime_tables(p, logn, pctx.R) for p in primes]
     b = pctx.basis(dim)
 
@@ -156,13 +188,18 @@ def make_ntt4_plan(pctx, dim: int, device=None) -> Ntt4Plan:
 
     def planes(key):
         return torch.from_numpy(np.stack([_digit_planes(t[key], P) for t in tabs])).to(device)
+
+    def bytes8(key):
+        return torch.from_numpy(np.stack([_byte_planes(t[key], P8) for t in tabs])).to(device)
     return Ntt4Plan(
-        n1=n1, n2=n2, dim=dim, planes=P,
+        n1=n1, n2=n2, dim=dim, planes=P, planes8=P8,
         ps=u64_to_torch(b.ps, device), pinv=u64_to_torch(b.pinv_mont, device),
         w1dig=planes("W1"), w2dig=planes("W2"), twid=words("twid"), twist=words("twist"),
         w1dig_i=planes("W1i"), w2dig_i=planes("W2i"), twid_i=words("twid_i"),
         twist_i=words("twist_i"), c_pow=words("c_pow"),
-        phatinv=u64_to_torch(b.phatinv_mont, device))
+        phatinv=u64_to_torch(b.phatinv_mont, device),
+        w1u8=bytes8("W1"), w2u8=bytes8("W2"), w1u8_i=bytes8("W1i"), w2u8_i=bytes8("W2i"),
+        c32=words("c32"))
 
 
 # ---------------------------------------------------------------------------
@@ -225,45 +262,55 @@ def plain_ntt4_combine(y, plan: Ntt4Plan, lead: tuple, m: int, j: int, table,
     return acc.permute(2, 0, 1, 3).reshape(tuple(lead) + (dim, m * j))
 
 
-def transform(a, plan: Ntt4Plan, inverse: bool, scale, split, combine):
-    """The two stages with the given split and combine (kernels or plain)."""
+def plain_ntt4_stage(x, plan: Ntt4Plan, w: str, rows: int, cols: int, transpose: bool,
+                     pre, post, scale) -> torch.Tensor:
+    """One stage on [..., dim, rows * cols] residues, each slab seen as
+    [rows, cols] and transposed if asked, (K, J) = (rows, cols) or
+    (cols, rows): out = post * scale * (W @ (pre * X)) mod p with W the
+    plan's K x K matrix `w` (Ntt4Plan.w), pre [dim, K * J] and post
+    [dim, K * J] Montgomery tables and scale [dim], each may be None ->
+    [..., dim, K * J] in [0, p).  Split, torch.bmm, combine."""
+    K, J = (cols, rows) if transpose else (rows, cols)
+    y = torch.bmm(plan.w(w, "dig"), plain_ntt4_split(x, plan, rows, cols, transpose, pre))
+    return plain_ntt4_combine(y, plan, tuple(x.shape[:-2]), K, J, post, scale)
+
+
+def transform(a, plan: Ntt4Plan, inverse: bool, scale, stage):
+    """The two stages, by the given stage function (the kernel's or the
+    plain one)."""
     if a.ndim < 2 or tuple(a.shape[-2:]) != (plan.dim, plan.n1 * plan.n2):
         raise ValueError(f"shape {tuple(a.shape)} does not match the plan "
                          f"[..., {plan.dim}, {plan.n1 * plan.n2}]")
-    lead = tuple(a.shape[:-2])
     n1, n2 = plan.n1, plan.n2
     if not inverse:
         # A[i1, i2] = a[i1 n2 + i2] psi^i;  C = W1 A, times omega^(k1 i2)
-        C = combine(torch.bmm(plan.w1dig, split(a, plan, n1, n2, False, plan.twist)),
-                    plan, lead, n1, n2, plan.twid, None)
+        C = stage(a, plan, "w1", n1, n2, False, plan.twist, plan.twid, None)
         # Dt[k2, k1] = (W2 C^T)[k2, k1]; out[k1 + n1 k2] = Dt[k2, k1]
-        return combine(torch.bmm(plan.w2dig, split(C, plan, n1, n2, True, None)),
-                       plan, lead, n2, n1, None, None)
+        return stage(C, plan, "w2", n1, n2, True, None, None, None)
     # Dt[k2, k1] = ahat[k1 + n1 k2];  Ct = W2^-1 Dt
-    Ct = combine(torch.bmm(plan.w2dig_i, split(a, plan, n2, n1, False, None)),
-                 plan, lead, n2, n1, None, None)
+    Ct = stage(a, plan, "w2_i", n2, n1, False, None, None, None)
     # C = Ct^T times omega^-(k1 i2);  A = W1^-1 C, times psi^-i n^-1 (and phat^-1)
-    return combine(torch.bmm(plan.w1dig_i, split(Ct, plan, n2, n1, True, plan.twid_i)),
-                   plan, lead, n1, n2, plan.twist_i, scale)
+    return stage(Ct, plan, "w1_i", n2, n1, True, plan.twid_i, plan.twist_i, scale)
 
 
 def plain_ntt4(a, plan: Ntt4Plan) -> torch.Tensor:
-    return transform(a, plan, False, None, plain_ntt4_split, plain_ntt4_combine)
+    return transform(a, plan, False, None, plain_ntt4_stage)
 
 
 def plain_intt4(ahat, plan: Ntt4Plan, scale_phatinv: bool = False) -> torch.Tensor:
     return transform(ahat, plan, True, plan.phatinv if scale_phatinv else None,
-                      plain_ntt4_split, plain_ntt4_combine)
+                      plain_ntt4_stage)
 
 
 def kernel_ntt4(a, plan: Ntt4Plan) -> torch.Tensor:
-    """ntt4 through the CUDA kernels (raises off a CUDA device)."""
-    return transform(a, plan, False, None, ntt4_cuda.split, ntt4_cuda.combine)
+    """ntt4 through the CUDA kernel, one launch a stage (raises off a CUDA
+    device)."""
+    return transform(a, plan, False, None, ntt4_cuda.stage)
 
 
 def kernel_intt4(ahat, plan: Ntt4Plan, scale_phatinv: bool = False) -> torch.Tensor:
     return transform(ahat, plan, True, plan.phatinv if scale_phatinv else None,
-                      ntt4_cuda.split, ntt4_cuda.combine)
+                      ntt4_cuda.stage)
 
 
 # ---------------------------------------------------------------------------

@@ -1,15 +1,13 @@
-"""Hand-written CUDA halves of the four-step NTT (csrc/ntt4.cu, K8):
-bindings, launch counters and argument checks.
+"""Hand-written CUDA stage of the four-step NTT (csrc/ntt4.cu, K8): binding,
+launch counter and argument checks.
 
-Replaces, on CUDA tensors, the elementwise work of gpqhe_tpu/ops/ntt4.py
-around its f64 digit products (_moddot, ntt4, intt4): `split` turns u64
-residues into the GEMM's f64 digit-plane operand, after the Montgomery
-multiply that precedes the stage and with the transpose between the
-stages; `combine` turns the GEMM's digit products into residues mod p and
-applies the Montgomery multiply that follows the stage.  The products
-themselves are one torch.bmm a stage (ops/ntt4.py).  ops/ntt4.py
-dispatches here for a CUDA tensor; its plain_* functions serve the CPU.
-LAUNCHES counts launches per entry.
+Replaces, on CUDA tensors, one stage of gpqhe_tpu/ops/ntt4.py (_moddot with
+the Montgomery multiplies around it, ntt4, intt4): `stage` computes
+out = post * scale * (W @ (pre * X)) mod p on every (poly, prime) slab in
+one launch, its product on the tensor cores in u8 digit planes (the plan's
+byte planes of W), the transpose between the stages in how the tile is
+loaded.  ops/ntt4.py dispatches here for a CUDA tensor; its plain_*
+functions serve the CPU.  LAUNCHES counts launches per entry.
 """
 
 from __future__ import annotations
@@ -23,16 +21,15 @@ import torch
 from . import cuda_build
 
 SOURCE = os.path.join(cuda_build.CSRC, "ntt4.cu")
-GRID_Y = 65535          # the launches' grid.y: one block row a (poly, prime) slab
-MAX_K = 256             # the contraction length for which the f64 sums stay exact
+GRID_Y = 65535          # the launch's grid.y: one block row a (poly, prime) slab
+MAX_K = 256             # the longest contraction: its s32 digit sums stay exact
 
-LAUNCHES = {"split": 0, "combine": 0}
+LAUNCHES = {"stage": 0}
 
 _VP, _I32 = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "gpqhe_ntt4_split": [_VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _VP],
-    "gpqhe_ntt4_combine": [_VP, _VP, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _VP, _VP,
-                           _VP],
+    "gpqhe_ntt4_stage": [_VP, _VP, _VP, _I32, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _VP,
+                         _VP, _VP, _VP],
 }
 
 _lib = None
@@ -73,62 +70,41 @@ def _table(t, shape: tuple, name: str):
     return t.data_ptr()
 
 
-def _slabs(lead: tuple, dim: int) -> int:
-    B = math.prod(lead)
-    if B * dim > GRID_Y:
-        raise ValueError(f"{B} polys x {dim} primes exceed the kernels' {GRID_Y} slabs")
-    return B
-
-
-def split(x, plan, rows: int, cols: int, transpose: bool, table) -> torch.Tensor:
-    """[..., dim, rows * cols] residues (times table, then transposed if
-    asked) -> the GEMM's f64 operand [dim, K, B * P * J] (see
-    ntt4.plain_ntt4_split)."""
+def stage(x, plan, w: str, rows: int, cols: int, transpose: bool, pre, post,
+          scale) -> torch.Tensor:
+    """One four-step stage on [..., dim, rows * cols] residues < p: one
+    launch (see ntt4.plain_ntt4_stage for the arguments)."""
     dev = x.device
-    dim, P = plan.dim, plan.planes
+    dim, P8 = plan.dim, plan.planes8
     if x.ndim < 2 or tuple(x.shape[-2:]) != (dim, rows * cols):
-        raise ValueError(f"split takes [..., {dim}, {rows * cols}] residues, got {tuple(x.shape)}")
+        raise ValueError(f"a stage takes [..., {dim}, {rows * cols}] residues, got "
+                         f"{tuple(x.shape)}")
     cuda_build.check_dtype(x)
     K, J = (cols, rows) if transpose else (rows, cols)
     if K > MAX_K:
-        raise ValueError(f"a contraction of {K} > {MAX_K}: the f64 digit sums would not be exact")
-    tab = _table(table, (dim, K * J), "the split's table")
-    cuda_build.check_device(dev, x, plan.ps, plan.pinv, *([table] if table is not None else []))
+        raise ValueError(f"a contraction of {K} > {MAX_K}: the s32 digit sums would not be exact")
+    if K % 4 or J % 2:
+        raise ValueError(f"a stage takes K a multiple of 4 and J even, got {K}, {J}")
+    w8 = plan.w(w, "u8")
+    if (tuple(w8.shape) != (dim, P8, K, K) or w8.dtype != torch.uint8
+            or not w8.is_contiguous() or w8.data_ptr() % 16):
+        raise ValueError(f"W's byte planes must be contiguous, 16-byte aligned u8 "
+                         f"[{dim}, {P8}, {K}, {K}], got {w8.dtype} {tuple(w8.shape)}")
+    tabs = [_table(pre, (dim, K * J), "the stage's pre-table"),
+            _table(post, (dim, K * J), "the stage's post-table"),
+            _table(scale, (dim,), "the stage's scale")]
+    cuda_build.check_device(dev, x, w8, plan.ps, plan.pinv, plan.c32,
+                            *[t for t in (pre, post, scale) if t is not None])
     lead = tuple(x.shape[:-2])
-    B = _slabs(lead, dim)
+    B = math.prod(lead)
+    if B * dim > GRID_Y:
+        raise ValueError(f"{B} polys x {dim} primes exceed the kernel's {GRID_Y} slabs")
     xc = x.contiguous()
-    out = torch.empty((dim, K, B * P * J), dtype=torch.float64, device=dev)
+    out = torch.empty(lead + (dim, K * J), dtype=torch.int64, device=dev)
     if out.numel():
-        _check(load_library().gpqhe_ntt4_split(
-            out.data_ptr(), xc.data_ptr(), B, dim, rows, cols, P, int(transpose), tab,
-            plan.ps.data_ptr(), plan.pinv.data_ptr(), cuda_build.stream_of(dev)), "split")
-        LAUNCHES["split"] += 1
-    return out
-
-
-def combine(y, plan, lead: tuple, m: int, j: int, table, scale) -> torch.Tensor:
-    """The GEMM's digit products [dim, P * m, B * P * j] -> residues
-    [*lead, dim, m * j] in [0, p), times table and scale (see
-    ntt4.plain_ntt4_combine)."""
-    dev = y.device
-    dim, P = plan.dim, plan.planes
-    B = _slabs(tuple(lead), dim)
-    if tuple(y.shape) != (dim, P * m, B * P * j):
-        raise ValueError(f"combine takes [{dim}, {P * m}, {B * P * j}] products, got "
-                         f"{tuple(y.shape)}")
-    cuda_build.check_dtype(y, dtype=torch.float64)
-    if j & (j - 1):
-        raise ValueError(f"combine's row length {j} is not a power of two")
-    tab = _table(table, (dim, m * j), "the combine's table")
-    sc = _table(scale, (dim,), "the combine's scale")
-    cuda_build.check_device(dev, y, plan.ps, plan.pinv, plan.c_pow,
-                            *[t for t in (table, scale) if t is not None])
-    yc = y.contiguous()
-    out = torch.empty(tuple(lead) + (dim, m * j), dtype=torch.int64, device=dev)
-    if out.numel():
-        _check(load_library().gpqhe_ntt4_combine(
-            out.data_ptr(), yc.data_ptr(), B, dim, m, j.bit_length() - 1, P, tab, sc,
-            plan.ps.data_ptr(), plan.pinv.data_ptr(), plan.c_pow.data_ptr(),
-            cuda_build.stream_of(dev)), "combine")
-        LAUNCHES["combine"] += 1
+        _check(load_library().gpqhe_ntt4_stage(
+            out.data_ptr(), xc.data_ptr(), w8.data_ptr(), B, dim, K, J, P8, int(transpose),
+            *tabs, plan.ps.data_ptr(), plan.pinv.data_ptr(), plan.c32.data_ptr(),
+            cuda_build.stream_of(dev)), "stage")
+        LAUNCHES["stage"] += 1
     return out

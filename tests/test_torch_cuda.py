@@ -683,8 +683,8 @@ def test_cuda_keyswitch_path_launches_the_elementwise_kernels(cuda_device, logp)
 
 
 # ---------------------------------------------------------------------------
-# K8 (csrc/ntt4.cu): the four-step NTT's split and combine, and the engine
-# on ntt_impl="matmul"
+# K8 (csrc/ntt4.cu): the four-step NTT's fused stage, and the engine on
+# ntt_impl="matmul"
 # ---------------------------------------------------------------------------
 
 from chip_smoke import (NTT4_PATH, ntt4_compare, ntt4_edge_cases, ntt4_input,  # noqa: E402
@@ -704,8 +704,8 @@ def _ntt4_plan(pctx, dim, device, key):
 @pytest.mark.parametrize("logp,mode,shape", [(logp, mode, shape) for logp in (59, 29)
                                              for mode, shape in NTT4_PATH[logp]])
 def test_cuda_ntt4_matches_plain_at_the_paths_shapes(cuda_device, logp, mode, shape):
-    """Each of a transform's four launches, and the whole transform, at the
-    main path's shapes (logn=14) torch.equal to the plain versions, and
+    """Each of a transform's two stage launches, and the whole transform, at
+    the main path's shapes (logn=14) torch.equal to the plain versions, and
     every launch counted."""
     plan = _ntt4_plan(PolyContext(14, 1 << 438, logp=logp), shape[-1], cuda_device,
                       (logp, 14, shape[-1]))
@@ -716,8 +716,8 @@ def test_cuda_ntt4_matches_plain_at_the_paths_shapes(cuda_device, logp, mode, sh
     before = dict(ntt4_cuda.LAUNCHES)
     equal, steps, _ = ntt4_compare(x, plan, mode)
     torch.cuda.synchronize()
-    assert equal and [s[0] for s in steps] == ["ntt4_split", "ntt4_combine"] * 2
-    assert all(ntt4_cuda.LAUNCHES[k] == before[k] + 4 for k in ("split", "combine"))
+    assert equal and [s[0] for s in steps] == ["ntt4_stage"] * 2
+    assert ntt4_cuda.LAUNCHES["stage"] == before["stage"] + 4       # two stages, twice
 
 
 @pytest.mark.cuda
@@ -733,11 +733,25 @@ def test_cuda_ntt4_at_the_edges(cuda_device, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("P", [1, 2, 3, 4])
-def test_cuda_ntt4_combine_at_the_largest_digit_sums(cuda_device, P):
+@pytest.mark.parametrize("P8", [2, 4, 8])
+def test_cuda_ntt4_stage_at_the_largest_digit_sums(cuda_device, P8):
+    """A stage with K = 256 and every byte 255: the s32 sums at their bound."""
     plan = _ntt4_plan(PolyContext(16, q=1 << 20, dim_cap=8), 3, cuda_device, (59, 16, 3))
-    args = ntt4_max_sums(plan, P, cuda_device)
-    assert torch.equal(ntt4_cuda.combine(*args), ntt4.plain_ntt4_combine(*args))
+    args = ntt4_max_sums(plan, P8, cuda_device)
+    assert torch.equal(ntt4_cuda.stage(*args), ntt4.plain_ntt4_stage(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["fwd", "inv_scaled"])
+def test_cuda_ntt4_at_a_contraction_of_256(cuda_device, mode):
+    """logn=16 (n1 = n2 = 256) at the path's batch: both stages contract
+    over K = 256, four blocks of rows a slab, on random residues."""
+    plan = _ntt4_plan(PolyContext(16, q=1 << 20, dim_cap=8), 3, cuda_device, (59, 16, 3))
+    case = dict(logp=59, logn=16, lead=(4,), fill="random")
+    x = ntt4_input(case, plan, cuda_device)
+    equal, steps, _ = ntt4_compare(x, plan, mode)
+    torch.cuda.synchronize()
+    assert equal and [a[3:5] for _, a, _ in steps] == [(256, 256)] * 2
 
 
 @pytest.mark.cuda
@@ -766,4 +780,4 @@ def test_cuda_matmul_engine_mul_rs_equals_butterfly(cuda_device, logp):
     assert not torch.equal(kb.p0hat, km.p0hat)
     assert db < 1e-5 and dm < 1e-5
     assert nb[2] == 0 and nb[0] + nb[1] == 4          # four transforms, one launch each
-    assert nm[0] == nm[1] == 0 and nm[2] == 16         # two splits, two combines each
+    assert nm[0] == nm[1] == 0 and nm[2] == 8          # two stages each

@@ -870,8 +870,8 @@ _ENTRIES = [(tm, "modmath", DISPATCHED[tm]),
 def launch_model(fn, plain: bool = False):
     """Run fn on the CPU with every dispatched entry counted as the kernel
     launches it makes on a card (an NTT transform two: its column and row
-    passes; a four-step split or combine one, "ntt4") and every other aten op that is not a view counted as one torch
-    kernel; returns {module: launches} with torch's ops by name under
+    passes; a four-step stage one, "ntt4") and every other aten op that
+    is not a view counted as one torch kernel; returns {module: launches} with torch's ops by name under
     "other torch".  plain=True models the port before its elementwise
     kernels: each aten op inside a dispatched entry counts as one launch of
     that entry's module (the outermost entry's)."""
@@ -913,10 +913,9 @@ def launch_model(fn, plain: bool = False):
             patches.append((mod, name, counted(getattr(mod, name), kernel, 1)))
     for m in (ntt_cuda, ntt_cuda32):
         patches += [(m, "ntt", counted(m.ntt, "ntt", 2)), (m, "intt", counted(m.intt, "ntt", 2))]
-    # the four-step NTT: a split or a combine is one K8 launch, its digit
-    # GEMM (torch.bmm, between them) one torch launch
-    patches += [(ntt4, name, counted(getattr(ntt4, name), "ntt4", 1))
-                for name in ("plain_ntt4_split", "plain_ntt4_combine")]
+    # the four-step NTT: a stage (the plain split, torch.bmm and combine) is
+    # one K8 launch
+    patches.append((ntt4, "plain_ntt4_stage", counted(ntt4.plain_ntt4_stage, "ntt4", 1)))
     # names bound by `from ... import` in the programs
     for modname in ("gpqhe_tpu_torch.scheme.engine", "gpqhe_tpu_torch.ring.poly",
                     "gpqhe_tpu_torch.parallel.mesh"):
@@ -972,7 +971,7 @@ def test_launch_model_of_the_main_path():
 
 def test_launch_model_of_mul_rs_on_the_matmul_backend():
     """mul_rs with ntt_impl="matmul": each of its four transforms is two K8
-    splits, two K8 combines and two torch.bmm digit GEMMs in place of one
+    stage launches (split, digit GEMM and combine in one) in place of one
     butterfly launch of two passes; every other launch is the butterfly
     engine's."""
     from gpqhe_tpu_torch import CKKS, HeContext, Surf
@@ -987,16 +986,16 @@ def test_launch_model_of_mul_rs_on_the_matmul_backend():
         got[impl] = launch_model(lambda: eng.mul_rs(ct, ct, rlk))
     bf, mm = got["butterfly"], got["matmul"]
     assert bf["ntt"] == 8 and bf["ntt4"] == 0
-    assert mm["ntt"] == 0 and mm["ntt4"] == 4 * 4
-    # the reconstructs' digit matmuls are bmm launches on both backends
-    other = dict(mm["other torch"])
-    other["bmm"] -= 4 * 2
-    assert other == bf["other torch"]
+    # 16 K8 launches (split + combine) and 8 torch.bmm before the fused stage
+    assert mm["ntt"] == 0 and mm["ntt4"] == 4 * 2
+    # no digit GEMM left in torch: the reconstructs' digit matmuls are the
+    # only bmm launches, on both backends
+    assert mm["other torch"] == bf["other torch"]
     assert all(mm[k] == bf[k] for k in ("rns", "modmath", "limbs"))
-    # 39 launches on the butterfly backend, 39 - 8 + 16 + 8 = 55 on matmul
+    # 39 launches on both backends (55 on matmul before the fused stage)
     total = {k: sum(v[m] for m in ("ntt", "ntt4", "rns", "modmath", "limbs"))
              + sum(v["other torch"].values()) for k, v in got.items()}
-    assert total == {"butterfly": 39, "matmul": 55}, total
+    assert total == {"butterfly": 39, "matmul": 39}, total
 
 
 def test_launch_model_counts_a_plain_mulmod():
