@@ -179,9 +179,29 @@ non-zero:
   serialize — at the bootstrap context: save the ciphertext, rlk and the
              rotation bank, load them onto the card, torch.equal on every
              tensor, bit-equal mul_rs and rot from the loaded keys.
+  graphs   — the engine programs as CUDA graphs (utils/graphs.py) against
+             the same programs under graphs.disabled() (graph_check): at
+             logn=14/logq=438/slots=16/Delta=2^50 on both chains and on
+             ntt_impl="matmul", mul_rs, rot, conj, mulpt, mul_rs_batch(8),
+             the hoisted gemv fully and BSGS (butterfly only), add, sub, neg,
+             rs, moddown, a galois map and dec, each on three fresh input
+             sets: torch.equal at the first call and at replays, no result
+             overwritten by a later call or sharing memory with another, the
+             launch counters of a replay equal to an eager call's.  Per op the
+             first call's ms (its captures), walls in turns (eager, graphed,
+             graphed, eager), host µs a call both ways, and a profile of
+             each (with host_dispatches: graph launches, copies, kernel
+             launches; gate: a graphed mul_rs on the 59-bit chain dispatches
+             one graph and at most 8 copies).  Then the logn=15 bootstrap on
+             the bootstrap phase's keys (its own without that phase), two
+             inputs, graphed torch.equal to eager; walls in turns, profiles,
+             memory reserved and peaks.
   cli      — `python -m gpqhe_tpu_torch mul pk` and `... exp` as
              subprocesses at their defaults on the card: exit code 0, an
              [ok] line, NTT launches > 0.
+Every phase runs the engines as a user does, each program a CUDA graph
+replayed per (op, shape) after its first call; `profile` lines taken with
+host events carry `host_dispatches`.
 Then: the nvidia-smi line, the per-kernel JSON line (K8's stage at the
 forward [4, 16, 2^14] with its launches over the ntt4 phase's paths; the
 NTT's eighteen entries: the six of the logn=14 path, the u32 kernel's three
@@ -1562,12 +1582,28 @@ def phase_golden():
     emit({"phase": "golden", "diffs": diffs, "seconds": time.time() - t0})
 
 
-def profile_op(op: str, fn, host_ops: bool = True, warm: bool = True, **tags) -> None:
+def host_dispatches(events) -> dict:
+    """The host's calls that put work on the device, from a profile's CUDA
+    runtime events: graph launches, copies (and fills), kernel launches."""
+    out = {"graph_launches": 0, "copies": 0, "kernel_launches": 0}
+    for e in events:
+        if e.name.startswith(("cudaGraphLaunch", "cuGraphLaunch")):
+            out["graph_launches"] += 1
+        elif e.name.startswith(("cudaMemcpy", "cudaMemset", "cuMemcpy", "cuMemset")):
+            out["copies"] += 1
+        elif e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel")):
+            out["kernel_launches"] += 1
+    return out
+
+
+def profile_op(op: str, fn, host_ops: bool = True, warm: bool = True, **tags):
     """One call of fn under torch.profiler: device busy time, the NTT
     kernels' share of it, the number of device kernels, and the device idle
-    share of the host wall time.  host_ops=False records the device only (a
-    call of some 10^5 launches would otherwise log every host operator);
-    warm=False skips the call before the capture (fn has just run)."""
+    share of the host wall time; with host_ops the host's dispatches
+    (host_dispatches).  host_ops=False records the device only (a call of
+    some 10^5 launches would otherwise log every host operator); warm=False
+    skips the call before the capture (fn has just run).  Returns the
+    emitted line."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1582,9 +1618,11 @@ def profile_op(op: str, fn, host_ops: bool = True, warm: bool = True, **tags) ->
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    host = {"host_dispatches": host_dispatches(prof.events())} if host_ops else {}
     if not kernels or busy_us <= 0:
-        emit({"phase": "profile", "op": op, **tags, "device_time": "not measured"})
-        return
+        line = {"phase": "profile", "op": op, **tags, "device_time": "not measured", **host}
+        emit(line)
+        return line
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -1599,13 +1637,15 @@ def profile_op(op: str, fn, host_ops: bool = True, warm: bool = True, **tags) ->
                 m = into.setdefault(key, {"launches": 0, "ms": 0.0})
                 m["launches"] += 1
                 m["ms"] += e.time_range.elapsed_us() / 1e3
-    emit({"phase": "profile", "op": op, **tags, "wall_ms": wall_us / 1e3,
-          "device_busy_ms": busy_us / 1e3,
-          "idle_share": 1 - busy_us / wall_us, "device_kernels": len(kernels),
-          "ntt_kernels": sum(1 for m in modules if m.startswith("ntt")),
-          "ntt_ms": ntt_us / 1e3, "ntt_share_of_busy": ntt_us / busy_us,
-          "by_module": by_module, "modmath_by_entry": modmath,
-          "top_ms": [[k[:60], v / 1e3] for k, v in top]})
+    line = {"phase": "profile", "op": op, **tags, "wall_ms": wall_us / 1e3,
+            "device_busy_ms": busy_us / 1e3,
+            "idle_share": 1 - busy_us / wall_us, "device_kernels": len(kernels),
+            "ntt_kernels": sum(1 for m in modules if m.startswith("ntt")),
+            "ntt_ms": ntt_us / 1e3, "ntt_share_of_busy": ntt_us / busy_us,
+            "by_module": by_module, "modmath_by_entry": modmath, **host,
+            "top_ms": [[k[:60], v / 1e3] for k, v in top]}
+    emit(line)
+    return line
 
 
 def kernel_module(name: str) -> str:
@@ -1613,9 +1653,13 @@ def kernel_module(name: str) -> str:
     ntt32.cu), ntt4 (the four-step stage, csrc/ntt4.cu), modmath, "rns
     <entry>" (decompose, digit_split or lift) or limbs (the elementwise
     kernels, named by their prefix), "matmul" (torch's matrix products: the
-    f64 digit matmuls of the reconstructs), else "other torch" (torch's
-    other kernels: copies, stacks, the plain chains)."""
+    f64 digit matmuls of the reconstructs), "copies" (the device's copies
+    and fills: a graph's static inputs and the clones of its outputs), else
+    "other torch" (torch's other kernels: stacks, gathers, the plain
+    chains)."""
     import re
+    if name.startswith(("Memcpy", "Memset")):
+        return "copies"
     if re.search(r"(?<![A-Za-z_])ntt_(col|row)_pass", name):
         return "ntt"
     if re.search(r"(?<![A-Za-z_])ntt4_stage_kernel", name):
@@ -2592,6 +2636,8 @@ def phase_bootstrap(iters: int) -> dict:
           "launches": launches, "other_kernel_launches": foreign,
           "elementwise_launches": {k: v for k, v in ew.items() if v},
           "operand_copies": ew_copies(),
+          "graphs": {"captures": eng.ring.graphs.captures, "replays": eng.ring.graphs.replays},
+          "memory_reserved_mb": torch.cuda.memory_reserved() / 2**20,
           "op_trace": {"counts": tr.counts,
                        "seconds": {k: round(v, 4) for k, v in tr.seconds.items()}},
           "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20})
@@ -2609,7 +2655,8 @@ def phase_bootstrap(iters: int) -> dict:
             raise AssertionError(f"the bootstrap no longer launches K5 at the kernels15 shapes "
                                  f"{gone}: update BOOT15_K5")
     return {"kernels": kernels, "launches": launches, "elementwise": ew,
-            "objects": dict(ctx=ctx, eng=eng, sk=sk, rlk=rlk, ck=ck, rk=rk, ct=ct_top, boot=boot)}
+            "objects": dict(ctx=ctx, eng=eng, pk=pk, sk=sk, rlk=rlk, ck=ck, rk=rk, ct=ct_top,
+                            boot=boot, bctx=bctx)}
 
 
 def phase_serialize(o: dict) -> None:
@@ -2664,6 +2711,281 @@ def phase_serialize(o: dict) -> None:
         raise AssertionError("serialize: mul_rs / rot from the loaded keys differ")
     if launches["fwd"] <= 0 or launches["inv_scaled"] <= 0 or any(other.values()):
         raise AssertionError(f"serialize: NTT launches {launches}")
+
+
+# ---------------------------------------------------------------------------
+# the graphs phase: each engine program as a CUDA graph (utils/graphs.py)
+# against the same program run eagerly under graphs.disabled()
+# ---------------------------------------------------------------------------
+
+GRAPH_RING = dict(logn=14, q=1 << 438, slots=16, Delta=1 << 50)    # the main path's ring
+GRAPH_BATCH = 8
+GRAPH_INPUTS = 3        # fresh input sets each graphed op is held to disabled() on
+GRAPH_ENGINES = ((59, "butterfly"), (29, "butterfly"), (59, "matmul"))
+# the path's ops, then the programs of at most three launches (the add
+# family, rs, moddown, a galois map) and dec
+GRAPH_OPS = ("mul_rs", "rot", "conj", "mulpt", "mul_rs_batch8", "gemv_full", "gemv_bsgs",
+             "add", "sub", "neg", "rs", "moddown", "galois", "dec")
+HOISTED = ("gemv_full", "gemv_bsgs")
+
+
+def graph_case(logp: int, impl: str = "butterfly", device=None, ring: dict = GRAPH_RING) -> dict:
+    """An engine at the ring on the logp-bit chain and NTT backend impl
+    (device None: the card), its keys (pk, sk, rlk, ck, a rotation key by
+    every slot), a maker of fresh inputs (`fresh(seed)`: ciphertexts from
+    numpy-seeded messages, a plaintext, two batches of GRAPH_BATCH) and the
+    ops of GRAPH_OPS on them (the hoisted gemv, fully hoisted and BSGS, on
+    the butterfly backend only: the four-step one falls back)."""
+    import numpy as np
+    from gpqhe_tpu_torch.algo import linalg
+    from gpqhe_tpu_torch.context import HeContext
+    from gpqhe_tpu_torch.scheme.engine import CKKS
+    from gpqhe_tpu_torch.substrate.surf import Surf
+
+    ctx = HeContext(**ring, logp=logp)
+    eng = CKKS(ctx, rng=Surf(), device=device, ntt_impl=impl)
+    pk, sk = eng.keypair()
+    rlk, ck, rk = eng.genrlk(sk), eng.genck(sk), eng.genrk(sk)
+    slots = ctx.slots
+    rng0 = np.random.default_rng(logp)
+    plan = linalg.HoistedGemvPlan(
+        eng, rng0.random(slots * slots) + 1j * rng0.random(slots * slots))
+    bank = {r: rk[r] for r in rk if r < plan.n1 or r % plan.n1 == 0}
+
+    def fresh(seed: int) -> dict:
+        rng = np.random.default_rng(seed)
+
+        def msg():
+            return rng.random(slots) + 1j * rng.random(slots)
+
+        def ct():
+            return eng.enc_pk(eng.ecd(msg()), pk)
+        return {"ct1": ct(), "ct2": ct(), "pt": eng.ecd(msg()),
+                "cts1": [ct() for _ in range(GRAPH_BATCH)],
+                "cts2": [ct() for _ in range(GRAPH_BATCH)]}
+
+    qb = eng.qbits(ctx.L)
+    ops = {
+        "mul_rs": lambda x: eng.mul_rs(x["ct1"], x["ct2"], rlk),
+        "rot": lambda x: eng.rot(x["ct1"], 1, rk),
+        "conj": lambda x: eng.conj(x["ct1"], ck),
+        "mulpt": lambda x: eng.mulpt(x["ct1"], x["pt"]),
+        "mul_rs_batch8": lambda x: eng.mul_rs_batch(x["cts1"], x["cts2"], rlk),
+        "gemv_full": lambda x: linalg.gemv_hoisted(eng, plan, x["ct1"], rk),
+        "gemv_bsgs": lambda x: linalg.gemv_hoisted(eng, plan, x["ct1"], bank),
+        "add": lambda x: eng.add(x["ct1"], x["ct2"]),
+        "sub": lambda x: eng.sub(x["ct1"], x["ct2"]),
+        "neg": lambda x: eng.neg(x["ct1"]),
+        "rs": lambda x: eng.rs(x["ct2"]),
+        "moddown": lambda x: eng.moddown(x["ct2"]),
+        "galois": lambda x: eng.ring.galois(x["ct1"].c0, 1, qb),
+        "dec": lambda x: eng.dec(x["ct1"], sk),
+    }
+    if impl == "matmul":
+        ops = {k: v for k, v in ops.items() if k not in HOISTED}
+    return {"eng": eng, "ctx": ctx, "keys": (pk, sk, rlk, ck, rk), "fresh": fresh, "ops": ops,
+            "plan": plan}
+
+
+def graph_tensors(x) -> list:
+    """The tensors of an op's result (a ciphertext, a plaintext, a tensor
+    or a list of them), with a ciphertext's (l, nu, B) as a tuple."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for y in x for t in graph_tensors(y)]
+    if hasattr(x, "c0"):
+        return [x.c0, x.c1, (x.l, x.nu, x.B)]
+    return [x.m, (x.nu, x.mod_bits)]
+
+
+def graph_same(a, b) -> bool:
+    import torch
+    ta, tb = graph_tensors(a), graph_tensors(b)
+    return len(ta) == len(tb) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y for x, y in zip(ta, tb))
+
+
+def launch_counters_delta(before: list) -> dict:
+    """The launch counters' gain since `before` (graphs.counters_snapshot),
+    by kernel binding; the wrappers' operand copies (cuda_build.COPIES) left
+    out, as a caller's strides may differ from a graph's static buffers."""
+    from gpqhe_tpu_torch.ops import cuda_build
+    from gpqhe_tpu_torch.utils import graphs
+    return {i: d for i, (c, d) in enumerate(zip(cuda_build.COUNTERS,
+                                                graphs.counters_delta(before)))
+            if d and c is not cuda_build.COPIES}
+
+
+def graph_check(fn, inputs: list, name: str) -> dict:
+    """fn graphed against fn under graphs.disabled() on every input set: the
+    first calls (warm-up and capture) and then replays, each torch.equal to
+    the eager result; the first call's result unchanged after all the
+    later calls; no two calls' results sharing memory; and the launch
+    counters after one graphed call (a replay) equal to one eager call's.
+    Raises on any difference.  Returns the first call's ms (graphed, with
+    its captures) and the launches of one call."""
+    import torch
+    from gpqhe_tpu_torch.utils import graphs
+
+    sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    got = [fn(inputs[0])]
+    sync()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    held = [t.clone() for t in graph_tensors(got[0]) if isinstance(t, torch.Tensor)]
+    got += [fn(x) for x in inputs[1:]] + [fn(x) for x in inputs]
+    with graphs.disabled():
+        want = [fn(x) for x in inputs]
+    bad = [i for i, g in enumerate(got) if not graph_same(g, want[i % len(inputs)])]
+    if bad:
+        raise AssertionError(f"graphs {name}: calls {bad} differ from the eager program")
+    now = [t for t in graph_tensors(got[0]) if isinstance(t, torch.Tensor)]
+    if not all(torch.equal(a, b) for a, b in zip(held, now)):
+        raise AssertionError(f"graphs {name}: a later replay overwrote the first result")
+    seen = {}
+    for i, g in enumerate(got):
+        for t in graph_tensors(g):
+            if isinstance(t, torch.Tensor):
+                owner = seen.setdefault(t.untyped_storage().data_ptr(), i)
+                if owner != i:
+                    raise AssertionError(f"graphs {name}: calls {owner} and {i} share memory")
+    before = graphs.counters_snapshot()
+    fn(inputs[0])
+    graphed = launch_counters_delta(before)
+    before = graphs.counters_snapshot()
+    with graphs.disabled():
+        fn(inputs[0])
+    eager = launch_counters_delta(before)
+    if graphed != eager:
+        raise AssertionError(f"graphs {name}: launch counters of a replay {graphed} against "
+                             f"an eager call's {eager}")
+    return {"first_ms": first_ms, "launches": sum(v for d in eager.values() for v in d.values())}
+
+
+def eager(fn):
+    """fn run eagerly, every program under graphs.disabled()."""
+    from gpqhe_tpu_torch.utils import graphs
+
+    def run():
+        with graphs.disabled():
+            return fn()
+    return run
+
+
+def phase_graphs(iters: int, boot: dict | None) -> None:
+    """Every engine program as a CUDA graph against the same program under
+    graphs.disabled(), at the main path's ring on both chains and on the
+    four-step backend (graph_check on GRAPH_INPUTS fresh input sets, the
+    launch counters equal), then the logn=15 bootstrap graphed against
+    eager on two inputs.  Per op: first-call ms (its captures), walls in
+    turns (eager, graphed, graphed, eager), host µs a call both ways, and a
+    profile of each (busy ms, kernels, idle share, host dispatches: graph
+    launches, copies, kernel launches).  Gate: a graphed mul_rs on the
+    59-bit chain dispatches one graph and at most 8 copies."""
+    import torch
+
+    few = max(3, iters // 4)
+    for logp, impl in GRAPH_ENGINES:
+        t0 = time.time()
+        case = graph_case(logp, impl)
+        inputs = [case["fresh"](seed) for seed in range(GRAPH_INPUTS)]
+        torch.cuda.synchronize()
+        setup_s = time.time() - t0
+        g = case["eng"].ring.graphs
+        out = {}
+        for op, fn in case["ops"].items():
+            r = graph_check(fn, inputs, f"{op} logp={logp} {impl}")
+            x = inputs[0]
+
+            def call(fn=fn):
+                return fn(x)
+            walls = [cuda_ms(eager(call), few), cuda_ms(call, few), cuda_ms(call, few),
+                     cuda_ms(eager(call), few)]
+            r.update({"wall_ms_eager": [walls[0], walls[3]], "wall_ms_graphed": walls[1:3],
+                      "host_us_eager": host_us(eager(call), 50),
+                      "host_us_graphed": host_us(call, 50)})
+            out[op] = r
+            for mode, f in (("graphed", call), ("eager", eager(call))):
+                prof = profile_op(op, f, logp=logp, impl=impl, mode=mode)
+                if (op, logp, impl, mode) == ("mul_rs", 59, "butterfly", "graphed"):
+                    host = (prof or {}).get("host_dispatches")
+                    if host and sum(host.values()) and (
+                            host["graph_launches"] != 1
+                            or host["copies"] + host["kernel_launches"] > 8):
+                        raise AssertionError(f"graphs: a graphed mul_rs dispatched {host}")
+        emit({"phase": "graphs", "logp": logp, "impl": impl, "setup_s": setup_s,
+              "captures": g.captures, "replays": g.replays, "ops": out,
+              "memory_reserved_mb": torch.cuda.memory_reserved() / 2**20})
+        case = inputs = None
+    graph_bootstrap(iters, boot)
+
+
+def graph_bootstrap(iters: int, o: dict | None) -> None:
+    """The logn=15 bootstrap graphed against eager, on the bootstrap phase's
+    objects (or keys of its own): two inputs, each torch.equal; walls in
+    turns; memory."""
+    import numpy as np
+    import torch
+    from gpqhe_tpu_torch import bootstrap as bs
+    from gpqhe_tpu_torch.context import HeContext
+    from gpqhe_tpu_torch.scheme.engine import CKKS
+    from gpqhe_tpu_torch.substrate.surf import Surf
+    from gpqhe_tpu_torch.utils import graphs
+
+    if o is None:
+        ctx = HeContext(logn=15, q=1 << LOGQ[15], slots=4, Delta=1 << 30)
+        eng = CKKS(ctx, rng=Surf())
+        pk, sk = eng.keypair()
+        o = dict(ctx=ctx, eng=eng, sk=sk, rlk=eng.genrlk(sk), ck=eng.genck(sk),
+                 rk=eng.genrk(sk, bs.bootstrap_rotations(ctx)), bctx=bs.BootstrapContext(eng),
+                 pk=pk)
+    eng, ctx = o["eng"], o["ctx"]
+    rng = np.random.default_rng(15)
+    cts = []
+    for _ in range(2):
+        ct = eng.enc_pk(eng.ecd(0.1 * (rng.random(ctx.slots) + 1j * rng.random(ctx.slots))),
+                        o["pk"])
+        while ct.l > 1:
+            ct = eng.moddown(ct)
+        cts.append(ct)
+
+    def run(ct):
+        return bs.bootstrap(eng, o["bctx"], ct, o["rlk"], o["ck"], o["rk"])
+    g = eng.ring.graphs
+    captures0 = g.captures
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = [run(c) for c in cts]
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    got += [run(c) for c in cts]
+    torch.cuda.reset_peak_memory_stats()
+    reserved_graphed = torch.cuda.memory_reserved()
+    with graphs.disabled():
+        want = [run(c) for c in cts]
+    peak_eager = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run(cts[0])
+    peak_graphed = torch.cuda.max_memory_allocated()
+    bad = [i for i, r in enumerate(got) if not graph_same(r, want[i % 2])]
+    few = max(1, iters // 5)
+    walls = [wall_s(eager(lambda: run(cts[0])), few), wall_s(lambda: run(cts[0]), few),
+             wall_s(lambda: run(cts[0]), few), wall_s(eager(lambda: run(cts[0])), few)]
+    profile_op("bootstrap", lambda: run(cts[0]), host_ops=False, mode="graphed")
+    profile_op("bootstrap", eager(lambda: run(cts[0])), host_ops=False, mode="eager")
+    emit({"phase": "graphs", "bootstrap": True, "logn": ctx.poly.logn, "equal": not bad,
+          "first_two_calls_s": first_s, "captures_before": captures0,
+          "captures": g.captures, "replays": g.replays,
+          "wall_s_eager": [walls[0], walls[3]], "wall_s_graphed": walls[1:3],
+          "memory_reserved_mb": reserved_graphed / 2**20,
+          "memory_allocated_mb": torch.cuda.memory_allocated() / 2**20,
+          "peak_allocated_mb_eager_call": peak_eager / 2**20,
+          "peak_allocated_mb_graphed_call": peak_graphed / 2**20})
+    if bad:
+        raise AssertionError(f"graphs bootstrap: calls {bad} differ from the eager program")
 
 
 def phase_cli() -> None:
@@ -3367,7 +3689,7 @@ def phase_ntt4(iters: int) -> dict:
 
 
 PHASES = ("build", "kernels", "golden", "mul_rs", "linalg59", "linalg29", "ntt4", "suite",
-          "mesh", "mesh_mp", "nonlinear", "cmp", "bootstrap", "serialize", "cli")
+          "mesh", "mesh_mp", "nonlinear", "cmp", "bootstrap", "serialize", "graphs", "cli")
 
 
 def main(argv=None) -> int:
@@ -3469,6 +3791,9 @@ def main(argv=None) -> int:
         if "serialize" in phases:
             phase_serialize(boot["objects"])
         clock("bootstrap and serialize")
+    if "graphs" in phases:
+        phase_graphs(args.iters, boot["objects"] if "bootstrap" in phases else None)
+        clock("graphs")
     if "mesh" in phases:
         # the mesh phase's composition, on the bootstrap phase's keys
         r = phase_mesh_compose(args.iters, boot["objects"] if "bootstrap" in phases else None)

@@ -96,7 +96,19 @@ def load(source: str) -> ctypes.CDLL:
 # operand views for the elementwise kernels (modmath.cu, rns.cu, limbs.cu)
 # ---------------------------------------------------------------------------
 
-COPIES = {"operands": 0}   # operands copied because their strides had no 3-axis form
+# every launch counter of the kernel bindings (ops/*_cuda.py), and COPIES
+# below: a replayed CUDA graph runs no Python, so utils/graphs.py adds
+# again at each replay what the graph's capture added to them
+COUNTERS: list[dict] = []
+
+
+def counters(d: dict) -> dict:
+    """Register a counter dict (name -> count) in COUNTERS; returns it."""
+    COUNTERS.append(d)
+    return d
+
+
+COPIES = counters({"operands": 0})   # operands copied because their strides had no 3-axis form
 
 
 def strides3(t, shape: tuple, lead: int = 0) -> tuple:

@@ -27,7 +27,7 @@ SOURCE = os.path.join(cuda_build.CSRC, "limbs.cu")
 
 OPS = {"add": 0, "sub": 1, "neg": 2, "add_scalar_bit": 3, "mask_bits": 4, "rshift_round": 5,
        "rshift_round_mask": 6, "geq_const": 7, "select": 8, "from_digits16": 9}
-LAUNCHES = {k: 0 for k in OPS}
+LAUNCHES = cuda_build.counters({k: 0 for k in OPS})
 _KIND = {torch.int64: 0, torch.float64: 1, torch.bool: 2}
 
 _VP, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int

@@ -30,15 +30,16 @@ from . import cuda_build
 
 SOURCE = os.path.join(cuda_build.CSRC, "modmath.cu")
 
-LAUNCHES = {"mont_mul": 0, "to_mont": 0, "mulmod": 0, "addmod": 0, "submod": 0, "summod": 0,
-            "cross_terms": 0, "key_products": 0, "mulmod_sum": 0}
+LAUNCHES = cuda_build.counters({
+    "mont_mul": 0, "to_mont": 0, "mulmod": 0, "addmod": 0, "submod": 0, "summod": 0,
+    "cross_terms": 0, "key_products": 0, "mulmod_sum": 0})
 
 # mulmod's Barrett constants by prime table (barrett_table)
 _MU = {}
 
 # launches by shape class: (entry, the launch's broadcast shape, multipliers
 # of a sum), counted where LAUNCHES is
-SHAPES = {}
+SHAPES = cuda_build.counters({})
 
 OP = {"mont_mul": 0, "to_mont": 0, "mulmod": 1, "addmod": 2, "submod": 3}
 SUM_PLAIN, SUM_PRODUCTS, SUM_PRODUCTS_TIMES = 0, 1, 2

@@ -24,7 +24,7 @@ SOURCE = os.path.join(cuda_build.CSRC, "ntt4.cu")
 GRID_Y = 65535          # the launch's grid.y: one block row a (poly, prime) slab
 MAX_K = 256             # the longest contraction: its s32 digit sums stay exact
 
-LAUNCHES = {"stage": 0}
+LAUNCHES = cuda_build.counters({"stage": 0})
 
 _VP, _I32 = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {

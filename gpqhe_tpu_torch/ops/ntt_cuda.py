@@ -45,7 +45,7 @@ from . import ntt as twin
 from .modmath import u64_to_torch
 from .rns import BasisArrays
 
-LAUNCHES = {"fwd": 0, "inv": 0, "inv_scaled": 0}
+LAUNCHES = cuda_build.counters({"fwd": 0, "inv": 0, "inv_scaled": 0})
 
 LOGN_MIN, LOGN_MAX = 4, 16
 _MAX_SLABS = ((1 << 31) - 1) // 64   # grid.x holds 2^31 - 1 blocks; a pass has at most 64 a slab

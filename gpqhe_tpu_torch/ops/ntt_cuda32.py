@@ -26,7 +26,7 @@ import torch
 from . import cuda_build, ntt_cuda
 from .ntt_cuda import KernelTables, NttPlan, plain_intt, plain_ntt
 
-LAUNCHES32 = {"fwd": 0, "inv": 0, "inv_scaled": 0}
+LAUNCHES32 = cuda_build.counters({"fwd": 0, "inv": 0, "inv_scaled": 0})
 
 SOURCE = os.path.join(cuda_build.CSRC, "ntt32.cu")
 

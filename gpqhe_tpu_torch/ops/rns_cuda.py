@@ -26,7 +26,7 @@ from . import cuda_build
 SOURCE = os.path.join(cuda_build.CSRC, "rns.cu")
 MAX_LIMBS = 128          # the lift's per-row limbs (csrc/rns.cu)
 
-LAUNCHES = {"decompose": 0, "digit_split": 0, "lift": 0}
+LAUNCHES = cuda_build.counters({"decompose": 0, "digit_split": 0, "lift": 0})
 
 _VP, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = {

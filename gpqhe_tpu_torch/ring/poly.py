@@ -3,10 +3,12 @@
 Port of gpqhe_tpu/ring/poly.py (ref: src/poly.c:84-120).  Polynomials are
 u32-limb tensors [n, K] (see ops/limbs.py, stored in int64); products run
 decompose -> NTT -> pointwise -> INTT -> CRT-reconstruct on the engine's
-device as eager torch calls.  The NTTs go through ops/ntt_cuda.py (primes
-of up to 60 bits) or ops/ntt_cuda32.py (a chain whose primes are all below
-2^30, i.e. logp <= 29): the CUDA kernel for every CUDA tensor, the plain
-twin for a CPU tensor.  ntt_impl="matmul" selects the four-step NTT of
+device.  The composites are programs cached under the JAX ring engine's
+keys, each a CUDA graph per shape on a CUDA device (utils/graphs.py).  The
+NTTs go through ops/ntt_cuda.py (primes of up to 60 bits) or
+ops/ntt_cuda32.py (a chain whose primes are all below 2^30, i.e. logp <=
+29): the CUDA kernel for every CUDA tensor, the plain twin for a CPU
+tensor.  ntt_impl="matmul" selects the four-step NTT of
 ops/ntt4.py instead (its CUDA halves in ops/ntt4_cuda.py), whose
 NTT-resident order differs: all NTT-resident objects of one engine share
 one backend.
@@ -28,7 +30,7 @@ from ..ops import ntt4 as ntt4_ops
 from ..ops import ntt_cuda, ntt_cuda32
 from ..ops import rns as rns_ops
 from ..ops.modmath import mulmod, u64_to_torch
-from ..utils import trace
+from ..utils import graphs, trace
 
 
 def ntt_module(pctx: PolyContext):
@@ -68,6 +70,10 @@ class RingEngine:
         self._ntt4: dict[int, ntt4_ops.Ntt4Plan] = {}
         self._tables: ntt_cuda.KernelTables | None = None
         self._galois: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+        # the programs of this engine and of the CKKS engine over it, with
+        # the graphs' shared memory pool
+        self.graphs = graphs.Graphs()
+        self._progs: dict = {}
 
     # -- plan caches --------------------------------------------------------
 
@@ -166,24 +172,33 @@ class RingEngine:
         return lb.fit_signed(c, mask_to_bits, k_out)
 
     # -- composites ---------------------------------------------------------
-    # Each is one program of the JAX ring engine and is counted by an op
-    # trace under that program's cache-key head (utils/trace.py); inside,
-    # they and the scheme engine's programs call decompose / ntt_f / mulmod
-    # / _inv_recon, which no trace counts.
+    # Each is one program of the JAX ring engine, cached under that
+    # program's key (utils/graphs.py) and counted by an op trace under its
+    # head (utils/trace.py); inside, they and the scheme engine's programs
+    # call decompose / ntt_f / mulmod / _inv_recon, which no trace counts.
+
+    def _program(self, key, fn):
+        """The program cached under key: fn at the key's first use (fn may
+        close over nothing that the key does not fix), handed out through
+        the op trace."""
+        if key not in self._progs:
+            self._progs[key] = self.graphs.program(fn, key)
+        return trace.maybe_wrap(key, self._progs[key])
 
     def fwd_ntt(self, a, dim: int, signed_bits: int | None = None):
         """limbs [n, K] -> NTT-domain residues [dim, n]."""
-        return trace.maybe_wrap(("fwd",), lambda x: self.ntt_f(
+        return self._program(("fwd", dim, a.shape[-1], signed_bits), lambda x: self.ntt_f(
             self.decompose(x, dim, signed_bits), dim))(a)
 
     def inv_ntt_recon(self, chat, dim: int, mask_to_bits: int, k_out: int):
         """NTT-domain residues -> centered limbs mod 2^mask_to_bits, resized
         to k_out."""
-        return trace.maybe_wrap(("invrec",), lambda ch: self._inv_recon(
+        return self._program(("invrec", dim, mask_to_bits, k_out), lambda ch: self._inv_recon(
             ch, dim, mask_to_bits, k_out))(chat)
 
     def pointwise_mul(self, ahat, bhat, dim: int):
-        return trace.maybe_wrap(("pw",), lambda x, y: self.mulmod(x, y, dim))(ahat, bhat)
+        return self._program(("pw", dim, ahat.shape),
+                             lambda x, y: self.mulmod(x, y, dim))(ahat, bhat)
 
     def poly_mul(self, a, b, dim: int, mask_to_bits: int, k_out: int,
                  signed_a: int | None = None, signed_b: int | None = None):
@@ -193,7 +208,8 @@ class RingEngine:
             xh = self.ntt_f(self.decompose(x, dim, signed_a), dim)
             yh = self.ntt_f(self.decompose(y, dim, signed_b), dim)
             return self._inv_recon(self.mulmod(xh, yh, dim), dim, mask_to_bits, k_out)
-        return trace.maybe_wrap(("mul",), f)(a, b)
+        return self._program(("mul", dim, a.shape[-1], b.shape[-1], mask_to_bits, k_out,
+                              signed_a, signed_b), f)(a, b)
 
     def galois(self, a, rot: int | None, q_bits: int):
         """Apply the rot/conj automorphism to limbs [..., n, K] mod 2^q_bits: a
@@ -204,4 +220,4 @@ class RingEngine:
             g = x[..., src, :]
             return torch.where(negf[:, None], lb.mask_bits(lb.neg(g), q_bits),
                                lb.mask_bits(g, q_bits))
-        return trace.maybe_wrap(("gal",), f)(a)
+        return self._program(("gal", -1 if rot is None else rot, a.shape, q_bits), f)(a)

@@ -11,8 +11,10 @@ Port of gpqhe_tpu/scheme/engine.py:
 and the double-hoisted gemv programs (Halevi-Shoup hoisting).
 
 Ciphertext polys are limb tensors on the engine's device; each scheme op is
-a sequence of eager torch calls and CUDA NTT launches (the JAX engine's one
-jitted program per (op, level) becomes one cached closure per level).  The
+a program of torch calls and CUDA kernel launches, cached under the JAX
+engine's key for its jitted program, and on a CUDA device captured as one
+CUDA graph per argument shape at first use and replayed after
+(utils/graphs.py, the counterpart of jax.jit).  The
 divide-round by P in key switching runs without big-int division: r = c mod
 P via a small CRT over the first hectx.dim primes, then
 u = (c - r) * P^-1 mod 2^(32K) — exact, and identical to mpi_rdiv semantics
@@ -101,31 +103,36 @@ class CKKS:
         """Host u32 limbs -> device limb tensor."""
         return limbs_to_torch(limbs_u32, self.device)
 
-    def _built(self, key, build):
-        """The program cached under key, built at first use."""
+    def _built(self, key, build, bound=()):
+        """The program cached under key, built at first use, run as a graph
+        per shape on a CUDA device (utils/graphs.py: the graphs share the
+        ring engine's memory pool; bound: arguments read in place)."""
         if key not in self._fns:
-            self._fns[key] = build()
+            self._fns[key] = self.ring.graphs.program(build(), key, bound)
         return self._fns[key]
 
-    def _cached(self, key, build):
+    def _cached(self, key, build, bound=()):
         """_built, handed out through the op trace: the cache keeps the bare
         program, so a trace that has ended leaves no timing wrapper behind."""
-        return trace.maybe_wrap(key, self._built(key, build))
+        return trace.maybe_wrap(key, self._built(key, build, bound))
 
-    def _traced(self, name: str, fn):
-        """An uncached program under the JAX engine's cache-key head."""
-        return trace.maybe_wrap((name,), fn)
+    def _program(self, key, fn):
+        """The program cached under key: fn at the key's first use (fn may
+        close over nothing that the key does not fix)."""
+        return self._cached(key, lambda: fn)
 
-    # the add family's programs, named as the JAX engine caches them
+    # the add family's programs, keyed as the JAX engine caches them
 
     def _add2_mask(self, a, b, qb):
-        return self._traced("add2", lambda x, y: lb.mask_bits(lb.add(x, y), qb))(a, b)
+        return self._program(("add2", a.shape, qb),
+                             lambda x, y: lb.mask_bits(lb.add(x, y), qb))(a, b)
 
     def _sub2_mask(self, a, b, qb):
-        return self._traced("sub2", lambda x, y: lb.mask_bits(lb.sub(x, y), qb))(a, b)
+        return self._program(("sub2", a.shape, qb),
+                             lambda x, y: lb.mask_bits(lb.sub(x, y), qb))(a, b)
 
     def _neg_mask(self, a, qb):
-        return self._traced("negm", lambda x: lb.mask_bits(lb.neg(x), qb))(a)
+        return self._program(("negm", a.shape, qb), lambda x: lb.mask_bits(lb.neg(x), qb))(a)
 
     # ------------------------------------------------------------------
     # encode / decode (host <-> device boundary)
@@ -229,8 +236,9 @@ class CKKS:
         prod = self.ring.poly_mul(sk, p1, ctx.dim, qL.bit_length(), self.kq,
                                   signed_a=32, signed_b=None)
         e_l = self._t(bigint.i64_to_limbs(e, self.kq))
-        p0 = self._traced("negadd", lambda x, y: lb.mask_bits(
-            lb.add(lb.neg(x), y), qL.bit_length()))(prod, e_l)
+        qb = qL.bit_length()
+        p0 = self._program(("negadd", prod.shape, qb), lambda x, y: lb.mask_bits(
+            lb.add(lb.neg(x), y), qb))(prod, e_l)
         return PublicKey(p0=p0, p1=p1), SecretKey(s=sk)
 
     def genswk(self, sp_ints, sk: SecretKey) -> SwitchKey:
@@ -315,7 +323,7 @@ class CKKS:
         e0_l = self._t(bigint.i64_to_limbs(e0, self.kq))
         e1_l = self._t(bigint.i64_to_limbs(e1, self.kq))
         m_l = lb.resize(pt.m, self.kq)
-        c0 = self._traced("add3", lambda x, y, z: lb.mask_bits(
+        c0 = self._program(("add3", c0.shape, qb), lambda x, y, z: lb.mask_bits(
             lb.add(lb.add(x, y), z), qb))(c0, m_l, e0_l)
         c1 = self._add2_mask(c1, e1_l, qb)
         nu = pt.nu if pt.nu >= self.Delta else self.Delta
@@ -335,7 +343,7 @@ class CKKS:
                                   signed_a=None, signed_b=32)
         e_l = self._t(bigint.i64_to_limbs(e, self.kq))
         m_l = lb.resize(pt.m, self.kq)
-        c0 = self._traced("negadd3", lambda x, y, z: lb.mask_bits(
+        c0 = self._program(("negadd3", prod.shape, qb), lambda x, y, z: lb.mask_bits(
             lb.add(lb.add(lb.neg(x), y), z), qb))(prod, m_l, e_l)
         nu = pt.nu if pt.nu >= self.Delta else self.Delta
         return Ciphertext(l=ctx.L, nu=nu, B=ctx.bounds.Bclean, c0=c0, c1=c1)
@@ -597,7 +605,8 @@ class CKKS:
                                         bound_bits=bits_pt, pre_scaled=True)
                 return lb.resize(lb.mask_bits(c, qb), klv)
             return one(c0), one(c1)
-        c0, c1 = self._traced("he_mulpt", f)(ct.c0, ct.c1, pt.m)
+        c0, c1 = self._program(("he_mulpt", l, dim, pt.m.shape[-1], bits_pt), f)(
+            ct.c0, ct.c1, pt.m)
         return Ciphertext(l=l, nu=ct.nu * pt.nu, B=ct.B * pt.nu, c0=c0, c1=c1)
 
     # ------------------------------------------------------------------
@@ -607,7 +616,7 @@ class CKKS:
     def rs(self, ct: Ciphertext) -> Ciphertext:
         """Divide-round by Delta, drop one level (ref: src/he-rescale.c:33-54)."""
         lnew = ct.l - 1
-        f = self._traced("rs", lambda x: self._rs_limbs(x, lnew))
+        f = self._program(("rs", ct.l, ct.c0.shape), lambda x: self._rs_limbs(x, lnew))
         return Ciphertext(l=lnew, nu=ct.nu / self.Delta,
                           B=ct.B / self.Delta + self.ctx.bounds.Brs,
                           c0=f(ct.c0), c1=f(ct.c1))
@@ -617,7 +626,8 @@ class CKKS:
         lnew = ct.l - 1
         qb = self.qbits(lnew)
         klv = self.kl(lnew)
-        f = self._traced("moddown", lambda x: lb.resize(lb.mask_bits(x, qb), klv))
+        f = self._program(("moddown", ct.l, ct.c0.shape),
+                          lambda x: lb.resize(lb.mask_bits(x, qb), klv))
         return Ciphertext(l=lnew, nu=ct.nu, B=ct.B, c0=f(ct.c0), c1=f(ct.c1))
 
     # ------------------------------------------------------------------
@@ -726,10 +736,16 @@ class CKKS:
 
         f(c1p [n1,dims_h,n], c0p [n1,dimc,n], ptx_i [n1,dims_h,n],
           ptb_i [n1,dimc,n], rk0, rk1 [n1,>=dims_h,n]) -> (c0_i, c1_i)
+
+        On a CUDA device its graphs read the diagonal slabs and the key
+        stacks (a plan's cached constants, the path's largest arguments) in
+        place: copied into static buffers they added 62% (fully hoisted) and
+        21% (BSGS) to the gemv's device time on an H100 (PERF.md §6).
         """
         return self._cached(
             ("hoiststep", l, dims_h, dimc, bits_h, bits_c),
-            lambda: self._build_hoisted_step(l, dims_h, dimc, bits_h, bits_c))
+            lambda: self._build_hoisted_step(l, dims_h, dimc, bits_h, bits_c),
+            bound=(2, 3, 4, 5))
 
     def _build_hoisted_step(self, l, dims_h, dimc, bits_h, bits_c):
         qb = self.qbits(l)

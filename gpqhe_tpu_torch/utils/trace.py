@@ -3,14 +3,15 @@
 - `op_trace()` — per-op counters: while a trace is active every engine
   program is counted and synchronously timed under the head of the key the
   JAX engines cache their jitted programs by ('he_mul_rs', 'swk', 'gal',
-  'rs', 'add2', 'fwd', 'mul', ...).  The torch engines run eagerly and cache
-  only what needs building, so the ring composites and the add family are
-  wrapped by name at their entry points; a composite that another program
-  contains (the forward NTTs inside 'mul', 'swk' or 'he_mulpt') is reached
-  through its unwrapped form and not counted, as a jitted program counts
-  once whatever it inlines.  One mul_rs, rot, conj, add, mulpt, rs, moddown,
-  enc, dec or hoisted gemv therefore counts the same names the same number
-  of times in both packages once the programs exist.  What the port cannot
+  'rs', 'add2', 'fwd', 'mul', ...).  The torch engines cache their programs
+  under the same keys (on a CUDA device each a CUDA graph per shape,
+  utils/graphs.py, which this wrapper times from outside: a replay); a
+  composite that another program contains (the forward NTTs inside 'mul',
+  'swk' or 'he_mulpt') is reached through its unwrapped form and not
+  counted, as a jitted program counts once whatever it inlines.  One
+  mul_rs, rot, conj, add, mulpt, rs, moddown, enc, dec or hoisted gemv
+  therefore counts the same names the same number of times in both
+  packages once the programs exist.  What the port cannot
   count alike: the first call of an op, where the JAX package also counts
   the programs it traces while building another ('he_mul' inside the first
   'he_mul_rs' of a level).  Zero overhead when inactive: `maybe_wrap`

@@ -10,6 +10,7 @@ neither jax nor gpqhe_tpu, so it runs on a machine without them:
 (--noconftest: tests/conftest.py configures jax for the JAX package's tests.)
 """
 
+import gc
 import json
 import os
 import subprocess
@@ -19,9 +20,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (bootstrap_cases, c2s_packing_case, crt_chain_case,  # the repository
-                        crt_chain_ring, equal_cts, gemv_packing_case,       # root is on
-                        oracle_module)                                      # sys.path
+from chip_smoke import (GRAPH_ENGINES, GRAPH_INPUTS, GRAPH_OPS, HOISTED,  # the repository
+                        bootstrap_cases, c2s_packing_case, crt_chain_case,   # root is on
+                        crt_chain_ring, equal_cts, gemv_packing_case,        # sys.path
+                        graph_case, graph_check, oracle_module)
 from gpqhe_tpu_torch import CKKS, HeContext, Surf         # (python -m pytest)
 from gpqhe_tpu_torch import bootstrap as bs
 from gpqhe_tpu_torch.algo import linalg, nonlinear
@@ -31,6 +33,7 @@ from gpqhe_tpu_torch.ops import ntt_cuda, ntt_cuda32
 from gpqhe_tpu_torch.ops.modmath import u64_to_torch
 from gpqhe_tpu_torch.ring import sample
 from gpqhe_tpu_torch.ring.poly import RingEngine
+from gpqhe_tpu_torch.utils import graphs
 
 torch.set_num_threads(1)
 
@@ -781,3 +784,77 @@ def test_cuda_matmul_engine_mul_rs_equals_butterfly(cuda_device, logp):
     assert db < 1e-5 and dm < 1e-5
     assert nb[2] == 0 and nb[0] + nb[1] == 4          # four transforms, one launch each
     assert nm[0] == nm[1] == 0 and nm[2] == 8          # two stages each
+
+
+# -- the engine programs as CUDA graphs (utils/graphs.py) ---------------------
+
+_GRAPHS = {}
+
+
+def _graph_case(device, logp, impl):
+    """graph_case at the main path's ring, with its fresh input sets, once
+    per (chain, backend)."""
+    if (logp, impl) not in _GRAPHS:
+        case = graph_case(logp, impl, device=device)
+        case["inputs"] = [case["fresh"](seed) for seed in range(GRAPH_INPUTS)]
+        _GRAPHS[logp, impl] = case
+    return _GRAPHS[logp, impl]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logp,impl,op", [(logp, impl, op) for logp, impl in GRAPH_ENGINES
+                                          for op in GRAPH_OPS
+                                          if impl != "matmul" or op not in HOISTED])
+def test_cuda_graphed_program_equals_eager(cuda_device, logp, impl, op):
+    """Each op's programs as CUDA graphs, torch.equal to the same programs
+    under graphs.disabled() at the first call and at replays over fresh
+    inputs, no result overwritten or shared, the launch counters of a replay
+    equal to an eager call's (chip_smoke.graph_check)."""
+    case = _graph_case(cuda_device, logp, impl)
+    r = graph_check(case["ops"][op], case["inputs"], f"{op} logp={logp} {impl}")
+    g = case["eng"].ring.graphs
+    assert r["launches"] > 0 and g.captures > 0 and g.replays > 0
+
+
+@pytest.mark.cuda
+def test_cuda_mul_rs_replays_one_graph(cuda_device):
+    """After its first call a mul_rs is one replay of its level's graph:
+    no capture, one replay, one graph under the program's key."""
+    case = _graph_case(cuda_device, 59, "butterfly")
+    eng, x = case["eng"], case["inputs"][0]
+    rlk = case["keys"][2]
+    eng.mul_rs(x["ct1"], x["ct2"], rlk)
+    g = eng.ring.graphs
+    before = (g.captures, g.replays)
+    eng.mul_rs(x["ct2"], x["ct1"], rlk)
+    assert (g.captures, g.replays) == (before[0], before[1] + 1)
+    assert len(eng._fns[("he_mul_rs", eng.ctx.L)].graphs) == 1
+    assert isinstance(g.capture, graphs.CudaGraphs)
+
+
+@pytest.mark.cuda
+def test_cuda_capture_runs_with_the_collector_off(cuda_device):
+    """The garbage collector is off while a stream captures (a graph it
+    freed then could not be destroyed), and on again after."""
+    seen = []
+
+    def fn(x):
+        seen.append(gc.isenabled())
+        return x + 1
+    prog = graphs.Graphs().program(fn, ("collector",))
+    prog(torch.zeros(4, device=cuda_device))
+    assert seen == [True, False] and gc.isenabled()
+
+
+@pytest.mark.cuda
+def test_cuda_a_failing_capture_raises(cuda_device):
+    """A program that reads the device back cannot be captured: the call
+    raises (no fallback), and the card and the eager program go on."""
+    g = graphs.Graphs()
+    prog = g.program(lambda x: x + x.sum().item(), ("syncs",))
+    x = torch.arange(4, device=cuda_device)
+    with pytest.raises(RuntimeError, match="capture of program"):
+        prog(x)
+    assert g.captures == 0 and not prog.graphs
+    with graphs.disabled():
+        assert torch.equal(prog(x), x + 6)
