@@ -128,20 +128,36 @@ non-zero:
              single-device CKKS on the same keys; plan.fallbacks == 0;
              decodes within 1e-5; sharded programs built; the NTT launch
              counters, zeroed before one call of each mesh op and read after,
-             equal to the local transforms expected.  Medians of each mesh
-             op beside the single-device op, one profiled call, the
-             collectives' transfers and bytes per op, peak memory.  The copy
+             equal to the local transforms expected.  On a mesh whose
+             positions share one device (HeMesh.graphable) every sharded
+             program is a CUDA graph: per op whether it is graphed, and
+             graph_check against graphs.disabled() on three input sets, each
+             also torch.equal to the single-device engine; the launch
+             counters and the mesh's traffic of three replays equal to three
+             eager calls' (mesh_replays_match).  Walls in turns (eager,
+             graphed, graphed, eager) beside the single-device op, a profile
+             of each mode (busy ms, device ops, idle share, host dispatches),
+             host µs a call both ways, the collectives' transfers and bytes
+             per op, peak and reserved memory.  The sharded 3-D poly_mul
+             (build_sharded_poly_mul_3d) on the same mesh over the product
+             basis: graphed torch.equal to eager and to RingEngine.poly_mul
+             on two pairs, its chain's NTT launched, walls in turns.  The copy
              path, each chain at logn=9/logq=120/slots=4/Delta=2^30: the same
              four ops on a (2,2,2) mesh whose position (l, c, b) is on the card
              when l + c is even and on the host otherwise, torch.equal to
              CKKS on the card (the first differing index where not), with
              device-copy bytes > 0 in psum, ppermute, scatter and gather and
-             no view in psum or ppermute.  The CLI
+             no view in psum or ppermute; its programs eager (graphed: false,
+             with the layout's reason).  The CLI
              with --mesh=2x2x1:virtual ([ok]) and without :virtual (exit 2
              where the machine has fewer than 4 GPUs).  After the bootstrap
              phase, on its keys (or on keys of its own when that phase is
              not run): bootstrap.coeff2slot at logn=15/logq=881 on a (2,4,1)
-             mesh torch.equal to the single-device result.
+             mesh torch.equal to the single-device result and, graphed, to
+             itself under graphs.disabled(), with the same traffic; its
+             first call's seconds and memory reserved, walls in turns and a
+             profile of each mode (`--phases mesh_compose` runs that part
+             without the rest of the phase).
   mesh_mp  — one mesh over two processes: `python -m
              gpqhe_tpu_torch.parallel.mp_mul_rs` at logn=14/logq=438/slots=16/
              Delta=2^50, both chains in one run, 2 ranks x 4 positions on
@@ -156,7 +172,8 @@ non-zero:
              each layout, staged bytes > 0 over gloo.  Per rank ms per op,
              the device busy ms of one mul_rs, bytes by kind, seconds of
              set-up and of each layout, and rank 0's one-process virtual mesh
-             of the same layout (mul_rs).
+             of the same layout (mul_rs).  Every rank's programs eager
+             (graphed: false: a graph does not capture the messages).
   nonlinear — algo/nonlinear.py at logn=14/logq=438/slots=4/Delta=2^30 from
              Surf(), the op sequence of tests/test_golden_algo.py: m0 bit-equal
              to tests/golden/golden_algo_nonlinear.json, and he_inv(5),
@@ -221,6 +238,7 @@ before printing any result.  Needs no network.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -1971,11 +1989,52 @@ def mesh_coeff_ntt_check(logp: int, devices) -> dict:
     return out
 
 
+MESH_HEADS = {"mul_rs": "mul_rs", "rot": "rot", "conj": "rot", "gemv_full": "gemvstep"}
+
+
+def mesh_programs(meng, op: str, l: int) -> list:
+    """The sharded programs that MeshCKKS built for op at level l (the gemv:
+    every giant step's)."""
+    head = MESH_HEADS[op]
+    want = {"rot": 1, "conj": None}.get(op)
+    return [p for k, p in meng._mesh_jit.items()
+            if k[0] == head and k[1] == l and (head != "rot" or k[2] == want)]
+
+
+def mesh_graphed(meng, op: str, l: int) -> bool:
+    """Whether op's sharded programs run as CUDA graphs (and have some)."""
+    from gpqhe_tpu_torch.utils import graphs
+    progs = mesh_programs(meng, op, l)
+    return bool(progs) and all(isinstance(p, graphs.Program) and p.graphs for p in progs)
+
+
+def mesh_replays_match(fn, inputs: list, mesh, name: str) -> dict:
+    """The launch counters' and the mesh's traffic gain over one graphed call
+    of fn on each input set (replays) against as many calls under
+    graphs.disabled(): equal, or raises.  Returns the gains."""
+    from gpqhe_tpu_torch.utils import graphs
+    out = {}
+    for mode in ("graphed", "eager"):
+        mesh.reset_traffic()
+        before = graphs.counters_snapshot()
+        with graphs.disabled() if mode == "eager" else contextlib.nullcontext():
+            for x in inputs:
+                fn(x)
+        out[mode] = {"launches": launch_counters_delta(before),
+                     "traffic": {c: list(v) for c, v in mesh.traffic.items()}}
+    if out["graphed"] != out["eager"]:
+        raise AssertionError(f"mesh {name}: {len(inputs)} replays counted {out['graphed']}, "
+                             f"as many eager calls {out['eager']}")
+    return out["graphed"]
+
+
 def mesh_chain(logp: int, iters: int, devices, what: str) -> dict:
     """mul_rs, rot(1), conj and the fully hoisted gemv at logn=14/logq=438/
     slots=16/Delta=2^50 on a (2,2,2) mesh against the single-device engine
-    on the same keys.  Returns the NTT and the elementwise launches of one
-    call of each mesh op."""
+    on the same keys; each op's sharded programs graphed (HeMesh.graphable)
+    against the same under graphs.disabled(), in turns; then the sharded
+    3-D poly_mul (mesh_poly_mul).  Returns the NTT and the elementwise
+    launches of one call of each mesh op."""
     import numpy as np
     import torch
     from gpqhe_tpu_torch.algo import linalg
@@ -2003,26 +2062,41 @@ def mesh_chain(logp: int, iters: int, devices, what: str) -> dict:
     v = rng.random(ctx.slots) + 1j * rng.random(ctx.slots)
     m2 = rng.random(ctx.slots) + 1j * rng.random(ctx.slots)
     A = rng.random(ctx.slots * ctx.slots) + 1j * rng.random(ctx.slots * ctx.slots)
-    ct, ct2 = eng.enc_pk(eng.ecd(v), pk), eng.enc_pk(eng.ecd(m2), pk)
+    x0 = {"ct": eng.enc_pk(eng.ecd(v), pk), "ct2": eng.enc_pk(eng.ecd(m2), pk)}
     plans = {e: linalg.HoistedGemvPlan(e, A) for e in (eng, meng)}
 
+    def fresh(seed: int) -> dict:
+        r = np.random.default_rng(seed)
+        return {k: eng.enc_pk(eng.ecd(r.random(ctx.slots) + 1j * r.random(ctx.slots)), pk)
+                for k in ("ct", "ct2")}
+
     def ops(e):
-        return {"mul_rs": lambda: e.mul_rs(ct, ct2, rlk), "rot": lambda: e.rot(ct, 1, rk),
-                "conj": lambda: e.conj(ct, ck),
-                "gemv_full": lambda: linalg.gemv_hoisted_full(e, plans[e], ct, rk)}
+        return {"mul_rs": lambda x: e.mul_rs(x["ct"], x["ct2"], rlk),
+                "rot": lambda x: e.rot(x["ct"], 1, rk), "conj": lambda x: e.conj(x["ct"], ck),
+                "gemv_full": lambda x: linalg.gemv_hoisted_full(e, plans[e], x["ct"], rk)}
     want = {"mul_rs": v * m2, "rot": np.roll(v, -1), "conj": np.conj(v),
             "gemv_full": A.reshape(ctx.slots, ctx.slots) @ v}
     t1 = time.time()
-    single = {k: fn() for k, fn in ops(eng).items()}
-    sharded = {k: fn() for k, fn in ops(meng).items()}        # builds the sharded programs
+    single = {k: fn(x0) for k, fn in ops(eng).items()}
+    sharded = {k: fn(x0) for k, fn in ops(meng).items()}     # builds and captures the programs
     torch.cuda.synchronize()
     first_s = time.time() - t1
-    equal = {k: bool(torch.equal(single[k].c0, sharded[k].c0)
-                     and torch.equal(single[k].c1, sharded[k].c1)
-                     and (single[k].l, single[k].nu, single[k].B)
-                     == (sharded[k].l, sharded[k].nu, sharded[k].B)) for k in single}
+    l = x0["ct"].l
+    graphed = {k: mesh_graphed(meng, k, l) for k in sharded}
+    equal = {k: graph_same(single[k], sharded[k]) for k in single}
     diffs = {k: float(np.max(np.abs(eng.dcd(eng.dec(c, sk)) - want[k])))
              for k, c in sharded.items()}
+
+    # graphed against eager and against the single device on fresh inputs
+    inputs = [x0] + [fresh(seed) for seed in (1, 2)]
+    replayed = {}
+    for k, fn in ops(meng).items():
+        name = f"{k} logp={logp}"
+        graph_check(fn, inputs, f"mesh {name}")
+        for i, x in enumerate(inputs):
+            if not graph_same(fn(x), ops(eng)[k](x)):
+                raise AssertionError(f"mesh {name}: input {i} differs from the single device")
+        replayed[k] = mesh_replays_match(fn, inputs, mesh, name)
 
     # the mesh engine's main path: one call of each mesh op, programs built,
     # the counters zeroed just before and read just after
@@ -2031,7 +2105,7 @@ def mesh_chain(logp: int, iters: int, devices, what: str) -> dict:
     traffic = {}
     for k, fn in ops(meng).items():
         mesh.reset_traffic()
-        fn()
+        fn(x0)
         traffic[k] = {kind: list(c) for kind, c in mesh.traffic.items()}
     torch.cuda.synchronize()
     launches, foreign, ew = dict(mine), dict(other), ew_counters()
@@ -2042,26 +2116,46 @@ def mesh_chain(logp: int, iters: int, devices, what: str) -> dict:
     expected = {"fwd": 2 * P + P + P + 2, "inv": 2 * P + P + P + 2 * P, "inv_scaled": 0}
 
     few = max(3, iters // 4)
-    ms = {"single": {k: cuda_ms(fn, few) for k, fn in ops(eng).items()},
-          "mesh": {k: cuda_ms(fn, few, warmup=1) for k, fn in ops(meng).items()}}
+    turns, per_op = {}, {}
     for k, fn in ops(meng).items():
-        profile_op(k, fn, host_ops=False, warm=False, logp=logp, mesh=[2, 2, 2])
-    l = ct.l
+        def call(fn=fn):
+            return fn(x0)
+        w = [cuda_ms(eager(call), few, warmup=1), cuda_ms(call, few), cuda_ms(call, few),
+             cuda_ms(eager(call), few, warmup=1)]
+        turns[k] = {"eager": [w[0], w[3]], "graphed": w[1:3]}
+        prof = {mode: profile_op(k, f, warm=False, logp=logp, mesh=[2, 2, 2], mode=mode)
+                for mode, f in (("graphed", call), ("eager", eager(call)))}
+        per_op[k] = {"graphed": graphed[k], "wall_ms_eager": turns[k]["eager"],
+                     "wall_ms_graphed": turns[k]["graphed"],
+                     "host_us_graphed": host_us(call, 20), "host_us_eager": host_us(eager(call), 5),
+                     "replays_counted": replayed[k]["traffic"]}
+        for mode, pr in prof.items():
+            wall = sum(turns[k][mode]) / 2
+            busy = pr.get("device_busy_ms")
+            per_op[k][mode] = {"busy_ms": busy, "device_ops": pr.get("device_kernels"),
+                               "idle_share": None if busy is None else 1 - busy / wall,
+                               "host_dispatches": pr.get("host_dispatches")}
+    ms = {"single": {k: cuda_ms(lambda fn=fn: fn(x0), few) for k, fn in ops(eng).items()},
+          "mesh": {k: min(t["graphed"]) for k, t in turns.items()}}
     emit({"phase": "mesh", "logp": logp, "logn": 14, "logq": 438, "slots": 16, "logDelta": 50,
           "mesh": dict(mesh.shape), "devices": what, "L": ctx.L,
+          "graphable": mesh.graphable, "eager_why": mesh.eager_why,
           "dim_mul_padded": meng._pad_limb(ctx.dim_mul(l)),
           "dim_swk_padded": meng._pad_limb(ctx.dim_swk(l)), "dimswk_h": eng.dimswk_h,
           "gemv_dims": list(meng.gemv_dims(l, plans[meng].bound_max_full(meng) * ctx.slots)),
           "keygen_s": keygen_s, "first_calls_s": first_s, "ms": ms,
           "slowdown": {k: ms["mesh"][k] / ms["single"][k] for k in ms["mesh"]},
+          "graphed": graphed, "ops": per_op,
           "equal_to_single_device": equal, "decode_diffs": diffs,
           "fallbacks": {"single": plans[eng].fallbacks, "mesh": plans[meng].fallbacks},
           "programs": sorted(str(k) for k in meng._mesh_jit),
+          "captures": meng.ring.graphs.captures, "replays": meng.ring.graphs.replays,
           "launches": launches, "expected_launches": expected,
           "other_kernel_launches": foreign, "transfers_and_bytes": traffic,
           "elementwise_launches": {k: v for k, v in ew.items() if v},
           "operand_copies": ew_copies(),
-          "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20})
+          "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20,
+          "memory_reserved_mb": torch.cuda.memory_reserved() / 2**20})
     if not all(equal.values()):
         raise AssertionError(f"mesh logp={logp}: differs from the single-device engine: {equal}")
     bad = {k: d for k, d in diffs.items() if not d < 1e-5}
@@ -2069,11 +2163,68 @@ def mesh_chain(logp: int, iters: int, devices, what: str) -> dict:
         raise AssertionError(f"mesh logp={logp}: decode diffs {bad} >= 1e-5")
     if plans[eng].fallbacks or plans[meng].fallbacks or not meng._mesh_jit:
         raise AssertionError(f"mesh logp={logp}: gemv fell back, or no sharded program was built")
+    if mesh.graphable and not all(graphed.values()):
+        raise AssertionError(f"mesh logp={logp}: a one-device mesh left programs eager: {graphed}")
     if launches != expected or any(foreign.values()):
         raise AssertionError(f"mesh logp={logp}: NTT launches {launches}, expected {expected}; "
                              f"other kernel {foreign}")
     require_ew_launches(f"mesh logp={logp}", ew)
+    mesh_poly_mul(logp, ctx, eng, devices, iters)
     return {"launches": launches, "elementwise": ew}
+
+
+def mesh_poly_mul(logp: int, ctx, eng, devices, iters: int) -> None:
+    """build_sharded_poly_mul_3d on the (2,2,2) mesh at the ring of ctx: B=2
+    pairs of random polynomials below q_L, over the product basis padded
+    to the limb axis, against the single-device RingEngine.poly_mul on each
+    pair; graphed (a first call and a replay on another pair) against
+    graphs.disabled(); its chain's NTT launched in a counted call.  Walls
+    in turns beside the single device's two poly_muls."""
+    import numpy as np
+    import torch
+    from gpqhe_tpu_torch.parallel import mesh as pm
+    from gpqhe_tpu_torch.scheme.types import limbs_to_torch
+    from gpqhe_tpu_torch.utils import graphs
+
+    mesh = pm.make_he_mesh3(8, limb=2, coeff=2, devices=devices)
+    L, B, n = ctx.L, mesh.size("batch"), ctx.poly.n
+    dim, K, qb = pm._pad_dim(ctx.dim_mul(L), 2, ctx.poly.dimub), eng.kl(L), eng.qbits(L)
+    rng = np.random.default_rng(693)
+
+    def pair():
+        words = rng.integers(0, 1 << 32, (2, B, n, K), dtype=np.uint32)
+        words[..., -1] &= np.uint32((1 << (qb - 32 * (K - 1))) - 1)
+        return tuple(limbs_to_torch(w, eng.device) for w in words)
+    inputs = [pair(), pair()]
+    f = pm.build_sharded_poly_mul_3d(ctx.poly, dim, K, qb, K, mesh)
+    got = [f(*x) for x in inputs]                    # capture, then a replay
+    with graphs.disabled():
+        eager_out = [f(*x) for x in inputs]
+    single = [torch.stack([eng.ring.poly_mul(a[i], b[i], dim, qb, K) for i in range(B)])
+              for a, b in inputs]
+    mine, other = chain_counters(logp)
+    f(*inputs[0])
+    torch.cuda.synchronize()
+    launches, foreign = dict(mine), dict(other)
+    few = max(3, iters // 4)
+
+    def call():
+        return f(*inputs[0])
+    w = [cuda_ms(eager(call), few), cuda_ms(call, few), cuda_ms(call, few),
+         cuda_ms(eager(call), few)]
+    ok = {"graphed_equal_eager": all(torch.equal(g, e) for g, e in zip(got, eager_out)),
+          "equal_to_single_device": all(torch.equal(g, s) for g, s in zip(got, single))}
+    emit({"phase": "mesh_poly_mul", "logp": logp, "logn": ctx.poly.logn, "mesh": dict(mesh.shape),
+          "shape": [B, n, K], "dim": dim, "mask_bits": qb,
+          "graphed": isinstance(f, graphs.Program) and len(f.graphs) == 1, **ok,
+          "wall_ms_eager": [w[0], w[3]], "wall_ms_graphed": w[1:3],
+          "single_ms": cuda_ms(lambda: [eng.ring.poly_mul(inputs[0][0][i], inputs[0][1][i], dim,
+                                                          qb, K) for i in range(B)], few),
+          "launches": launches, "other_kernel_launches": foreign})
+    if not all(ok.values()) or (mesh.graphable and not isinstance(f, graphs.Program)):
+        raise AssertionError(f"mesh poly_mul_3d logp={logp}: {ok}")
+    require_launches(f"mesh poly_mul_3d logp={logp}", {m: launches[m] for m in ("fwd", "inv")},
+                     foreign)
 
 
 def mixed_devices(card, limb: int, coeff: int, batch: int) -> list:
@@ -2107,6 +2258,7 @@ def mesh_mixed(logp: int) -> None:
     from gpqhe_tpu_torch.parallel.mesh import make_he_mesh3
     from gpqhe_tpu_torch.scheme.engine import CKKS
     from gpqhe_tpu_torch.substrate.surf import Surf
+    from gpqhe_tpu_torch.utils import graphs
 
     t0 = time.time()
     ctx = HeContext(logn=9, q=1 << 120, slots=4, Delta=1 << 30, logp=logp)
@@ -2142,9 +2294,12 @@ def mesh_mixed(logp: int) -> None:
     copies = {c: sum(t[c]["device"][1] for t in traffic.values()) for c in traffic["mul_rs"]}
     views_due_copies = {c: sum(t[c]["view"][0] for t in traffic.values())
                         for c in ("psum", "ppermute")}
+    progs = list(meng._mesh_jit.values())
+    graphed = any(isinstance(p, graphs.Program) for p in progs)
     emit({"phase": "mesh_mixed", "logp": logp, "logn": 9, "logq": 120, "slots": 4,
           "logDelta": 30, "mesh": dict(mesh.shape),
           "devices": [str(mesh.device(p)) for p in mesh.positions],
+          "graphed": graphed, "eager_why": mesh.eager_why,
           "equal_to_single_device": equal, "first_difference": differ,
           "device_copy_bytes": copies, "views_in_psum_and_ppermute": views_due_copies,
           "traffic": traffic, "seconds": time.time() - t0})
@@ -2153,6 +2308,9 @@ def mesh_mixed(logp: int) -> None:
     if not all(copies.values()) or any(views_due_copies.values()):
         raise AssertionError(f"mixed mesh logp={logp}: copies {copies}, views where a copy "
                              f"was due {views_due_copies}")
+    if graphed or mesh.graphable or not progs:
+        raise AssertionError(f"mixed mesh logp={logp}: a mesh of the card and the host "
+                             f"graphed its programs ({[type(p) for p in progs]})")
 
 
 MP_RING = ["--logn=14", "--logq=438", "--slots=16", "--logDelta=50"]
@@ -2192,6 +2350,7 @@ def phase_mesh_mp(iters: int) -> None:
                 "rank": ln["rank"], "positions": ln["positions"], "equal": ln["equal"],
                 "decode_diffs": ln["decode_diffs"], "ms": ln.get("ms"),
                 "mul_rs_busy_ms": ln.get("mul_rs_busy_ms"), "virtual": ln.get("virtual"),
+                "graphed": ln.get("graphed"), "eager_why": ln.get("eager_why"),
                 "bytes_by_kind": kinds,
                 "mul_rs_bytes": {c: {k: v[1] for k, v in t.items()}
                                  for c, t in ln["traffic"]["mul_rs"].items()},
@@ -2215,6 +2374,8 @@ def phase_mesh_mp(iters: int) -> None:
                     problems.append(f"{where}: launches {r['launches']}")
                 if backend == "gloo" and not sum(k["staged"] for k in r["bytes_by_kind"].values()):
                     problems.append(f"{where}: nothing staged over gloo")
+                if r["graphed"] is not False:
+                    problems.append(f"{where}: a mesh across processes graphed ({r['graphed']})")
             if not sum(k["process"] for r in rs for k in r["bytes_by_kind"].values()):
                 problems.append(f"logp={logp} {lay}: no bytes crossed the processes")
     if problems:
@@ -2296,6 +2457,7 @@ def phase_mesh_compose(iters: int, o: dict | None) -> dict:
     from gpqhe_tpu_torch.ring import sample as smp
     from gpqhe_tpu_torch.scheme.engine import CKKS
     from gpqhe_tpu_torch.substrate.surf import Surf
+    from gpqhe_tpu_torch.utils import graphs
 
     torch.cuda.reset_peak_memory_stats()
     devices, what = mesh_devices(8)
@@ -2326,30 +2488,63 @@ def phase_mesh_compose(iters: int, o: dict | None) -> dict:
     bctx_s, bctx_m = bs.BootstrapContext(eng), bs.BootstrapContext(meng)
     (s0, s1), _ = run(eng, bctx_s)
     mine, other = chain_counters(59)
-    (m0, m1), first_s = run(meng, bctx_m)                 # builds tables and programs
+    reserved0 = torch.cuda.memory_reserved()
+    (m0, m1), first_s = run(meng, bctx_m)                 # builds tables, programs, graphs
     launches, foreign = dict(mine), dict(other)
-    equal = all(torch.equal(a, b) for a, b in ((s0.c0, m0.c0), (s0.c1, m0.c1),
-                                               (s1.c0, m1.c0), (s1.c1, m1.c1)))
+    reserved = torch.cuda.memory_reserved()
+    with graphs.disabled():
+        (e0, e1), _ = run(meng, bctx_m)
+    equal = {"single": all(torch.equal(a, b) for a, b in (
+                 (s0.c0, m0.c0), (s0.c1, m0.c1), (s1.c0, m1.c0), (s1.c1, m1.c1))),
+             "eager": all(torch.equal(a, b) for a, b in (
+                 (e0.c0, m0.c0), (e0.c1, m0.c1), (e1.c0, m1.c0), (e1.c1, m1.c1)))}
     mesh.reset_traffic()
     _, mesh_s = run(meng, bctx_m)
     traffic = {kind: list(c) for kind, c in mesh.traffic.items()}
+    mesh.reset_traffic()
+    with graphs.disabled():
+        run(meng, bctx_m)
+    traffic_eager = {kind: list(c) for kind, c in mesh.traffic.items()}
     _, single_s = run(eng, bctx_s)
-    profile_op("coeff2slot", lambda: bs.coeff2slot(meng, bctx_m, ct, ck, rk), host_ops=False,
-               warm=False, mesh=[2, 4, 1])
+
+    def graphed():
+        return run(meng, bctx_m)[1]
+    few = max(2, iters // 5)
+    walls = [median([eager(graphed)() for _ in range(few)]),
+             median([graphed() for _ in range(few)]), median([graphed() for _ in range(few)]),
+             median([eager(graphed)() for _ in range(few)])]
+    prof = {mode: profile_op("coeff2slot", f, host_ops=False, warm=False, mesh=[2, 4, 1],
+                             mode=mode)
+            for mode, f in (("graphed", lambda: bs.coeff2slot(meng, bctx_m, ct, ck, rk)),
+                            ("eager", eager(lambda: bs.coeff2slot(meng, bctx_m, ct, ck, rk))))}
+    progs = list(meng._mesh_jit.values())
     emit({"phase": "mesh_compose", "logn": 15, "logq": LOGQ[15], "slots": 4, "logDelta": 30,
           "mesh": dict(mesh.shape), "devices": what, "level": l,
-          "equal_to_single_device": equal, "first_call_s": first_s, "mesh_s": mesh_s,
+          "graphable": mesh.graphable, "eager_why": mesh.eager_why,
+          "graphed_programs": sum(isinstance(p, graphs.Program) for p in progs),
+          "graphs": sum(len(getattr(p, "graphs", ())) for p in progs),
+          "equal_to_single_device": equal["single"], "graphed_equal_eager": equal["eager"],
+          "first_call_s": first_s, "mesh_s": mesh_s,
           "single_s": single_s, "slowdown": mesh_s / single_s,
+          "wall_s_eager": [walls[0], walls[3]], "wall_s_graphed": walls[1:3],
+          "busy_ms": {m: p.get("device_busy_ms") for m, p in prof.items()},
+          "device_ops": {m: p.get("device_kernels") for m, p in prof.items()},
           "programs": sorted(str(k) for k in meng._mesh_jit),
           "fallbacks": {name: plan.fallbacks for name, plan in bctx_m._plans.items()},
           "launches_first_call": launches, "other_kernel_launches": foreign,
-          "transfers_and_bytes": traffic,
+          "transfers_and_bytes": traffic, "transfers_and_bytes_eager": traffic_eager,
+          "memory_reserved_mb": reserved / 2**20,
+          "memory_reserved_mb_before_first_call": reserved0 / 2**20,
           "peak_mem_mb": torch.cuda.max_memory_allocated() / 2**20})
-    if not equal:
-        raise AssertionError("coeff2slot on the mesh differs from the single-device engine")
+    if not all(equal.values()):
+        raise AssertionError(f"coeff2slot on the mesh differs: {equal}")
     if not meng._mesh_jit or launches["fwd"] <= 0 or launches["inv"] <= 0 or any(foreign.values()):
         raise AssertionError(f"coeff2slot on the mesh: programs {list(meng._mesh_jit)}, "
                              f"NTT launches {launches}, other kernel {foreign}")
+    if traffic != traffic_eager or (mesh.graphable and not all(
+            isinstance(p, graphs.Program) and p.graphs for p in progs)):
+        raise AssertionError(f"coeff2slot on the mesh: traffic graphed {traffic}, eager "
+                             f"{traffic_eager}; programs {[type(p) for p in progs]}")
     return {"kernels": {f"ntt15mesh_{mode}": v for mode, v in kernels.items()},
             "launches": {f"ntt15mesh_{mode}": launches[mode] for mode in kernels}}
 
@@ -2810,12 +3005,14 @@ def graph_same(a, b) -> bool:
 def launch_counters_delta(before: list) -> dict:
     """The launch counters' gain since `before` (graphs.counters_snapshot),
     by kernel binding; the wrappers' operand copies (cuda_build.COPIES) left
-    out, as a caller's strides may differ from a graph's static buffers."""
+    out, as a caller's strides may differ from a graph's static buffers, and
+    the meshes' traffic (read from the mesh: mesh_replays_match)."""
     from gpqhe_tpu_torch.ops import cuda_build
+    from gpqhe_tpu_torch.parallel.mesh import TRAFFIC
     from gpqhe_tpu_torch.utils import graphs
     return {i: d for i, (c, d) in enumerate(zip(cuda_build.COUNTERS,
                                                 graphs.counters_delta(before)))
-            if d and c is not cuda_build.COPIES}
+            if d and c is not cuda_build.COPIES and c is not TRAFFIC}
 
 
 def graph_check(fn, inputs: list, name: str) -> dict:
@@ -3689,7 +3886,8 @@ def phase_ntt4(iters: int) -> dict:
 
 
 PHASES = ("build", "kernels", "golden", "mul_rs", "linalg59", "linalg29", "ntt4", "suite",
-          "mesh", "mesh_mp", "nonlinear", "cmp", "bootstrap", "serialize", "graphs", "cli")
+          "mesh", "mesh_mp", "nonlinear", "cmp", "bootstrap", "serialize", "graphs",
+          "mesh_compose", "cli")
 
 
 def main(argv=None) -> int:
@@ -3794,7 +3992,7 @@ def main(argv=None) -> int:
     if "graphs" in phases:
         phase_graphs(args.iters, boot["objects"] if "bootstrap" in phases else None)
         clock("graphs")
-    if "mesh" in phases:
+    if "mesh" in phases or "mesh_compose" in phases:
         # the mesh phase's composition, on the bootstrap phase's keys
         r = phase_mesh_compose(args.iters, boot["objects"] if "bootstrap" in phases else None)
         kernels.update(r["kernels"])

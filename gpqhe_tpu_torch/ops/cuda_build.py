@@ -96,9 +96,10 @@ def load(source: str) -> ctypes.CDLL:
 # operand views for the elementwise kernels (modmath.cu, rns.cu, limbs.cu)
 # ---------------------------------------------------------------------------
 
-# every launch counter of the kernel bindings (ops/*_cuda.py), and COPIES
-# below: a replayed CUDA graph runs no Python, so utils/graphs.py adds
-# again at each replay what the graph's capture added to them
+# every launch counter of the kernel bindings (ops/*_cuda.py), COPIES
+# below and the meshes' traffic (parallel/mesh.py): a replayed CUDA graph
+# runs no Python, so utils/graphs.py adds again at each replay what the
+# graph's capture added to them
 COUNTERS: list[dict] = []
 
 

@@ -30,6 +30,14 @@ _psum_limb, _ppermute_coeff_xor and _gather (a _scatter cuts the global
 input, which every process holds) — all through _transfer.  Every program
 takes ordinary tensors and returns them on this process's first device.
 
+As the JAX package compiles each of its five sharded programs once (tpu_jit
+around shard_map), a mesh whose positions all lie on one device of this
+process, with no process group (HeMesh.graphable: a virtual mesh), runs
+each program as one CUDA graph per argument shapes (utils/graphs.py): the
+walk over positions, its collectives included, is captured once and
+replayed with one dispatch.  A mesh over several devices or processes runs
+its programs eagerly, by that rule, fixed when the mesh is made.
+
 Collectives per program: log2(S) block swaps per NTT on 'coeff'; one sum of
 [batch, n/S, ds] digit partials (and an [batch, n/S] f64 estimate) per CRT
 reconstruct on 'limb'.
@@ -37,22 +45,37 @@ reconstruct on 'limb'.
 
 from __future__ import annotations
 
+import itertools
+import weakref
+
 import numpy as np
 import torch
 
 from ..context import PolyContext
+from ..ops import cuda_build, ntt_cuda, ntt_cuda32
 from ..ops import limbs as lb
-from ..ops import ntt_cuda, ntt_cuda32
 from ..ops import rns as rns_ops
 from ..ops.modmath import (addmod, cross_terms, key_products, mont_mul, mulmod, mulmod_sum,
                            submod, u64_to_torch)
 from ..ring.poly import ntt_module
-from ..utils import trace
+from ..utils import graphs
 from . import dist as pdist
 
 _AXES = ("limb", "coeff", "batch")
 _COLLECTIVES = ("psum", "ppermute", "scatter", "gather")
 _KINDS = ("view", "device", "process")
+
+# What the collectives of every live mesh moved: {(mesh serial, collective,
+# kind, 0 for transfers or 1 for bytes): count}.  Flat, and registered with
+# the launch counters, so that a graph's replay adds again what its capture
+# counted (utils/graphs.py): a replay runs none of the Python that counts.
+TRAFFIC = cuda_build.counters({})
+_SERIALS = itertools.count()
+
+
+def _forget_traffic(serial: int) -> None:
+    for key in [k for k in TRAFFIC if k[0] == serial]:
+        del TRAFFIC[key]
 
 
 class HeMesh:
@@ -70,7 +93,13 @@ class HeMesh:
     (a copy between two devices of this process) or "process" (a message
     from another process); "staged" counts the bytes this process copied
     between a card and host memory for messages over a gloo group.
-    traffic is {collective: [transfers, bytes]} over the three kinds."""
+    traffic is {collective: [transfers, bytes]} over the three kinds.
+
+    graphable: one process holds every position and they all lie on one
+    device, so that the sharded programs run as graphs (the module's
+    docstring); else eager_why says why they run eagerly.  graphs holds
+    the graphs of the programs that no engine owns (the poly_mul
+    builders), one memory pool per device."""
 
     def __init__(self, devices: np.ndarray, axis_names: tuple[str, ...],
                  ranks: np.ndarray | None = None, rank: int = 0, group=None):
@@ -93,9 +122,18 @@ class HeMesh:
         # each rank's first position: where a gather leaves the whole output
         self.rank_heads = [next(p for p in self.positions if self.rank_of(p) == r)
                            for r in range(int(self._ranks.max()) + 1)]
-        self.traffic_by_kind: dict[str, dict[str, list[int]]] = {}
         self._ring_tables: dict = {}
+        self._serial = next(_SERIALS)
+        weakref.finalize(self, _forget_traffic, self._serial)
         self.reset_traffic()
+        devs = sorted({str(self.device(p)) for p in self.local_positions})
+        self.eager_why = (
+            "the mesh spans processes: a CUDA graph does not capture their messages"
+            if group is not None else
+            f"positions on {len(devs)} devices ({', '.join(devs)}): a CUDA graph holds "
+            f"the work of one device" if len(devs) > 1 else None)
+        self.graphable = self.eager_why is None
+        self.graphs = graphs.Graphs()
 
     def size(self, axis: str) -> int:
         return self.shape.get(axis, 1)
@@ -113,8 +151,15 @@ class HeMesh:
         return self.device(self.local_positions[0])
 
     def reset_traffic(self) -> None:
-        self.traffic_by_kind = {c: {k: [0, 0] for k in _KINDS + ("staged",)}
-                                for c in _COLLECTIVES}
+        for c in _COLLECTIVES:
+            for k in _KINDS + ("staged",):
+                TRAFFIC[self._serial, c, k, 0] = TRAFFIC[self._serial, c, k, 1] = 0
+
+    @property
+    def traffic_by_kind(self) -> dict[str, dict[str, list[int]]]:
+        s = self._serial
+        return {c: {k: [TRAFFIC[s, c, k, 0], TRAFFIC[s, c, k, 1]] for k in _KINDS + ("staged",)}
+                for c in _COLLECTIVES}
 
     @property
     def traffic(self) -> dict[str, list[int]]:
@@ -221,9 +266,8 @@ def _merge(*consts) -> dict:
 
 
 def _count(mesh: HeMesh, collective: str, kind: str, t: torch.Tensor) -> None:
-    count = mesh.traffic_by_kind[collective][kind]
-    count[0] += 1
-    count[1] += t.numel() * t.element_size()
+    TRAFFIC[mesh._serial, collective, kind, 0] += 1
+    TRAFFIC[mesh._serial, collective, kind, 1] += t.numel() * t.element_size()
 
 
 def _move(mesh: HeMesh, t: torch.Tensor, pos, collective: str) -> torch.Tensor:
@@ -580,6 +624,20 @@ _CT = ("batch", "coeff", None)       # ciphertext limbs [B, n, K]
 _KEY = ("limb", "coeff")             # NTT-resident key halves [dim, n]
 
 
+def _program(mesh: HeMesh, owner: graphs.Graphs, fn, key, bound=()):
+    """fn as one program of the mesh: on a graphable mesh a graphs.Program
+    of owner's (a CUDA graph per argument shapes and device; bound: the
+    arguments its graphs read in place), elsewhere fn itself."""
+    return owner.program(fn, key, bound) if mesh.graphable else fn
+
+
+def _batch(mesh: HeMesh, x: torch.Tensor) -> torch.Tensor:
+    """A ciphertext poly [n, K] seen as the batch [B, n, K] of the mesh's
+    batch axis (a view: inside a program, so that a graph's static input
+    is the one poly); a batch [B, n, K] as it is."""
+    return x if x.dim() == 3 else x[None].expand((mesh.size("batch"),) + tuple(x.shape))
+
+
 def _build_poly_mul(pctx: PolyContext, dim: int, k_in: int, mask_to_bits: int,
                     k_out: int, mesh: HeMesh):
     assert dim % mesh.size("limb") == 0, (dim, mesh.size("limb"))
@@ -594,16 +652,16 @@ def _build_poly_mul(pctx: PolyContext, dim: int, k_in: int, mask_to_bits: int,
         res = _intt_coeff_sharded(mesh, ch, C, "a", splan)
         c = _reconstruct(mesh, res, C, "a", "ar", center=True)
         return _gather(mesh, _each(lambda v: lb.fit_signed(v, mask_to_bits, k_out), c), _CT)
-    return lambda a, bb: trace.maybe_wrap(("mul",), run)(a, bb)
+    return _program(mesh, mesh.graphs, run, ("sharded_poly_mul", dim, k_in, mask_to_bits, k_out))
 
 
 def build_sharded_poly_mul(pctx: PolyContext, dim: int, k_in: int,
                            mask_to_bits: int, k_out: int, mesh: HeMesh):
     """Batched negacyclic product sharded over a (limb, batch) mesh.
 
-    Returns fn(a, b) for limb inputs [B, n, k_in] (B sharded over 'batch');
-    the dim primes are sharded over 'limb'.  dim must divide by the limb
-    axis size."""
+    Returns the program fn(a, b) for limb inputs [B, n, k_in] (B sharded
+    over 'batch'); the dim primes are sharded over 'limb'.  dim must divide
+    by the limb axis size.  Its graphs are the mesh's (HeMesh.graphs)."""
     assert mesh.size("coeff") == 1, "use build_sharded_poly_mul_3d on a coeff axis"
     return _build_poly_mul(pctx, dim, k_in, mask_to_bits, k_out, mesh)
 
@@ -612,10 +670,10 @@ def build_sharded_poly_mul_3d(pctx: PolyContext, dim: int, k_in: int,
                               mask_to_bits: int, k_out: int, mesh: HeMesh):
     """Negacyclic product sharded over the full (limb, coeff, batch) mesh.
 
-    fn(a, b) for limb inputs [B, n, k_in]; B shards over 'batch', the n
-    coefficients over 'coeff', the dim primes over 'limb'.  Per NTT the
-    'coeff' axis exchanges log2(S) blocks; the CRT lift sums digit partials
-    over 'limb'; everything else is local."""
+    The program fn(a, b) for limb inputs [B, n, k_in]; B shards over
+    'batch', the n coefficients over 'coeff', the dim primes over 'limb'.
+    Per NTT the 'coeff' axis exchanges log2(S) blocks; the CRT lift sums
+    digit partials over 'limb'; everything else is local."""
     return _build_poly_mul(pctx, dim, k_in, mask_to_bits, k_out, mesh)
 
 
@@ -625,17 +683,18 @@ def build_sharded_rot(eng, l: int, mesh: HeMesh, rot: int | None):
     CKKS.rot/conj/_apply_swk (ref: src/he-automorphism.c:40-115).
 
     The Galois permutation is a global coefficient gather (it crosses coeff
-    shards), so it runs on the global view before the scatter; the
-    key-switch pipeline itself — decompose + coeff-sharded NTT of d1, x swk
-    halves (swk sharded over (limb, coeff)), INTT of both halves in one
-    launch a shard, the two limb-sum reconstructs and the divide-round —
-    runs shard by shard exactly like the relin block of
-    build_sharded_mul_rs.
+    shards), so it runs on the global view before the scatter (the ring's
+    galois programs, inline in this one); the key-switch pipeline itself —
+    decompose + coeff-sharded NTT of d1, x swk halves (swk sharded over
+    (limb, coeff)), INTT of both halves in one launch a shard, the two
+    limb-sum reconstructs and the divide-round — runs shard by shard
+    exactly like the relin block of build_sharded_mul_rs.
 
-    Returns fn(c0, c1, swk0, swk1) -> (c0', c1') for limb inputs
-    [B, n, klv] (B over 'batch', n over 'coeff'); swk halves are the
-    engine's NTT-resident [>=dim_s, n].  Bit-exact vs the single-device
-    engine op."""
+    Returns the program fn(c0, c1, swk0, swk1) -> (c0', c1') for limb
+    inputs [B, n, klv] (B over 'batch', n over 'coeff'), or [n, klv] for one
+    ciphertext (then the results are [n, klv]); swk halves are the engine's
+    NTT-resident [>=dim_s, n], read in place by its graphs.  Bit-exact vs
+    the single-device engine op."""
     ctx = eng.ctx
     pctx = ctx.poly
     qb, klv = eng.qbits(l), eng.kl(l)
@@ -647,8 +706,9 @@ def build_sharded_rot(eng, l: int, mesh: HeMesh, rot: int | None):
                _recon_consts(mesh, pctx, ctx.dim, dim_s, "r8"))
     ks_post = _ks_post_factory(eng, l, mesh, C)
 
-    def switch(d0, d1, ek0, ek1):
-        d0, d1 = _scatter(mesh, d0, _CT), _scatter(mesh, d1, _CT)
+    def run(c0, c1, ek0, ek1):
+        d0, d1 = (_scatter(mesh, _batch(mesh, eng.ring.galois(x, rot, qb)), _CT)
+                  for x in (c0, c1))
         ek0, ek1 = _scatter(mesh, ek0[:dim_s], _KEY), _scatter(mesh, ek1[:dim_s], _KEY)
         dhat = _ntt_coeff_sharded(mesh, _each(lambda v, c: _decompose_c(v, c, "s"), d1, C),
                                   C, "s", splan_s)
@@ -656,12 +716,9 @@ def build_sharded_rot(eng, l: int, mesh: HeMesh, rot: int | None):
                    dhat, ek0, ek1, C)
         u = ks_post(_intt_coeff_sharded(mesh, uh, C, "s", splan_s))
         c0 = _each(lambda v, d: lb.mask_bits(lb.add(v[0], d), qb), u, d0)
-        return _gather(mesh, c0, _CT), _gather(mesh, _each(lambda v: v[1], u), _CT)
-
-    def f(c0, c1, ek0, ek1):
-        return trace.maybe_wrap(("swk", l), switch)(
-            eng.ring.galois(c0, rot, qb), eng.ring.galois(c1, rot, qb), ek0, ek1)
-    return f
+        out = _gather(mesh, c0, _CT), _gather(mesh, _each(lambda v: v[1], u), _CT)
+        return out if c1.dim() == 3 else (out[0][0], out[1][0])
+    return _program(mesh, eng.ring.graphs, run, ("sharded_rot", l, rot), bound=(2, 3))
 
 
 def build_sharded_gemv_step(eng, l: int, n1: int | None, dims_h: int, dimc: int,
@@ -678,8 +735,9 @@ def build_sharded_gemv_step(eng, l: int, n1: int | None, dims_h: int, dimc: int,
     dims_h and dimc must be multiples of the limb axis (pad with extra
     chain primes — any dims >= the engine's formulas are valid CRT ranges).
 
-    f(c1p [n1,dims_h,n], c0p [n1,dimc,n], ptx_i, ptb_i, rk0, rk1)
-      -> (c0_i, c1_i) [n, klv], bit-exact vs the engine step."""
+    The program f(c1p [n1,dims_h,n], c0p [n1,dimc,n], ptx_i, ptb_i, rk0,
+    rk1) -> (c0_i, c1_i) [n, klv], bit-exact vs the engine step; its graphs
+    read the diagonal slabs and the key stacks in place, as the engine's."""
     ctx = eng.ctx
     pctx = ctx.poly
     nlimb = mesh.size("limb")
@@ -710,7 +768,8 @@ def build_sharded_gemv_step(eng, l: int, n1: int | None, dims_h: int, dimc: int,
             lb.add(v[0], lb.resize(lb.mask_bits(d, qb), klv)), qb), k, db)
         out = ("coeff", None)
         return _gather(mesh, c0, out), _gather(mesh, _each(lambda v: v[1], k), out)
-    return lambda *a: trace.maybe_wrap(("hoiststep", l, dims_h, dimc), run)(*a)
+    return _program(mesh, eng.ring.graphs, run, ("sharded_gemv_step", l, dims_h, dimc),
+                    bound=(2, 3, 4, 5))
 
 
 def build_sharded_mul_rs(eng, l: int, mesh: HeMesh):
@@ -729,9 +788,11 @@ def build_sharded_mul_rs(eng, l: int, mesh: HeMesh):
         sum with zero-masked out-of-basis primes), then the rescale
         shift+round — all coefficient-local.
 
-    Returns fn(c10, c11, c20, c21, ek0, ek1) -> (c0, c1) for limb inputs
-    [B, n, klv] (B over 'batch', n over 'coeff'); ek0/ek1 are the evk's
-    NTT-resident halves.  Bit-exact vs the single-device engine program."""
+    Returns the program fn(c10, c11, c20, c21, ek0, ek1) -> (c0, c1) for
+    limb inputs [B, n, klv] (B over 'batch', n over 'coeff'), or [n, klv]
+    for one ciphertext pair (then the results are [n, klv]); ek0/ek1 are
+    the evk's NTT-resident halves, read in place by its graphs.  Bit-exact
+    vs the single-device engine program."""
     ctx = eng.ctx
     pctx = ctx.poly
     nlimb = mesh.size("limb")
@@ -750,7 +811,7 @@ def build_sharded_mul_rs(eng, l: int, mesh: HeMesh):
     ks_post = _ks_post_factory(eng, l, mesh, C)
 
     def run(c10, c11, c20, c21, ek0, ek1):
-        cts = [_scatter(mesh, x, _CT) for x in (c10, c11, c20, c21)]
+        cts = [_scatter(mesh, _batch(mesh, x), _CT) for x in (c10, c11, c20, c21)]
         ek0, ek1 = _scatter(mesh, ek0[:dim_s], _KEY), _scatter(mesh, ek1[:dim_s], _KEY)
         dec = _each(lambda *a: torch.stack([_decompose_c(v, a[-1], "m") for v in a[:-1]]),
                     *cts, C)
@@ -767,5 +828,5 @@ def build_sharded_mul_rs(eng, l: int, mesh: HeMesh):
         u = ks_post(_intt_coeff_sharded(mesh, uh, C, "s", splan_s))
         out = _each(lambda v, w: eng._rs_limbs(lb.mask_bits(lb.add(v, w[:2]), qb), l - 1), u, d)
         both = _gather(mesh, out, (None,) + _CT)
-        return both[0], both[1]
-    return lambda *a: trace.maybe_wrap(("he_mul_rs", l), run)(*a)
+        return (both[0], both[1]) if c10.dim() == 3 else (both[0, 0], both[1, 0])
+    return _program(mesh, eng.ring.graphs, run, ("sharded_mul_rs", l), bound=(4, 5))

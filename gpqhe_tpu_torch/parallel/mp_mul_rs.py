@@ -243,7 +243,7 @@ def _run_layout(args, ctx, o, msgs, dev, hb: int, layout, group, chain_dir: str)
     of each op, then the timing."""
     import torch
     from ..ops import ntt_cuda, ntt_cuda32
-    from ..utils import serialize
+    from ..utils import graphs, serialize
 
     t0 = time.perf_counter()
     mesh, meng, ops, plan = _mesh_ops(args, ctx, o, msgs["A"], dev, hb, layout, group)
@@ -274,6 +274,8 @@ def _run_layout(args, ctx, o, msgs, dev, hb: int, layout, group, chain_dir: str)
             "logp": ctx.logp_prime, "positions": [list(p) for p in mesh.local_positions],
             "equal": equal, "decode_diffs": diffs, "fallbacks": plan.fallbacks,
             "first_calls_s": first_s, "traffic": traffic,
+            "graphed": any(isinstance(f, graphs.Program) for f in meng._mesh_jit.values()),
+            "eager_why": mesh.eager_why,
             "launches": {"u64": dict(ntt_cuda.LAUNCHES), "u32": dict(ntt_cuda32.LAUNCHES32)}}
     if args.iters:
         line["ms"] = {op: _median_ms(fn, dev, args.iters) for op, fn in ops.items()}

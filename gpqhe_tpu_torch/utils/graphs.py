@@ -20,9 +20,10 @@ graph and returns clones of the graph's outputs, so that a replay never
 overwrites a result the caller holds, as a jitted program's arrays are never
 overwritten.
 
-The kernels' launch counters (ops/cuda_build.COUNTERS) are bumped in Python,
-which a replay does not run: what a capture added to them is taken back and
-added again on every replay, so they stay counts of device launches.
+The counters of ops/cuda_build.COUNTERS (the kernels' launches, and the
+bytes a mesh's collectives move: parallel/mesh.py's TRAFFIC) are bumped in
+Python, which a replay does not run: what a capture added to them is taken
+back and added again on every replay, so they stay counts of device work.
 
 disabled() runs every program eagerly, as jax.disable_jit() does; nothing
 else does.  A capture or replay that fails raises: there is no fallback.  A
@@ -70,6 +71,11 @@ def inline():
         yield
     finally:
         _INSIDE -= 1
+
+
+def inlining() -> bool:
+    """Whether a program's first call (warm-up and capture) is under way."""
+    return _INSIDE > 0
 
 
 # -- the launch counters ----------------------------------------------------

@@ -8,7 +8,9 @@
   utils/graphs.py, which this wrapper times from outside: a replay); a
   composite that another program contains (the forward NTTs inside 'mul',
   'swk' or 'he_mulpt') is reached through its unwrapped form and not
-  counted, as a jitted program counts once whatever it inlines.  One
+  counted, as a jitted program counts once whatever it inlines, and
+  neither is a program called inside another one's first call (the galois
+  maps inside the mesh's sharded rot).  One
   mul_rs, rot, conj, add, mulpt, rs, moddown, enc, dec or hoisted gemv
   therefore counts the same names the same number of times in both
   packages once the programs exist.  What the port cannot
@@ -29,6 +31,8 @@ from contextlib import contextmanager
 from dataclasses import dataclass, field
 
 import torch
+
+from . import graphs
 
 _ACTIVE: "OpTrace | None" = None
 
@@ -91,6 +95,10 @@ def maybe_wrap(key, fn):
     trace_obj = _ACTIVE
 
     def timed(*args, **kw):
+        if graphs.inlining():
+            # part of another program's first call, whose capture may not
+            # wait for the device: that program is the one timed
+            return fn(*args, **kw)
         t0 = time.perf_counter()
         out = fn(*args, **kw)
         block_until_ready(out)

@@ -858,3 +858,84 @@ def test_cuda_a_failing_capture_raises(cuda_device):
     assert g.captures == 0 and not prog.graphs
     with graphs.disabled():
         assert torch.equal(prog(x), x + 6)
+
+
+# -- the mesh's sharded programs as CUDA graphs (parallel/mesh.py) -----------
+
+from chip_smoke import (MESH_HEADS, graph_same, mesh_graphed,  # noqa: E402
+                        mesh_replays_match)
+from gpqhe_tpu_torch.scheme.types import limbs_to_torch      # noqa: E402
+
+_MESHES = {}
+
+
+def _mesh_case(device, logp):
+    """MeshCKKS on a virtual (2,2,2) mesh of the card and CKKS on the card,
+    on the same keys, with three input sets and the ops of MESH_HEADS,
+    once per chain."""
+    if logp not in _MESHES:
+        ctx = HeContext(logn=9, q=1 << 120, slots=4, Delta=1 << 30, logp=logp)
+        eng = CKKS(ctx, rng=Surf(), device=device, hoist_bits=100)
+        pk, sk = eng.keypair()
+        rlk, ck, rk = eng.genrlk(sk), eng.genck(sk), eng.genrk(sk)
+        mesh = _virtual(device, 2, 2, 2)
+        meng = MeshCKKS(ctx, mesh, rng=Surf(), hoist_bits=100)
+        rng = np.random.default_rng(logp)
+        A = rng.random(16) + 1j * rng.random(16)
+        plans = {e: linalg.HoistedGemvPlan(e, A) for e in (eng, meng)}
+        inputs = [{k: eng.enc_pk(eng.ecd(rng.random(4) + 1j * rng.random(4)), pk)
+                   for k in ("ct", "ct2")} for _ in range(3)]
+
+        def ops(e):
+            return {"mul_rs": lambda x: e.mul_rs(x["ct"], x["ct2"], rlk),
+                    "rot": lambda x: e.rot(x["ct"], 1, rk), "conj": lambda x: e.conj(x["ct"], ck),
+                    "gemv_full": lambda x: linalg.gemv_hoisted_full(e, plans[e], x["ct"], rk)}
+        _MESHES[logp] = dict(mesh=mesh, meng=meng, single=ops(eng), sharded=ops(meng),
+                             inputs=inputs)
+    return _MESHES[logp]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logp", [59, 29])
+@pytest.mark.parametrize("op", list(MESH_HEADS))
+def test_cuda_mesh_op_graphed_equals_eager(cuda_device, logp, op):
+    """On a virtual mesh of the card each sharded program is a CUDA graph:
+    the op torch.equal to itself under graphs.disabled() at the capture and
+    at replays (chip_smoke.graph_check) and to the single-device engine on
+    every input set; three replays count the launches and the mesh traffic
+    of three eager calls."""
+    c = _mesh_case(cuda_device, logp)
+    fn = c["sharded"][op]
+    r = graph_check(fn, c["inputs"], f"mesh {op} logp={logp}")
+    assert r["launches"] > 0
+    for x in c["inputs"]:
+        assert graph_same(fn(x), c["single"][op](x))
+    assert c["mesh"].graphable and mesh_graphed(c["meng"], op, c["inputs"][0]["ct"].l)
+    gains = mesh_replays_match(fn, c["inputs"], c["mesh"], f"{op} logp={logp}")
+    assert gains["traffic"]["psum"][0] > 0 and gains["traffic"]["ppermute"][0] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logp", [59, 29])
+def test_cuda_sharded_poly_mul_3d_graphed(cuda_device, logp):
+    """build_sharded_poly_mul_3d on a virtual (2,2,2) mesh of the card, in
+    the mesh's own graphs: its capture and a replay torch.equal to eager
+    and to RingEngine.poly_mul on the card, pair by pair."""
+    pctx = PolyContext(9, q=1 << 100, logp=logp, dim_cap=8)
+    mesh = _virtual(cuda_device, 2, 2, 2)
+    f = pmesh.build_sharded_poly_mul_3d(pctx, 8, 4, 128, 4, mesh)
+    ring = RingEngine(pctx, device=cuda_device)
+    rng = np.random.default_rng(logp)
+    sets = []
+    for _ in range(2):
+        w = rng.integers(0, 1 << 32, (2, 2, 512, 4), dtype=np.uint32)
+        w[..., -1] &= 0xF
+        sets.append([limbs_to_torch(x, cuda_device) for x in w])
+    got = [f(a, b) for a, b in sets]
+    with graphs.disabled():
+        want = [f(a, b) for a, b in sets]
+    assert isinstance(f, graphs.Program) and len(f.graphs) == 1 and mesh.graphs.replays == 1
+    for (a, b), g, e in zip(sets, got, want):
+        assert torch.equal(g, e)
+        for i in range(2):
+            assert torch.equal(g[i], ring.poly_mul(a[i], b[i], 8, 128, 4))

@@ -31,6 +31,7 @@ from gpqhe_tpu.substrate import surf as jsurf
 from chip_smoke import (GRAPH_ENGINES, GRAPH_OPS, HOISTED,  # the repository root
                         graph_case, graph_check,            # is on sys.path
                         kernel_module)
+from torch_standin import StandIn
 import gpqhe_tpu_torch as gt
 from gpqhe_tpu_torch.algo import linalg as tlin
 from gpqhe_tpu_torch.ops import cuda_build
@@ -44,43 +45,6 @@ from gpqhe_tpu_torch.utils import graphs
 torch.set_num_threads(1)
 
 RING = dict(logn=9, q=1 << 120, slots=4, Delta=1 << 30)
-
-
-class StandIn:
-    """The capture primitive's stand-in on the CPU: a replay runs the
-    program again, its inner programs inline as in the capture.  fail: a
-    capture raises, as a capture of an operation the stream cannot capture
-    does; fail_replay: a replay raises."""
-
-    def __init__(self, fail: bool = False, fail_replay: bool = False):
-        self.fail, self.fail_replay = fail, fail_replay
-        self.warm_ups = 0
-
-    def takes(self, device):
-        return device.type == "cpu"
-
-    def new_pool(self, device):
-        return object()
-
-    def warm_up(self, fn, args, device):
-        self.warm_ups += 1
-        return fn(*args)
-
-    def capture(self, fn, args, pool, device):
-        if self.fail:
-            raise RuntimeError("operation not permitted when stream is capturing")
-        out = fn(*args)
-
-        def replay():
-            if self.fail_replay:
-                raise RuntimeError("CUDA error: the graph failed to launch")
-            snap = graphs.counters_snapshot()
-            with graphs.inline():
-                new = fn(*args)
-            graphs.counters_restore(snap)
-            for o, n in zip(graphs._tensors(out), graphs._tensors(new)):
-                o.copy_(n)
-        return replay, out
 
 
 def _objects(pkg, lin, smp, surf, **kw):
@@ -355,9 +319,11 @@ def test_mixed_devices_are_refused():
 
 
 def test_mesh_engine_graphs_its_single_device_programs(runs):
-    """MeshCKKS graphs the programs it runs on its first device (rs, mulpt,
-    and the galois maps in front of its sharded rot); its sharded programs
-    stay eager.  Each result equals the single-device engine's."""
+    """MeshCKKS graphs the programs it runs on its first device (rs, mulpt)
+    and, on a mesh whose positions share one device, its sharded programs:
+    the sharded rot is one graph, with the galois maps in front of it
+    inline in its capture (a gal program, no graph of its own).  Each
+    result equals the single-device engine's."""
     *_, t = runs
     eng = t["eng"]
     mesh = make_he_mesh3(4, limb=2, coeff=2, devices=["cpu"] * 4)
@@ -371,8 +337,11 @@ def test_mesh_engine_graphs_its_single_device_programs(runs):
         for a, b in zip(got, want):
             assert torch.equal(a.c0, b.c0) and torch.equal(a.c1, b.c1)
     graphed = {k[0] for k, p in {**meng._fns, **meng.ring._progs}.items() if p.graphs}
-    assert {"rs", "he_mulpt", "gal"} <= graphed
-    assert meng._mesh_jit and meng.ring.graphs.replays > 0
+    assert {"rs", "he_mulpt"} <= graphed
+    assert "gal" not in graphed and any(k[0] == "gal" for k in meng.ring._progs)
+    rot = meng._mesh_jit[("rot", t["ct1"].l, 1)]
+    assert isinstance(rot, graphs.Program) and len(rot.graphs) == 1
+    assert meng.ring.graphs.replays > 0
 
 
 SMALL = dict(logn=9, q=1 << 120, slots=4, Delta=1 << 30)

@@ -98,7 +98,7 @@ def test_mesh_engine_pads_gemv_bases_to_the_limb_axis():
         dh, dc = single.gemv_dims(ctx.L, bnd)
         ph, pc = eng.gemv_dims(ctx.L, bnd)
         assert ph % 4 == 0 and pc % 4 == 0 and 0 <= ph - dh < 4 and 0 <= pc - dc < 4
-    assert eng._bat(torch.zeros(64, 4)).shape == (1, 64, 4)
+    assert tmesh._batch(mesh, torch.zeros(64, 4)).shape == (1, 64, 4)
 
 
 @pytest.mark.slow   # two full bootstrap compositions in each package

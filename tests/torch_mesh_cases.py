@@ -60,6 +60,7 @@ class MeshCase:
         self.jeng = je = gpqhe_tpu.CKKS(self.jctx, rng=JSurf(), hoist_bits=160)
         self.eng = gt.CKKS(self.ctx, rng=Surf(), device="cpu", hoist_bits=160)
         pk, self.jsk = je.keypair()
+        self.jpk = pk
         self.jrlk = je.genrlk(self.jsk)
         self.jck = je.genck(self.jsk)
         self.jrk = je.genrk(self.jsk)
