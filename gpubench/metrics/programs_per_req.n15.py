@@ -1,0 +1,6 @@
+"""programs_per_req.n15: programs_per_req in the logn=15 cells, whose end-to-end metrics (.n15)
+carry their own bounds."""
+
+from gpubench import harness
+
+read = harness.load_module("metrics", "programs_per_req").read
