@@ -190,8 +190,9 @@ non-zero:
              bootstrap(iter=None) (derives 9).  Gates: l >= 10, decode within
              1e-2 of m0, every u64 launch counter > 0 (counters zeroed just
              before the gated encrypt-bootstrap-decrypt and read just after).  Keygen seconds, the
-             bootstrap median, seconds per stage, plan.fallbacks, one call
-             under torch.profiler, one under op_trace, peak memory; before it
+             bootstrap median, plan.fallbacks, one call under torch.profiler,
+             one under op_trace (device seconds per stage from the port's
+             bootstrap.* spans), peak memory; before it
              the kernel against its twin at the shapes this ring launches.
   serialize — at the bootstrap context: save the ciphertext, rlk and the
              rotation bank, load them onto the card, torch.equal on every
@@ -2001,11 +2002,17 @@ def mesh_programs(meng, op: str, l: int) -> list:
             if k[0] == head and k[1] == l and (head != "rot" or k[2] == want)]
 
 
+def is_graph(p) -> bool:
+    """Whether program p runs as CUDA graphs and has captured one: a mesh
+    that cannot graph builds graphs.Program(graphed=False), run eagerly."""
+    from gpqhe_tpu_torch.utils import graphs
+    return isinstance(p, graphs.Program) and p.graphed and bool(p.graphs)
+
+
 def mesh_graphed(meng, op: str, l: int) -> bool:
     """Whether op's sharded programs run as CUDA graphs (and have some)."""
-    from gpqhe_tpu_torch.utils import graphs
     progs = mesh_programs(meng, op, l)
-    return bool(progs) and all(isinstance(p, graphs.Program) and p.graphs for p in progs)
+    return bool(progs) and all(is_graph(p) for p in progs)
 
 
 def mesh_replays_match(fn, inputs: list, mesh, name: str) -> dict:
@@ -2216,12 +2223,12 @@ def mesh_poly_mul(logp: int, ctx, eng, devices, iters: int) -> None:
           "equal_to_single_device": all(torch.equal(g, s) for g, s in zip(got, single))}
     emit({"phase": "mesh_poly_mul", "logp": logp, "logn": ctx.poly.logn, "mesh": dict(mesh.shape),
           "shape": [B, n, K], "dim": dim, "mask_bits": qb,
-          "graphed": isinstance(f, graphs.Program) and len(f.graphs) == 1, **ok,
+          "graphed": is_graph(f) and len(f.graphs) == 1, **ok,
           "wall_ms_eager": [w[0], w[3]], "wall_ms_graphed": w[1:3],
           "single_ms": cuda_ms(lambda: [eng.ring.poly_mul(inputs[0][0][i], inputs[0][1][i], dim,
                                                           qb, K) for i in range(B)], few),
           "launches": launches, "other_kernel_launches": foreign})
-    if not all(ok.values()) or (mesh.graphable and not isinstance(f, graphs.Program)):
+    if not all(ok.values()) or (mesh.graphable and not is_graph(f)):
         raise AssertionError(f"mesh poly_mul_3d logp={logp}: {ok}")
     require_launches(f"mesh poly_mul_3d logp={logp}", {m: launches[m] for m in ("fwd", "inv")},
                      foreign)
@@ -2295,7 +2302,7 @@ def mesh_mixed(logp: int) -> None:
     views_due_copies = {c: sum(t[c]["view"][0] for t in traffic.values())
                         for c in ("psum", "ppermute")}
     progs = list(meng._mesh_jit.values())
-    graphed = any(isinstance(p, graphs.Program) for p in progs)
+    graphed = any(is_graph(p) for p in progs)
     emit({"phase": "mesh_mixed", "logp": logp, "logn": 9, "logq": 120, "slots": 4,
           "logDelta": 30, "mesh": dict(mesh.shape),
           "devices": [str(mesh.device(p)) for p in mesh.positions],
@@ -2521,7 +2528,7 @@ def phase_mesh_compose(iters: int, o: dict | None) -> dict:
     emit({"phase": "mesh_compose", "logn": 15, "logq": LOGQ[15], "slots": 4, "logDelta": 30,
           "mesh": dict(mesh.shape), "devices": what, "level": l,
           "graphable": mesh.graphable, "eager_why": mesh.eager_why,
-          "graphed_programs": sum(isinstance(p, graphs.Program) for p in progs),
+          "graphed_programs": sum(is_graph(p) for p in progs),
           "graphs": sum(len(getattr(p, "graphs", ())) for p in progs),
           "equal_to_single_device": equal["single"], "graphed_equal_eager": equal["eager"],
           "first_call_s": first_s, "mesh_s": mesh_s,
@@ -2542,7 +2549,7 @@ def phase_mesh_compose(iters: int, o: dict | None) -> dict:
         raise AssertionError(f"coeff2slot on the mesh: programs {list(meng._mesh_jit)}, "
                              f"NTT launches {launches}, other kernel {foreign}")
     if traffic != traffic_eager or (mesh.graphable and not all(
-            isinstance(p, graphs.Program) and p.graphs for p in progs)):
+            is_graph(p) for p in progs)):
         raise AssertionError(f"coeff2slot on the mesh: traffic graphed {traffic}, eager "
                              f"{traffic_eager}; programs {[type(p) for p in progs]}")
     return {"kernels": {f"ntt15mesh_{mode}": v for mode, v in kernels.items()},
@@ -2707,50 +2714,18 @@ def phase_cmp(iters: int) -> None:
     require_launches("cmp", launches, foreign)
 
 
-class StageClock:
-    """Seconds per bootstrap stage of one call: wraps the bootstrap module's
-    stage functions for the duration so that each synchronises the device
-    and notes the host clock on entry and exit."""
-    NAMES = ("raise_modulus", "subsum", "coeff2slot", "_exp_small_a", "slot2coeff")
-
-    def __init__(self, module):
-        self.module, self.marks, self._saved = module, [], {}
-
-    def __enter__(self):
-        import torch
-        for name in self.NAMES:
-            fn = self._saved[name] = getattr(self.module, name)
-
-            def timed(*args, _fn=fn, _name=name, **kw):
-                torch.cuda.synchronize()
-                self.marks.append((_name, "in", time.perf_counter()))
-                out = _fn(*args, **kw)
-                torch.cuda.synchronize()
-                self.marks.append((_name, "out", time.perf_counter()))
-                return out
-            setattr(self.module, name, timed)
-        return self
-
-    def __exit__(self, *exc):
-        for name, fn in self._saved.items():
-            setattr(self.module, name, fn)
-
-    def stages(self, t_end: float) -> dict:
-        """raise, SubSum, coeff2slot without its SubSum, each mod_reduce
-        (from its exp's entry to the next stage's), slot2coeff."""
-        t = {}
-        for name, edge, at in self.marks:
-            t.setdefault((name, edge), []).append(at)
-
-        def span(name, i=0):
-            return t[name, "out"][i] - t[name, "in"][i]
-        exp_in = t["_exp_small_a", "in"]
-        return {"raise": span("raise_modulus"), "subsum": span("subsum"),
-                "coeff2slot": span("coeff2slot") - span("subsum"),
-                "mod_reduce": [exp_in[1] - exp_in[0], t["slot2coeff", "in"][0] - exp_in[1]],
-                "exp_of_mod_reduce": [span("_exp_small_a", 0), span("_exp_small_a", 1)],
-                "slot2coeff": span("slot2coeff"),
-                "end": t_end - t["slot2coeff", "out"][0]}
+def boot_stages(tr) -> dict:
+    """Device seconds of one op-traced bootstrap by stage, from the port's
+    bootstrap.* spans (CUDA events, no synchronise inside): raise, SubSum,
+    coeff2slot without its SubSum, each mod_reduce and the exp inside it,
+    slot2coeff, and the rest of the call outside the stages ("end")."""
+    d = {name[len("bootstrap."):]: [dev for _, dev in recs]
+         for name, recs in tr.spans.items() if name.startswith("bootstrap.")}
+    top = d["raise_modulus"][0] + d["coeff2slot"][0] + sum(d["evalsin"]) + d["slot2coeff"][0]
+    return {"raise": d["raise_modulus"][0], "subsum": d["subsum"][0],
+            "coeff2slot": d["coeff2slot"][0] - d["subsum"][0],
+            "mod_reduce": d["evalsin"], "exp_of_mod_reduce": d["exp"],
+            "slot2coeff": d["slot2coeff"][0], "end": tr.device_s - top}
 
 
 def phase_bootstrap(iters: int) -> dict:
@@ -2812,12 +2787,9 @@ def phase_bootstrap(iters: int) -> dict:
 
     few = max(1, iters // 5)
     boot_s = wall_s(run, few)
-    with StageClock(bs) as clock:
+    with trace.op_trace():
         run()
-        torch.cuda.synchronize()
-        t_end = time.perf_counter()
-    with trace.op_trace() as tr:
-        run()
+    tr = trace.last()
     profile_op("bootstrap", run, host_ops=False, warm=False)
     emit({"phase": "bootstrap", "logn": 15, "logq": LOGQ[15], "slots": 4, "logDelta": 30,
           "iter": bs.min_bootstrap_iter(ctx), "L": ctx.L, "kq": eng.kq, "dim": ctx.dim,
@@ -2825,7 +2797,7 @@ def phase_bootstrap(iters: int) -> dict:
           "dimswk_h": eng.dimswk_h, "dimub": ctx.poly.dimub, "rotation_keys": len(rots),
           "setup_s": setup_s, "keygen_s": keygen_s, "keygen_launches": keygen_launches,
           "first_bootstrap_s": first_s, "bootstrap_s": boot_s, "timed_runs": few,
-          "stage_s": clock.stages(t_end), "level_in": ct.l, "level_out": boot.l,
+          "stage_s": boot_stages(tr), "level_in": ct.l, "level_out": boot.l,
           "decode_diff": diff,
           "fallbacks": {name: plan.fallbacks for name, plan in bctx._plans.items()},
           "launches": launches, "other_kernel_launches": foreign,

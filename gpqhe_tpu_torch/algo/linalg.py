@@ -8,6 +8,9 @@ Difference from the reference: the rotated-diagonal plaintexts of a given
 matrix are encoded once per (matrix, call) and reusable via `GemvPlan`
 (the reference re-encodes every diagonal on every call,
 ref: src/he-algo.c:70-73 — SURVEY.md §7.5 hoisting).
+
+Each matrix-vector product is one span linalg.gemv of the op trace and the
+profiler (utils/trace.py), whichever route it takes.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 
 from ..scheme.engine import CKKS
 from ..scheme.types import Ciphertext, Plaintext, SwitchKey
+from ..utils import trace
 
 
 def zrotdiag(A: np.ndarray, idx: int, rot: int, m: int) -> np.ndarray:
@@ -69,17 +73,18 @@ def gemv(eng: CKKS, A, ct: Ciphertext, rk: dict[int, SwitchKey],
         return gemv_hoisted(eng, hplan, ct, rk)
     if plan is None:
         plan = GemvPlan(eng, A)
-    outer = None
-    for i in range(plan.n2):
-        shift = i * plan.n1
-        inner = None
-        for j in range(plan.n1):
-            ct_rot = eng.rot(ct.copy(), j, rk)
-            ct_rot = eng.mulpt(ct_rot, plan.pts[(i, j)])
-            inner = ct_rot if inner is None else eng.add(inner, ct_rot)
-        inner = eng.rot(inner, shift, rk)
-        outer = inner if outer is None else eng.add(outer, inner)
-    return eng.rs(outer)
+    with trace.span("linalg.gemv", eng.device):
+        outer = None
+        for i in range(plan.n2):
+            shift = i * plan.n1
+            inner = None
+            for j in range(plan.n1):
+                ct_rot = eng.rot(ct.copy(), j, rk)
+                ct_rot = eng.mulpt(ct_rot, plan.pts[(i, j)])
+                inner = ct_rot if inner is None else eng.add(inner, ct_rot)
+            inner = eng.rot(inner, shift, rk)
+            outer = inner if outer is None else eng.add(outer, inner)
+        return eng.rs(outer)
 
 
 class HoistedGemvPlan(GemvPlan):
@@ -210,20 +215,21 @@ def gemv_hoisted_full(eng: CKKS, plan: HoistedGemvPlan, ct: Ciphertext,
     dims_h, dimc = eng.gemv_dims(l, bnd_sum)
     if dims_h > eng.dimswk_h or eng.ring.ntt_impl == "matmul":
         return None
-    pts = plan.pts_full(eng)
-    nu_max = max(pt.nu for pt in pts.values())
-    prep = eng.hoisted_gemv_prep_fn(l, slots, dims_h, dimc)
-    step = eng.hoisted_gemv_step_fn(
-        l, dims_h, dimc,
-        bits_h=eng.bits_hoist(l, bnd_sum),
-        bits_c=ctx.bits_mulpt(l, bnd_sum))
-    c1p, c0p = prep(ct.c0, ct.c1)
-    rk0, rk1 = plan.rk_stack_full(eng, rk)
-    ptx, ptb = plan.pack_full(eng, l, (dims_h, dimc))
-    out0, out1 = step(c1p, c0p, ptx, ptb, rk0, rk1)
-    out = Ciphertext(l=l, nu=ct.nu * nu_max, B=slots * ct.B * nu_max,
-                     c0=out0, c1=out1)
-    return eng.rs(out)
+    with trace.span("linalg.gemv", eng.device):
+        pts = plan.pts_full(eng)
+        nu_max = max(pt.nu for pt in pts.values())
+        prep = eng.hoisted_gemv_prep_fn(l, slots, dims_h, dimc)
+        step = eng.hoisted_gemv_step_fn(
+            l, dims_h, dimc,
+            bits_h=eng.bits_hoist(l, bnd_sum),
+            bits_c=ctx.bits_mulpt(l, bnd_sum))
+        c1p, c0p = prep(ct.c0, ct.c1)
+        rk0, rk1 = plan.rk_stack_full(eng, rk)
+        ptx, ptb = plan.pack_full(eng, l, (dims_h, dimc))
+        out0, out1 = step(c1p, c0p, ptx, ptb, rk0, rk1)
+        out = Ciphertext(l=l, nu=ct.nu * nu_max, B=slots * ct.B * nu_max,
+                         c0=out0, c1=out1)
+        return eng.rs(out)
 
 
 def gemv_hoisted(eng: CKKS, plan: HoistedGemvPlan, ct: Ciphertext,
@@ -255,25 +261,26 @@ def gemv_hoisted(eng: CKKS, plan: HoistedGemvPlan, ct: Ciphertext,
         return gemv(eng, None, ct, rk, plan=plan)
     dims_h, dimc, nu_max = plan.dims(eng, l)
     bnd_sum = plan.bound_max() * plan.n1
-    rk0, rk1 = plan.rk_stack(rk)
-    prep = eng.hoisted_gemv_prep_fn(l, plan.n1, dims_h, dimc)
-    step = eng.hoisted_gemv_step_fn(
-        l, dims_h, dimc,
-        bits_h=eng.bits_hoist(l, bnd_sum),
-        bits_c=eng.ctx.bits_mulpt(l, bnd_sum))
-    c1p, c0p = prep(ct.c0, ct.c1)
-    # ledger mirrors the classic composition: mulpt (nu*=, B*=) then adds
-    nu_i = ct.nu * nu_max
-    B_i = plan.n1 * ct.B * nu_max
-    outer = None
-    for i in range(plan.n2):
-        ptx_i, ptb_i = plan.pack_slab(eng, l, i)
-        out0, out1 = step(c1p, c0p, ptx_i, ptb_i, rk0, rk1)
-        inner = Ciphertext(l=l, nu=nu_i, B=B_i, c0=out0, c1=out1)
-        if i:
-            inner = eng.rot(inner, i * plan.n1, rk)
-        outer = inner if outer is None else eng.add(outer, inner)
-    return eng.rs(outer)
+    with trace.span("linalg.gemv", eng.device):
+        rk0, rk1 = plan.rk_stack(rk)
+        prep = eng.hoisted_gemv_prep_fn(l, plan.n1, dims_h, dimc)
+        step = eng.hoisted_gemv_step_fn(
+            l, dims_h, dimc,
+            bits_h=eng.bits_hoist(l, bnd_sum),
+            bits_c=eng.ctx.bits_mulpt(l, bnd_sum))
+        c1p, c0p = prep(ct.c0, ct.c1)
+        # ledger mirrors the classic composition: mulpt (nu*=, B*=) then adds
+        nu_i = ct.nu * nu_max
+        B_i = plan.n1 * ct.B * nu_max
+        outer = None
+        for i in range(plan.n2):
+            ptx_i, ptb_i = plan.pack_slab(eng, l, i)
+            out0, out1 = step(c1p, c0p, ptx_i, ptb_i, rk0, rk1)
+            inner = Ciphertext(l=l, nu=nu_i, B=B_i, c0=out0, c1=out1)
+            if i:
+                inner = eng.rot(inner, i * plan.n1, rk)
+            outer = inner if outer is None else eng.add(outer, inner)
+        return eng.rs(outer)
 
 
 def he_sum(eng: CKKS, ct: Ciphertext, rk: dict[int, SwitchKey],

@@ -6,6 +6,10 @@ the reference's he-bootstrap.c live path (ref: src/he-bootstrap.c:299-546):
 dense U0/U1 DFT matrices from the 5^i cyclic roots, coeff2slot/slot2coeff as
 gemv compositions, rlsin via exp/conj, and the full modulus-raise pipeline.
 
+Each stage is a span of the op trace and the profiler (utils/trace.py):
+bootstrap.raise_modulus, .subsum, .coeff2slot (which holds the subsum),
+.evalsin (each mod-reduce, holding its .exp) and .slot2coeff.
+
 Fixes a latent reference bug: he_coeff2slot scales by he_const_pt(&pt, 1/n)
 where 1/n is C INTEGER division == 0 for n > 1 (ref: src/he-bootstrap.c:385);
 the correct scale 1.0/n is used here (SURVEY.md §3.5)."""
@@ -24,6 +28,7 @@ from ..scheme.engine import CKKS
 from ..scheme.types import Ciphertext, SwitchKey, limbs_to_torch
 from ..ops import limbs as lb
 from ..substrate import bigint
+from ..utils import trace
 
 
 class BootstrapContext:
@@ -96,9 +101,10 @@ def subsum(eng: CKKS, ct: Ciphertext, rk: dict[int, SwitchKey]) -> Ciphertext:
     stub (ref: tests/gpqhe.c:1259-1275)."""
     ctx = eng.ctx
     gap = (ctx.poly.n // 2) // ctx.slots
-    for j in range(int(math.log2(gap))):
-        ct = eng.add(ct, eng.rot(ct.copy(), ctx.slots << j, rk))
-    return ct
+    with trace.span("bootstrap.subsum", eng.device):
+        for j in range(int(math.log2(gap))):
+            ct = eng.add(ct, eng.rot(ct.copy(), ctx.slots << j, rk))
+        return ct
 
 
 @contextmanager
@@ -126,7 +132,6 @@ def raise_modulus(eng: CKKS, ct: Ciphertext, nu: float | None = None) -> Ciphert
     ctx = eng.ctx
     logql = ctx.q[ct.l].bit_length() - 1
     kq = eng.kq
-    ql_limbs = limbs_to_torch(bigint.int_to_limbs(ctx.q[ct.l], kq), eng.device)
 
     def fix(c):
         mbits = lb.mask_bits(lb.resize(c, kq), logql)
@@ -137,9 +142,11 @@ def raise_modulus(eng: CKKS, ct: Ciphertext, nu: float | None = None) -> Ciphert
         wrapped = lb.sub(mbits, ql_limbs.expand(mbits.shape))
         return lb.mask_bits(lb.select(negmask, wrapped, mbits),
                             ctx.q[ctx.L].bit_length())
-    return Ciphertext(l=ctx.L,
-                      nu=float(ctx.q[ctx.L]) if nu is None else nu, B=ct.B,
-                      c0=fix(ct.c0), c1=fix(ct.c1))
+    with trace.span("bootstrap.raise_modulus", eng.device):
+        ql_limbs = limbs_to_torch(bigint.int_to_limbs(ctx.q[ct.l], kq), eng.device)
+        return Ciphertext(l=ctx.L,
+                          nu=float(ctx.q[ctx.L]) if nu is None else nu, B=ct.B,
+                          c0=fix(ct.c0), c1=fix(ct.c1))
 
 
 def coeff2slot(eng: CKKS, bctx: BootstrapContext, ct: Ciphertext,
@@ -152,24 +159,26 @@ def coeff2slot(eng: CKKS, bctx: BootstrapContext, ct: Ciphertext,
     SubSum is empty and this reduces to the reference's construction.
     Requires rk to hold bootstrap_rotations(ctx)."""
     gap = (eng.ctx.poly.n // 2) // eng.ctx.slots
-    ct = subsum(eng, ct, rk)
-    pt = eng.const_pt(1.0 / (2 * eng.ctx.slots * gap))
-    ct_conj = eng.conj(ct.copy(), ck)
-    ct0 = gemv(eng, None, ct, rk, plan=bctx.plan("U0_conjT"), hoisted=True)
-    ct1 = gemv(eng, None, ct_conj, rk, plan=bctx.plan("U0_T"), hoisted=True)
-    ct_real = eng.rs(eng.mulpt(eng.add(ct0, ct1), pt))
-    ct0 = gemv(eng, None, ct, rk, plan=bctx.plan("U1_conjT"), hoisted=True)
-    ct1 = gemv(eng, None, ct_conj, rk, plan=bctx.plan("U1_T"), hoisted=True)
-    ct_imag = eng.rs(eng.mulpt(eng.add(ct0, ct1), pt))
-    return ct_real, ct_imag
+    with trace.span("bootstrap.coeff2slot", eng.device):
+        ct = subsum(eng, ct, rk)
+        pt = eng.const_pt(1.0 / (2 * eng.ctx.slots * gap))
+        ct_conj = eng.conj(ct.copy(), ck)
+        ct0 = gemv(eng, None, ct, rk, plan=bctx.plan("U0_conjT"), hoisted=True)
+        ct1 = gemv(eng, None, ct_conj, rk, plan=bctx.plan("U0_T"), hoisted=True)
+        ct_real = eng.rs(eng.mulpt(eng.add(ct0, ct1), pt))
+        ct0 = gemv(eng, None, ct, rk, plan=bctx.plan("U1_conjT"), hoisted=True)
+        ct1 = gemv(eng, None, ct_conj, rk, plan=bctx.plan("U1_T"), hoisted=True)
+        ct_imag = eng.rs(eng.mulpt(eng.add(ct0, ct1), pt))
+        return ct_real, ct_imag
 
 
 def slot2coeff(eng: CKKS, bctx: BootstrapContext, ct0: Ciphertext,
                ct1: Ciphertext, rk: dict[int, SwitchKey]) -> Ciphertext:
     """ct = U0 ct0 + U1 ct1 (ref: src/he-bootstrap.c:414-437)."""
-    u0 = gemv(eng, None, ct0, rk, plan=bctx.plan("U0"), hoisted=True)
-    u1 = gemv(eng, None, ct1, rk, plan=bctx.plan("U1"), hoisted=True)
-    return eng.add(u0, u1)
+    with trace.span("bootstrap.slot2coeff", eng.device):
+        u0 = gemv(eng, None, ct0, rk, plan=bctx.plan("U0"), hoisted=True)
+        u1 = gemv(eng, None, ct1, rk, plan=bctx.plan("U1"), hoisted=True)
+        return eng.add(u0, u1)
 
 
 def rlsin(eng: CKKS, a: float, ct: Ciphertext, rlk: SwitchKey, ck: SwitchKey,
@@ -192,13 +201,14 @@ def _exp_small_a(eng: CKKS, a: complex, ct: Ciphertext, rlk: SwitchKey,
     ctx = eng.ctx
     slots = ctx.slots
     av = complex(a) / (1 << iter)
-    pt = eng.ecd(np.full(slots, av, dtype=np.complex128), nu=eng.Delta ** 2)
-    act = eng.rs(eng.rs(eng.mulpt(ct, pt)))
     from ..algo.nonlinear import _he_exp_taylor
-    out = _he_exp_taylor(eng, act, rlk)
-    for _ in range(iter):
-        out = eng.rs(eng.mul(out, out, rlk))
-    return out
+    with trace.span("bootstrap.exp", eng.device):
+        pt = eng.ecd(np.full(slots, av, dtype=np.complex128), nu=eng.Delta ** 2)
+        act = eng.rs(eng.rs(eng.mulpt(ct, pt)))
+        out = _he_exp_taylor(eng, act, rlk)
+        for _ in range(iter):
+            out = eng.rs(eng.mul(out, out, rlk))
+        return out
 
 
 def min_bootstrap_iter(ctx) -> int:
@@ -256,13 +266,14 @@ def bootstrap(eng: CKKS, bctx: BootstrapContext, ct: Ciphertext,
         # c2s output decodes to mu = t/Delta, so the exp argument constant is
         # a = 2 pi Delta / q_src, giving sin(a*mu) = sin(2 pi t / q_src).
         a = 2 * params.PI * eng.Delta / q_src
-        ce = _exp_small_a(eng, a * 1j, cti, rlk, iter)
-        ce_neg = eng.conj(ce.copy(), ck)
-        diff = eng.sub(ce, ce_neg)           # 2i sin(2pi t / q_src)
-        # divide by 2i and by (2 pi / q_src): output message ~ (t mod q_src)/Delta
-        b = q_src / (4j * params.PI * eng.Delta)
-        ptb = eng.ecd(np.full(ctx.slots, b, dtype=np.complex128))
-        return eng.rs(eng.mulpt(diff, ptb))
+        with trace.span("bootstrap.evalsin", eng.device):
+            ce = _exp_small_a(eng, a * 1j, cti, rlk, iter)
+            ce_neg = eng.conj(ce.copy(), ck)
+            diff = eng.sub(ce, ce_neg)           # 2i sin(2pi t / q_src)
+            # divide by 2i and by (2 pi / q_src): output message ~ (t mod q_src)/Delta
+            b = q_src / (4j * params.PI * eng.Delta)
+            ptb = eng.ecd(np.full(ctx.slots, b, dtype=np.complex128))
+            return eng.rs(eng.mulpt(diff, ptb))
 
     ct0 = mod_reduce(ct0)
     ct1 = mod_reduce(ct1)

@@ -97,9 +97,10 @@ def load(source: str) -> ctypes.CDLL:
 # ---------------------------------------------------------------------------
 
 # every launch counter of the kernel bindings (ops/*_cuda.py), COPIES
-# below and the meshes' traffic (parallel/mesh.py): a replayed CUDA graph
-# runs no Python, so utils/graphs.py adds again at each replay what the
-# graph's capture added to them
+# below, the meshes' traffic (parallel/mesh.py) and the host-to-device
+# copies (utils/trace.py::H2D): a replayed CUDA graph runs no Python, so
+# utils/graphs.py adds again at each replay what the graph's capture added
+# to them, and an op trace reports each one's change
 COUNTERS: list[dict] = []
 
 

@@ -28,7 +28,6 @@ import torch
 
 from ..scheme.engine import CKKS
 from ..scheme.types import Ciphertext, SwitchKey
-from ..utils import trace
 from . import mesh as mesh_ops
 
 
@@ -53,15 +52,14 @@ class MeshCKKS(CKKS):
         self.mesh = mesh
         self._mesh_jit = {}
 
-    def _mcached(self, key, build, name):
+    def _mcached(self, key, build):
         """The sharded program cached under key, built at first use (on a
         graphable mesh a CUDA graph per shape in the ring engine's pool:
-        parallel/mesh.py), handed out through the op trace under the name
-        of the single-device engine's program; the cache keeps the bare
-        program."""
+        parallel/mesh.py), traced under the name of the single-device
+        engine's program."""
         if key not in self._mesh_jit:
             self._mesh_jit[key] = build()
-        return trace.maybe_wrap(name, self._mesh_jit[key])
+        return self._mesh_jit[key]
 
     def _pad_limb(self, dim: int) -> int:
         return mesh_ops._pad_dim(dim, self.mesh.shape["limb"],
@@ -80,7 +78,7 @@ class MeshCKKS(CKKS):
         # each program takes one ciphertext and runs it on every batch
         # position (prefer batch=1 meshes for single-ciphertext workloads)
         f = self._mcached(("mul_rs", l), lambda: mesh_ops.build_sharded_mul_rs(
-            self, l, self.mesh), ("he_mul_rs", l))
+            self, l, self.mesh))
         c0, c1 = f(ct1.c0, ct1.c1, ct2.c0, ct2.c1, rlk.p0hat, rlk.p1hat)
         nu, B = self._mul_meta(ct1, ct2)
         return Ciphertext(l=l - 1, nu=nu / self.Delta,
@@ -89,7 +87,7 @@ class MeshCKKS(CKKS):
     def _rot_sharded(self, ct: Ciphertext, r: int | None,
                      swk: SwitchKey) -> Ciphertext:
         f = self._mcached(("rot", ct.l, r), lambda: mesh_ops.build_sharded_rot(
-            self, ct.l, self.mesh, r), ("swk", ct.l))
+            self, ct.l, self.mesh, r))
         c0, c1 = f(ct.c0, ct.c1, swk.p0hat, swk.p1hat)
         return Ciphertext(l=ct.l, nu=ct.nu, B=ct.B, c0=c0, c1=c1)
 
@@ -109,4 +107,4 @@ class MeshCKKS(CKKS):
         return self._mcached(
             ("gemvstep", l, dims_h, dimc),
             lambda: mesh_ops.build_sharded_gemv_step(
-                self, l, None, dims_h, dimc, self.mesh), ("hoiststep", l, dims_h, dimc))
+                self, l, None, dims_h, dimc, self.mesh))

@@ -36,7 +36,9 @@ process, with no process group (HeMesh.graphable: a virtual mesh), runs
 each program as one CUDA graph per argument shapes (utils/graphs.py): the
 walk over positions, its collectives included, is captured once and
 replayed with one dispatch.  A mesh over several devices or processes runs
-its programs eagerly, by that rule, fixed when the mesh is made.
+its programs eagerly, by that rule, fixed when the mesh is made.  Either
+way each program's calls are traced under the name of the single-device
+engine's program it stands for (utils/trace.py).
 
 Collectives per program: log2(S) block swaps per NTT on 'coeff'; one sum of
 [batch, n/S, ds] digit partials (and an [batch, n/S] f64 estimate) per CRT
@@ -624,11 +626,12 @@ _CT = ("batch", "coeff", None)       # ciphertext limbs [B, n, K]
 _KEY = ("limb", "coeff")             # NTT-resident key halves [dim, n]
 
 
-def _program(mesh: HeMesh, owner: graphs.Graphs, fn, key, bound=()):
-    """fn as one program of the mesh: on a graphable mesh a graphs.Program
-    of owner's (a CUDA graph per argument shapes and device; bound: the
-    arguments its graphs read in place), elsewhere fn itself."""
-    return owner.program(fn, key, bound) if mesh.graphable else fn
+def _program(mesh: HeMesh, owner: graphs.Graphs, fn, key, name: str, bound=()):
+    """fn as one program of the mesh, a graphs.Program of owner's: on a
+    graphable mesh a CUDA graph per argument shapes and device (bound: the
+    arguments its graphs read in place), elsewhere fn run eagerly; traced under
+    `name`, the single-device engine's program it stands for."""
+    return owner.program(fn, key, bound, name=name, graphed=mesh.graphable)
 
 
 def _batch(mesh: HeMesh, x: torch.Tensor) -> torch.Tensor:
@@ -652,7 +655,8 @@ def _build_poly_mul(pctx: PolyContext, dim: int, k_in: int, mask_to_bits: int,
         res = _intt_coeff_sharded(mesh, ch, C, "a", splan)
         c = _reconstruct(mesh, res, C, "a", "ar", center=True)
         return _gather(mesh, _each(lambda v: lb.fit_signed(v, mask_to_bits, k_out), c), _CT)
-    return _program(mesh, mesh.graphs, run, ("sharded_poly_mul", dim, k_in, mask_to_bits, k_out))
+    return _program(mesh, mesh.graphs, run, ("sharded_poly_mul", dim, k_in, mask_to_bits, k_out),
+                    "mul")
 
 
 def build_sharded_poly_mul(pctx: PolyContext, dim: int, k_in: int,
@@ -718,7 +722,7 @@ def build_sharded_rot(eng, l: int, mesh: HeMesh, rot: int | None):
         c0 = _each(lambda v, d: lb.mask_bits(lb.add(v[0], d), qb), u, d0)
         out = _gather(mesh, c0, _CT), _gather(mesh, _each(lambda v: v[1], u), _CT)
         return out if c1.dim() == 3 else (out[0][0], out[1][0])
-    return _program(mesh, eng.ring.graphs, run, ("sharded_rot", l, rot), bound=(2, 3))
+    return _program(mesh, eng.ring.graphs, run, ("sharded_rot", l, rot), "swk", bound=(2, 3))
 
 
 def build_sharded_gemv_step(eng, l: int, n1: int | None, dims_h: int, dimc: int,
@@ -769,7 +773,7 @@ def build_sharded_gemv_step(eng, l: int, n1: int | None, dims_h: int, dimc: int,
         out = ("coeff", None)
         return _gather(mesh, c0, out), _gather(mesh, _each(lambda v: v[1], k), out)
     return _program(mesh, eng.ring.graphs, run, ("sharded_gemv_step", l, dims_h, dimc),
-                    bound=(2, 3, 4, 5))
+                    "hoiststep", bound=(2, 3, 4, 5))
 
 
 def build_sharded_mul_rs(eng, l: int, mesh: HeMesh):
@@ -829,4 +833,5 @@ def build_sharded_mul_rs(eng, l: int, mesh: HeMesh):
         out = _each(lambda v, w: eng._rs_limbs(lb.mask_bits(lb.add(v, w[:2]), qb), l - 1), u, d)
         both = _gather(mesh, out, (None,) + _CT)
         return (both[0], both[1]) if c10.dim() == 3 else (both[0, 0], both[1, 0])
-    return _program(mesh, eng.ring.graphs, run, ("sharded_mul_rs", l), bound=(4, 5))
+    return _program(mesh, eng.ring.graphs, run, ("sharded_mul_rs", l), "he_mul_rs",
+                    bound=(4, 5))

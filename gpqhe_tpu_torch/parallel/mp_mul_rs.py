@@ -274,7 +274,8 @@ def _run_layout(args, ctx, o, msgs, dev, hb: int, layout, group, chain_dir: str)
             "logp": ctx.logp_prime, "positions": [list(p) for p in mesh.local_positions],
             "equal": equal, "decode_diffs": diffs, "fallbacks": plan.fallbacks,
             "first_calls_s": first_s, "traffic": traffic,
-            "graphed": any(isinstance(f, graphs.Program) for f in meng._mesh_jit.values()),
+            "graphed": any(isinstance(f, graphs.Program) and f.graphed and bool(f.graphs)
+                          for f in meng._mesh_jit.values()),
             "eager_why": mesh.eager_why,
             "launches": {"u64": dict(ntt_cuda.LAUNCHES), "u32": dict(ntt_cuda32.LAUNCHES32)}}
     if args.iters:

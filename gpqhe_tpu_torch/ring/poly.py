@@ -30,7 +30,7 @@ from ..ops import ntt4 as ntt4_ops
 from ..ops import ntt_cuda, ntt_cuda32
 from ..ops import rns as rns_ops
 from ..ops.modmath import mulmod, u64_to_torch
-from ..utils import graphs, trace
+from ..utils import graphs
 
 
 def ntt_module(pctx: PolyContext):
@@ -179,11 +179,11 @@ class RingEngine:
 
     def _program(self, key, fn):
         """The program cached under key: fn at the key's first use (fn may
-        close over nothing that the key does not fix), handed out through
-        the op trace."""
+        close over nothing that the key does not fix); its calls trace
+        themselves."""
         if key not in self._progs:
             self._progs[key] = self.graphs.program(fn, key)
-        return trace.maybe_wrap(key, self._progs[key])
+        return self._progs[key]
 
     def fwd_ntt(self, a, dim: int, signed_bits: int | None = None):
         """limbs [n, K] -> NTT-domain residues [dim, n]."""

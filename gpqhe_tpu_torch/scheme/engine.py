@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 
 import numpy as np
 import torch
@@ -100,21 +101,18 @@ class CKKS:
         return bigint.nlimbs(self.qbits(l))
 
     def _t(self, limbs_u32) -> torch.Tensor:
-        """Host u32 limbs -> device limb tensor."""
+        """Host u32 limbs -> device limb tensor (a counted copy, the span
+        ckks.h2d: scheme/types.py::limbs_to_torch)."""
         return limbs_to_torch(limbs_u32, self.device)
 
-    def _built(self, key, build, bound=()):
+    def _cached(self, key, build, bound=()):
         """The program cached under key, built at first use, run as a graph
         per shape on a CUDA device (utils/graphs.py: the graphs share the
-        ring engine's memory pool; bound: arguments read in place)."""
+        ring engine's memory pool; bound: arguments read in place); its
+        calls trace themselves (utils/trace.py)."""
         if key not in self._fns:
             self._fns[key] = self.ring.graphs.program(build(), key, bound)
         return self._fns[key]
-
-    def _cached(self, key, build, bound=()):
-        """_built, handed out through the op trace: the cache keeps the bare
-        program, so a trace that has ended leaves no timing wrapper behind."""
-        return trace.maybe_wrap(key, self._built(key, build, bound))
 
     def _program(self, key, fn):
         """The program cached under key: fn at the key's first use (fn may
@@ -140,28 +138,30 @@ class CKKS:
 
     def ecd(self, m: np.ndarray, nu: float | None = None) -> Plaintext:
         """Encode complex slots into an integral polynomial
-        (ref: src/he-encode.c:53-64, he_ecd:107-111)."""
+        (ref: src/he-encode.c:53-64, he_ecd:107-111).  The host's build of
+        the limbs is the span ckks.ecd, their copy ckks.h2d."""
         ctx = self.ctx
         nu = self.Delta if nu is None else nu
-        u = invcanemb(np.asarray(m, dtype=np.complex128), ctx.slots,
-                      ctx.poly.cyc_group, ctx.poly.ring_zetas, ctx.poly.m)
-        n = ctx.poly.n
-        nh = n // 2
-        gap = nh // ctx.slots
-        re = sample.c_round(u.real * nu)
-        im = sample.c_round(u.imag * nu)
-        coeff_bound = float(max(np.max(np.abs(re)), np.max(np.abs(im)), 1.0))
-        if np.max(np.abs(np.concatenate([re, im]))) < 2**62:
-            coeffs = np.zeros(n, dtype=np.int64)
-            coeffs[0:nh:gap] = re.astype(np.int64)
-            coeffs[nh::gap] = im.astype(np.int64)
-            limbs = bigint.i64_to_limbs(coeffs, self.kq)
-        else:  # huge scales go through exact ints
-            coeffs = [0] * n
-            for i in range(ctx.slots):
-                coeffs[i * gap] = int(re[i])
-                coeffs[i * gap + nh] = int(im[i])
-            limbs = bigint.ints_to_limbs(coeffs, self.kq)
+        with trace.span("ckks.ecd"):
+            u = invcanemb(np.asarray(m, dtype=np.complex128), ctx.slots,
+                          ctx.poly.cyc_group, ctx.poly.ring_zetas, ctx.poly.m)
+            n = ctx.poly.n
+            nh = n // 2
+            gap = nh // ctx.slots
+            re = sample.c_round(u.real * nu)
+            im = sample.c_round(u.imag * nu)
+            coeff_bound = float(max(np.max(np.abs(re)), np.max(np.abs(im)), 1.0))
+            if np.max(np.abs(np.concatenate([re, im]))) < 2**62:
+                coeffs = np.zeros(n, dtype=np.int64)
+                coeffs[0:nh:gap] = re.astype(np.int64)
+                coeffs[nh::gap] = im.astype(np.int64)
+                limbs = bigint.i64_to_limbs(coeffs, self.kq)
+            else:  # huge scales go through exact ints
+                coeffs = [0] * n
+                for i in range(ctx.slots):
+                    coeffs[i * gap] = int(re[i])
+                    coeffs[i * gap + nh] = int(im[i])
+                limbs = bigint.ints_to_limbs(coeffs, self.kq)
         return Plaintext(nu=float(nu), m=self._t(limbs), mod_bits=32 * self.kq,
                          bound=coeff_bound)
 
@@ -203,14 +203,16 @@ class CKKS:
         return float(np.max(np.abs(u)))
 
     def const_pt(self, num: complex) -> Plaintext:
-        """Constant plaintext (ref: src/he-encode.c:119-125)."""
+        """Constant plaintext (ref: src/he-encode.c:119-125).  The host's
+        build of the limbs is the span ckks.const_pt, their copy ckks.h2d."""
         n = self.ctx.poly.n
         nh = n // 2
-        coeffs = [0] * n
-        coeffs[0] = int(sample.c_round(np.float64(num.real) * self.Delta))
-        coeffs[nh] = int(sample.c_round(np.float64(num.imag) * self.Delta))
-        return Plaintext(nu=self.Delta, m=self._t(bigint.ints_to_limbs(coeffs, self.kq)),
-                         mod_bits=32 * self.kq,
+        with trace.span("ckks.const_pt"):
+            coeffs = [0] * n
+            coeffs[0] = int(sample.c_round(np.float64(num.real) * self.Delta))
+            coeffs[nh] = int(sample.c_round(np.float64(num.imag) * self.Delta))
+            limbs = bigint.ints_to_limbs(coeffs, self.kq)
+        return Plaintext(nu=self.Delta, m=self._t(limbs), mod_bits=32 * self.kq,
                          bound=float(max(abs(coeffs[0]), abs(coeffs[nh]), 1)))
 
     # ------------------------------------------------------------------
@@ -244,27 +246,33 @@ class CKKS:
     def genswk(self, sp_ints, sk: SecretKey) -> SwitchKey:
         """Key-switching key for secret sp (ref: src/he-kem.c:74-118).
         Sampling order: e, then swkp1.  sp_ints: per-coefficient secret to
-        switch FROM — a list of python ints or an int64 array."""
+        switch FROM — a list of python ints or an int64 array.  The span
+        ckks.genswk; its host seconds go to trace.SETUP["keygen_s"]."""
         ctx = self.ctx
         n = ctx.poly.n
         PqL = ctx.PqL
-        e = sample.sample_error(self.rng, n)
-        swk_bytes = sample.sample_uniform_bytes(self.rng, n, PqL)
-        k_big = bigint.nlimbs(PqL.bit_length())
-        swkp1 = self._t(sample.uniform_bytes_to_limbs(
-            swk_bytes, PqL.bit_length(), k_big))
-        prod_bits = 32 * (k_big + 2)
-        prod = self.ring.poly_mul(swkp1, sk.s, ctx.dim_genswk(), prod_bits,
-                                  k_big + 2, signed_a=None, signed_b=32)
-        prod_ints = self._poly_to_ints_signed(prod, prod_bits)
-        P = ctx.P
-        swkp0_ints = [(-c + int(ei) + P * int(spi)) % PqL
-                      for c, ei, spi in zip(prod_ints, e, sp_ints)]
-        swkp0 = self._t(bigint.ints_to_limbs(swkp0_ints, k_big))
-        # NTT-resident storage over the dimswk basis (ref: src/he-kem.c:103-110),
-        # extended by the hoisting margin
-        return SwitchKey(p0hat=self.ring.fwd_ntt(swkp0, self.dimswk_h),
-                         p1hat=self.ring.fwd_ntt(swkp1, self.dimswk_h))
+        t0, c0 = time.perf_counter(), trace.SETUP["capture_s"]
+        with trace.span("ckks.genswk", self.device):
+            e = sample.sample_error(self.rng, n)
+            swk_bytes = sample.sample_uniform_bytes(self.rng, n, PqL)
+            k_big = bigint.nlimbs(PqL.bit_length())
+            swkp1 = self._t(sample.uniform_bytes_to_limbs(
+                swk_bytes, PqL.bit_length(), k_big))
+            prod_bits = 32 * (k_big + 2)
+            prod = self.ring.poly_mul(swkp1, sk.s, ctx.dim_genswk(), prod_bits,
+                                      k_big + 2, signed_a=None, signed_b=32)
+            prod_ints = self._poly_to_ints_signed(prod, prod_bits)
+            P = ctx.P
+            swkp0_ints = [(-c + int(ei) + P * int(spi)) % PqL
+                          for c, ei, spi in zip(prod_ints, e, sp_ints)]
+            swkp0 = self._t(bigint.ints_to_limbs(swkp0_ints, k_big))
+            # NTT-resident storage over the dimswk basis (ref: src/he-kem.c:103-110),
+            # extended by the hoisting margin
+            swk = SwitchKey(p0hat=self.ring.fwd_ntt(swkp0, self.dimswk_h),
+                            p1hat=self.ring.fwd_ntt(swkp1, self.dimswk_h))
+        # the first calls inside are capture_s
+        trace.SETUP["keygen_s"] += time.perf_counter() - t0 - (trace.SETUP["capture_s"] - c0)
+        return swk
 
     def genrlk(self, sk: SecretKey) -> SwitchKey:
         """Relinearization key from sk^2 (ref: src/he-kem.c:120-136)."""
@@ -462,9 +470,9 @@ class CKKS:
         return self._cached(("he_mul", l), lambda: self._build_mul_step(l))
 
     def _mul_step(self, l: int):
-        """mul_step_fn's program outside the op trace, for the programs that
-        contain it (he_mul_rs, he_mul_rs_batch)."""
-        return self._built(("he_mul", l), lambda: self._build_mul_step(l))
+        """mul_step_fn's function, for the programs that contain it
+        (he_mul_rs, he_mul_rs_batch): part of theirs, not a call of its own."""
+        return self.mul_step_fn(l).fn
 
     def _build_mul_step(self, l: int):
         ctx = self.ctx

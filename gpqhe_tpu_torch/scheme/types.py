@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..ops.modmath import torch_to_u64, u64_to_torch
+from ..utils import trace
 
 
 @dataclass
@@ -72,8 +73,13 @@ class SwitchKey:
 
 
 def limbs_to_torch(a, device=None) -> torch.Tensor:
-    """Host u32 limbs -> int64 tensor."""
-    return torch.from_numpy(np.asarray(a, dtype=np.uint32).astype(np.int64)).to(device)
+    """Host u32 limbs -> int64 tensor on device: the span ckks.h2d, its
+    bytes and copies counted in utils/trace.py::H2D on every device."""
+    with trace.span("ckks.h2d", device):
+        t = torch.from_numpy(np.asarray(a, dtype=np.uint32).astype(np.int64))
+        trace.H2D["bytes"] += t.nbytes
+        trace.H2D["copies"] += 1
+        return t.to(device)
 
 
 def limbs_to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -25,6 +25,13 @@ bytes a mesh's collectives move: parallel/mesh.py's TRAFFIC) are bumped in
 Python, which a replay does not run: what a capture added to them is taken
 back and added again on every replay, so they stay counts of device work.
 
+Each call outside another program's first call is a span of the op trace
+and the profiler (utils/trace.py): `replay.<head>` around a replay (on a
+CPU tensor or under disabled(), around the program itself) and
+`capture.<head>` around a first call, <head> the key's first element or the
+name the program was given; a first call's host seconds are also added to
+trace.SETUP.
+
 disabled() runs every program eagerly, as jax.disable_jit() does; nothing
 else does.  A capture or replay that fails raises: there is no fallback.  A
 program called while another one runs its first call (an op built from
@@ -38,12 +45,14 @@ retry of a remote compile, have no counterpart on a GPU.
 from __future__ import annotations
 
 import gc
+import time
 from collections import OrderedDict
 from contextlib import contextmanager
 
 import torch
 
 from ..ops import cuda_build
+from . import trace
 
 _DISABLED = 0       # depth of disabled() blocks
 _INSIDE = 0         # depth of inline() blocks: first calls under way
@@ -202,8 +211,8 @@ class Graphs:
             self._pools[device] = self.capture.new_pool(device)
         return self._pools[device]
 
-    def program(self, fn, key=None, bound=()) -> "Program":
-        return Program(fn, self, key, bound)
+    def program(self, fn, key=None, bound=(), name=None, graphed=True) -> "Program":
+        return Program(fn, self, key, bound, name, graphed)
 
 
 class _Graph:
@@ -217,7 +226,7 @@ class _Graph:
         self.replay = replay
         self.delta = delta
 
-    def __call__(self, args):
+    def __call__(self, *args):
         for s, a in zip(self.static_in, args):
             if s is not None:
                 s.copy_(a)
@@ -237,14 +246,20 @@ class Program:
     in place of a copy (large constants such as a plan's key stacks): their
     address and strides join the graph's key, so a graph replays only for
     the memory it was captured on, which then holds the argument.  A program
-    with bound arguments keeps its MAX_GRAPHS most recently used graphs."""
+    with bound arguments keeps its MAX_GRAPHS most recently used graphs.
 
-    def __init__(self, fn, owner: Graphs, key=None, bound=()):
+    name: the head its calls are traced under (the key's first element by
+    default); graphed=False: the program itself on every device."""
+
+    def __init__(self, fn, owner: Graphs, key=None, bound=(), name=None, graphed=True):
         self.fn = fn
         self.owner = owner
         self.key = key
         self.bound = frozenset(bound)
+        self.graphed = graphed
         self.graphs: OrderedDict = OrderedDict()
+        self.name = name or (key[0] if isinstance(key, tuple) else str(key))
+        self._replay, self._capture = "replay." + self.name, "capture." + self.name
 
     def _sig(self, dev, args) -> tuple:
         if not self.bound:
@@ -253,19 +268,29 @@ class Program:
                               else (a.shape, a.dtype) for i, a in enumerate(args))
 
     def __call__(self, *args):
-        dev = args[0].device
-        if _DISABLED or _INSIDE or not self.owner.capture.takes(dev):
+        if _INSIDE:
             return self.fn(*args)
-        sig = self._sig(dev, args)
-        g = self.graphs.get(sig)
-        if g is not None:
+        dev = args[0].device
+        if _DISABLED or not self.graphed or not self.owner.capture.takes(dev):
+            run = self.fn
+        else:
+            sig = self._sig(dev, args)
+            run = self.graphs.get(sig)
+            if run is None:
+                return self._first_call(args, dev, sig)
             if self.bound:
                 self.graphs.move_to_end(sig)
-            return g(args)
+        if not trace.on():
+            return run(*args)
+        with trace.span(self._replay, dev, self.name):
+            return run(*args)
+
+    def _first_call(self, args, dev, sig):
         for a in args[1:]:
             if a.device != dev:
                 raise ValueError(f"program {self.key}: arguments on {a.device} and {dev}")
-        out, self.graphs[sig] = self._first(args, dev)
+        with trace.span(self._capture, dev, self.name):
+            out, self.graphs[sig] = self._first(args, dev)
         if len(self.graphs) > MAX_GRAPHS:
             self.graphs.popitem(last=False)
         return out
@@ -273,6 +298,7 @@ class Program:
     def _first(self, args, dev):
         """Warm up (the call's result), then capture into static buffers."""
         owner = self.owner
+        t0 = time.perf_counter()
         with inline():
             out = owner.capture.warm_up(self.fn, args, dev)
             static_in = [None if i in self.bound else a.clone(memory_format=torch.contiguous_format)
@@ -288,4 +314,6 @@ class Program:
             finally:
                 counters_restore(before)
         owner.captures += 1
+        trace.SETUP["capture_s"] += time.perf_counter() - t0
+        trace.SETUP["captures"] += 1
         return out, _Graph(owner, static_in, static_out, replay, delta)

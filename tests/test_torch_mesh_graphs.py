@@ -26,6 +26,7 @@ from gpqhe_tpu.context import PolyContext as JPolyContext
 from gpqhe_tpu.parallel import mesh as jmesh
 from gpqhe_tpu.ring import sample as jsmp
 
+from chip_smoke import is_graph   # the repository root is on sys.path (conftest)
 from torch_mesh_cases import MeshCase, bat, cross, jbat
 from torch_standin import StandIn
 import gpqhe_tpu_torch as gt
@@ -254,13 +255,15 @@ def test_mesh_engine_ops_graphed_equal_single_device(runs, engines, op):
         assert torch.equal(got.c0, want.c0) and torch.equal(got.c1, want.c1)
     head = {"mul_rs": "mul_rs", "rot": "rot", "conj": "rot", "gemv_full": "gemvstep"}[op]
     progs = [p for k, p in meng._mesh_jit.items() if k[0] == head]
-    assert progs and all(isinstance(p, graphs.Program) and p.graphs for p in progs)
+    assert progs and all(is_graph(p) for p in progs)
 
 
 def test_graphable_is_one_process_on_one_device(runs):
     """The layout rule, fixed when a mesh is made: a virtual mesh is
     graphable; positions on two devices or a process group are not, and
-    their programs are the eager functions, with the reason said."""
+    their programs run the eager functions (never graphed), with the reason
+    said.  Either way a program is traced under the single-device engine's
+    name."""
     virtual = tmesh.make_he_mesh3(8, limb=2, coeff=2, devices=CPU8)
     assert virtual.graphable and virtual.eager_why is None
     two = tmesh.make_he_mesh3(4, limb=2, coeff=2, devices=["cpu", "meta"] * 2)
@@ -268,13 +271,14 @@ def test_graphable_is_one_process_on_one_device(runs):
     grouped = tmesh.HeMesh(virtual.devices, tmesh._AXES, group=object())
     assert not grouped.graphable and "processes" in grouped.eager_why
     pctx = PolyContext(logn=6, q=1 << 100, dim_cap=4)
-    assert isinstance(tmesh.build_sharded_poly_mul_3d(pctx, 4, 4, 128, 4, virtual),
-                      graphs.Program)
-    assert not isinstance(tmesh.build_sharded_poly_mul_3d(pctx, 4, 4, 128, 4, grouped),
-                          graphs.Program)
+    graphed = tmesh.build_sharded_poly_mul_3d(pctx, 4, 4, 128, 4, virtual)
+    assert isinstance(graphed, graphs.Program) and graphed.graphed and graphed.name == "mul"
+    eager = tmesh.build_sharded_poly_mul_3d(pctx, 4, 4, 128, 4, grouped)
+    assert not eager.graphed and eager.name == "mul" and not is_graph(eager)
     c = runs.case
-    assert not isinstance(tmesh.build_sharded_rot(c.eng, c.ctx.L, tmesh.HeMesh(
-        c.mesh.devices, tmesh._AXES, group=object()), 1), graphs.Program)
+    rot = tmesh.build_sharded_rot(c.eng, c.ctx.L, tmesh.HeMesh(
+        c.mesh.devices, tmesh._AXES, group=object()), 1)
+    assert not rot.graphed and rot.name == "swk" and not is_graph(rot)
 
 
 def test_a_failing_capture_on_a_graphable_mesh_raises(runs):

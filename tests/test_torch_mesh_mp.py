@@ -95,6 +95,7 @@ def test_two_process_mesh_matches_jax_and_engine(layout, logp, tmp_path_factory)
     for ln in mine:
         assert ln["ranks"] == 2 and ln["backend"] == "gloo" and len(ln["positions"]) == 4
         assert all(ln["equal"].values()) and ln["fallbacks"] == 0
+        assert ln["graphed"] is False and "processes" in ln["eager_why"]
         assert all(d < 1e-5 for d in ln["decode_diffs"].values())
         moved = ln["traffic"]["mul_rs"]
         assert sum(kinds["process"][1] for kinds in moved.values()) > 0

@@ -182,11 +182,12 @@ def test_trace_leaves_no_wrapper_behind(both):
     eng.mul_rs(ct, ct, rlk)
     before = dict(eng._fns)
     with ttrace.op_trace() as t:
-        assert ttrace.maybe_wrap(("x",), len) is not len
+        # the engine hands out its cached program itself, which traces its calls
+        assert eng.mul_step_fn(ct.l) is eng._fns[("he_mul", ct.l)]
         eng.mul_rs(ct, ct, rlk)
     assert t.counts == {"he_mul_rs": 1}
     assert all(eng._fns[k] is before[k] for k in before)      # the cache holds bare programs
-    assert ttrace.maybe_wrap(("x",), len) is len               # identity when inactive
+    assert eng.mul_step_fn(ct.l) is eng._fns[("he_mul", ct.l)]
 
 
 def test_timer_and_time_jitted_on_the_cpu(both, tmp_path):
