@@ -450,12 +450,12 @@ def phase_build():
 
 
 # instantiations of the gated kernels by source: K7's eight chains on rows of
-# one chunk and of more, and its word kernel by word and by pair for
-# mask_bits and select; the lift on f64 and int64 digit sums at 1, 2 and 4
-# chunks, decompose and the digit split; K5's elementwise kernel by op, the
+# one chunk and of more, its word kernel by word and by pair for mask_bits
+# and select, and the fill by word and by pair; the lift on f64 and int64
+# digit sums at 1, 2 and 4 chunks, decompose and the digit split; K5's elementwise kernel by op, the
 # cross terms, the key products and the sum by mode; K8's stage by byte
 # planes (2, 4, 8) and transpose
-ROW_KERNELS = {"limbs.cu": 20, "rns.cu": 8, "modmath.cu": 9, "ntt4.cu": 6}
+ROW_KERNELS = {"limbs.cu": 22, "rns.cu": 8, "modmath.cu": 9, "ntt4.cu": 6}
 
 
 def resource_usage(library: str) -> dict:
@@ -709,6 +709,7 @@ EW_REPLACES = {
     "limbs_rshift_round": "gpqhe_tpu/ops/limbs.py:144",
     "limbs_rshift_round_mask": "gpqhe_tpu/scheme/engine.py:757",
     "limbs_from_digits16": "gpqhe_tpu/ops/limbs.py:210",
+    "limbs_fill_rows": "gpqhe_tpu/scheme/engine.py:164 (const_pt's and ecd's host build and copy)",
 }
 # 32-bit multiply instructions per u64 Montgomery product: the 64x64 high
 # product (4) and the low product (3) of a * b, the low product u = lo * pinv
@@ -1069,6 +1070,14 @@ def elementwise_cases(logn: int, logp: int, device, seed: int = 8) -> dict:
     dg[0] = float((1 << 48) - 1)
     add("limbs_from_digits16", dg.shape, lambda: lb.from_digits16(dg, kq),
         lambda: lb.plain_from_digits16(dg, kq), [dg], n * kq, 0)
+    # the fill of a sparse plaintext: const_pt's rows 0 and n/2 (the first,
+    # timed), ecd's 2 slots rows gap apart; the rows' limbs travel in the
+    # launch's parameters, so its bytes are the output's
+    for stride in (n // 2, (n // 2) // slots):
+        rows = ew_words(rng, (n // stride, kq), "cpu", 32).numpy().astype(np.uint32)
+        add("limbs_fill_rows", [n, kq],
+            lambda rows=rows, s=stride: lb.fill_rows(rows, n, s, device),
+            lambda rows=rows, s=stride: lb.plain_fill_rows(rows, n, s, device), [], n * kq, 0)
     return cases
 
 

@@ -41,8 +41,16 @@
 // walking there, then the stores, in lockstep over the card) stayed at 1.8x
 // torch's `a & m` for add (PERF.md).
 //
+// The fill of a plaintext with few nonzero coefficients (the scheme engine's
+// const_pt and sparse ecd): its dense [n, K] limbs written on the card, row
+// j * stride from the limbs the launch carries in its parameters, every
+// other row zero.  A pure store stream, one thread a 16-byte pair of words
+// (or a word where K is odd); the host sends 2 s K words, not n K.
+//
 // Plain C interface, loaded with ctypes.  Launches on the caller's stream,
 // allocates nothing, does not synchronise, returns cudaGetLastError().
+
+#include <string.h>
 
 #include "rowwarp.cuh"
 
@@ -307,5 +315,67 @@ extern "C" int gpqhe_limbs(int op, i64 R1, i64 R2, int K, int k_out, int t, int 
 #undef CASE
         default: return (int)cudaErrorInvalidValue;
     }
+    return (int)cudaGetLastError();
+}
+
+// The fill: the limbs of the nonzero rows by value, in the launch's
+// parameter space (2 KB of the 4 KB a launch may carry), so that no copy
+// and no synchronise precedes the launch; __grid_constant__ reads them in
+// place there (no copy into local memory).
+#define LIMBS_FILL_WORDS 512
+
+struct FillRows {
+    unsigned w[LIMBS_FILL_WORDS];   // row j's limb i at j * K + i
+};
+
+struct FillArgs {
+    unsigned items;        // pairs (or words) of the [n, K] output
+    FastDiv row_items;     // pairs (or words) a row: K / V
+    FastDiv stride;        // rows between two nonzero rows
+    int K;
+};
+
+// out [n, K] int64: row r = j * stride holds v's row j, every other row 0.
+// A thread's item lies in one row (K even for pairs); only the threads of
+// the 2 s nonzero rows read the parameters.
+template <bool PAIRS>
+__global__ void __launch_bounds__(ROWWARP_THREADS)
+limbs_fill_kernel(u64 *out, FillArgs g, const __grid_constant__ FillRows v) {
+    constexpr int V = PAIRS ? 2 : 1;
+    const unsigned e = blockIdx.x * ROWWARP_THREADS + threadIdx.x;
+    if (e >= g.items) return;
+    const unsigned row = g.row_items.div(e);
+    const int i = (int)(e - row * g.row_items.d) * V;
+    const unsigned j = g.stride.div(row);
+    const bool on = row == j * g.stride.d;
+    u64 x[V];
+#pragma unroll
+    for (int h = 0; h < V; ++h) x[h] = on ? (u64)v.w[j * g.K + i + h] : 0;
+    if (PAIRS)
+        ((ulonglong2 *)out)[e] = make_ulonglong2(x[0], x[V - 1]);
+    else
+        out[e] = x[0];
+}
+
+// out: contiguous [n, K] int64; vals: the n / stride nonzero rows' u32 limbs,
+// row-major, nwords = (n / stride) K <= LIMBS_FILL_WORDS.
+extern "C" int gpqhe_limbs_fill(void *out, i64 n, int K, i64 stride, const unsigned *vals,
+                                int nwords, void *stream) {
+    if (n < 1 || K < 1 || stride < 1 || n % stride || (n / stride) * K != nwords
+        || nwords > LIMBS_FILL_WORDS || n * K >= (1ll << 31))
+        return (int)cudaErrorInvalidValue;
+    FillRows v;
+    memset(&v, 0, sizeof v);
+    memcpy(v.w, vals, (size_t)nwords * sizeof(unsigned));
+    const bool pairs = K % 2 == 0 && (uintptr_t)out % 16 == 0;
+    const int V = pairs ? 2 : 1;
+    const FillArgs g = {(unsigned)(n * K / V), FastDiv::of((unsigned)(K / V)),
+                        FastDiv::of((unsigned)stride), K};
+    const unsigned blocks = (g.items + ROWWARP_THREADS - 1) / ROWWARP_THREADS;
+    cudaStream_t st = (cudaStream_t)stream;
+    if (pairs)
+        limbs_fill_kernel<true><<<blocks, ROWWARP_THREADS, 0, st>>>((u64 *)out, g, v);
+    else
+        limbs_fill_kernel<false><<<blocks, ROWWARP_THREADS, 0, st>>>((u64 *)out, g, v);
     return (int)cudaGetLastError();
 }

@@ -10,7 +10,8 @@ positive and need no u64 emulation.
 Dispatch: add, sub, neg, add_scalar_bit, select, geq_const, mask_bits,
 rshift_round, rshift_round_mask and from_digits16 run their plain torch
 versions (plain_*) on a CPU tensor and the CUDA kernel of ops/limbs_cuda.py
-on a CUDA tensor; the plain versions call only plain versions.  The other
+on a CUDA tensor, fill_rows likewise by the device it is given; the plain
+versions call only plain versions.  The other
 functions are compositions of these and of views, pads and matmuls.
 """
 
@@ -262,6 +263,15 @@ def _sign_weights(m: int, device) -> torch.Tensor:
     return torch.tensor(np.left_shift(np.int64(1), np.arange(m)), device=device)
 
 
+def plain_fill_rows(rows, n: int, stride: int, device="cpu"):
+    """[n, K] limbs whose row j * stride is rows[j] (u32 limbs [n // stride,
+    K], on the host) and every other row zero."""
+    vals = torch.from_numpy(np.asarray(rows, dtype=np.uint32).astype(np.int64))
+    out = torch.zeros((n, vals.shape[1]), dtype=torch.int64, device=device)
+    out[::stride] = vals.to(device)
+    return out
+
+
 def plain_rshift_round_mask(a, t: int, nbits: int, k_out: int):
     """The rescale's divide-round: rshift_round by 2^t, keep the low nbits,
     resize to k_out limbs."""
@@ -338,6 +348,12 @@ def from_digits16(d, k_out: int):
         return plain_from_digits16(d, k_out)
     return limbs_cuda.launch("from_digits16", tuple(d.shape[:-1]) + (k_out,), d.shape[-1], d,
                              k_out=k_out, digits=True)
+
+
+def fill_rows(rows, n: int, stride: int, device) -> torch.Tensor:
+    if torch.device(device).type == "cpu":
+        return plain_fill_rows(rows, n, stride)
+    return limbs_cuda.fill_rows(rows, n, stride, device)
 
 
 def _check_shift(a, t: int) -> None:

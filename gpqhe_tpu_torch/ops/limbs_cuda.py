@@ -11,6 +11,11 @@ LAUNCHES.  The chains take a warp per row group (csrc/rowwarp.cuh): lane i
 of a group holds limb i of its row, the carries of a row come from two
 ballots, and a row of more than 32 limbs takes the warp 32 limbs at a
 time; mask_bits and select take one thread a word or a pair of words.
+
+fill_rows writes a plaintext with few nonzero coefficient rows (the scheme
+engine's const_pt and sparse ecd) on the card in one launch, those rows'
+limbs carried in the launch's parameters: no host-to-device copy, which
+from pageable memory would synchronise the stream.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import ctypes
 import math
 import os
 
+import numpy as np
 import torch
 
 from . import cuda_build
@@ -27,15 +33,18 @@ SOURCE = os.path.join(cuda_build.CSRC, "limbs.cu")
 
 OPS = {"add": 0, "sub": 1, "neg": 2, "add_scalar_bit": 3, "mask_bits": 4, "rshift_round": 5,
        "rshift_round_mask": 6, "geq_const": 7, "select": 8, "from_digits16": 9}
-LAUNCHES = cuda_build.counters({k: 0 for k in OPS})
+LAUNCHES = cuda_build.counters({**{k: 0 for k in OPS}, "fill_rows": 0})
+FILL_WORDS = 512        # csrc/limbs.cu's LIMBS_FILL_WORDS: the limb words a fill carries
 _KIND = {torch.int64: 0, torch.float64: 1, torch.bool: 2}
 
 _VP, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = ([_I32, _I64, _I64, _I32, _I32, _I32, _I32, _VP]
              + [_VP, _I64, _I64, _I64, _I32] + [_VP, _I64, _I64, _I64]
              + [_VP, _I64, _I64, _I32, _VP])
+_FILL_ARGTYPES = [_VP, _I64, _I32, _I64, _VP, _I32, _VP]
 
 _lib = None
+_fill = None
 
 
 def reset_launches() -> None:
@@ -44,13 +53,18 @@ def reset_launches() -> None:
 
 
 def load_library():
-    """Build (if the source changed) and load the library's entry point."""
-    global _lib
+    """Build (if the source changed) and load the library's entry points;
+    returns the chains' (the fill's is bound beside it)."""
+    global _lib, _fill
     if _lib is None:
-        fn = cuda_build.load(SOURCE).gpqhe_limbs
+        lib = cuda_build.load(SOURCE)
+        fill = lib.gpqhe_limbs_fill
+        fill.argtypes = _FILL_ARGTYPES
+        fill.restype = ctypes.c_int
+        fn = lib.gpqhe_limbs
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
-        _lib = fn
+        _lib, _fill = fn, fill
     return _lib
 
 
@@ -116,3 +130,26 @@ def geq_const(a, c) -> torch.Tensor:
 def select(mask, a, b) -> torch.Tensor:
     shape = cuda_build.broadcast_shape(a.shape, b.shape, tuple(mask.shape) + (1,))
     return launch("select", shape, shape[-1], a, b, bit=mask)
+
+
+def fill_rows(rows, n: int, stride: int, device) -> torch.Tensor:
+    """A new [n, K] int64 limb tensor on a CUDA device whose row j * stride
+    is rows[j] (u32 limbs [n // stride, K], on the host) and every other row
+    zero: one launch, the rows' limbs in its parameters (at most FILL_WORDS
+    words), no copy and no synchronise.  Checks the arguments before
+    anything is loaded."""
+    rows = np.ascontiguousarray(rows, dtype=np.uint32)
+    if rows.ndim != 2 or stride < 1 or rows.shape[0] * stride != n:
+        raise ValueError(f"fill_rows: {rows.shape} rows {stride} apart do not make {n} rows")
+    if rows.size > FILL_WORDS:
+        raise ValueError(f"fill_rows carries at most {FILL_WORDS} limb words, got {rows.size}")
+    dev = torch.device(device)
+    cuda_build.check_device(dev)
+    out = torch.empty((n, rows.shape[1]), dtype=torch.int64, device=dev)
+    load_library()
+    rc = _fill(out.data_ptr(), n, rows.shape[1], stride, rows.ctypes.data, rows.size,
+               cuda_build.stream_of(dev))
+    if rc != 0:
+        raise RuntimeError(f"limbs kernel fill_rows failed to launch: cudaError {rc}")
+    LAUNCHES["fill_rows"] += 1
+    return out

@@ -36,6 +36,7 @@ import torch
 from .. import params
 from ..context import HeContext
 from ..ops import limbs as lb
+from ..ops import limbs_cuda
 from ..ops import rns as rns_ops
 from ..ops.modmath import cross_terms, key_products, mulmod_sum, u64_to_torch
 from ..ops.ntt import ntt_galois_perm
@@ -139,30 +140,22 @@ class CKKS:
     def ecd(self, m: np.ndarray, nu: float | None = None) -> Plaintext:
         """Encode complex slots into an integral polynomial
         (ref: src/he-encode.c:53-64, he_ecd:107-111).  The host's build of
-        the limbs is the span ckks.ecd, their copy ckks.h2d."""
+        the nonzero rows' limbs is the span ckks.ecd; _rows_pt lays them out."""
         ctx = self.ctx
         nu = self.Delta if nu is None else nu
         with trace.span("ckks.ecd"):
             u = invcanemb(np.asarray(m, dtype=np.complex128), ctx.slots,
                           ctx.poly.cyc_group, ctx.poly.ring_zetas, ctx.poly.m)
-            n = ctx.poly.n
-            nh = n // 2
-            gap = nh // ctx.slots
+            gap = (ctx.poly.n // 2) // ctx.slots
             re = sample.c_round(u.real * nu)
             im = sample.c_round(u.imag * nu)
             coeff_bound = float(max(np.max(np.abs(re)), np.max(np.abs(im)), 1.0))
-            if np.max(np.abs(np.concatenate([re, im]))) < 2**62:
-                coeffs = np.zeros(n, dtype=np.int64)
-                coeffs[0:nh:gap] = re.astype(np.int64)
-                coeffs[nh::gap] = im.astype(np.int64)
-                limbs = bigint.i64_to_limbs(coeffs, self.kq)
+            vals = np.concatenate([re, im])     # the coefficients j * gap, j < 2 slots
+            if np.max(np.abs(vals)) < 2**62:
+                rows = bigint.i64_to_limbs(vals.astype(np.int64), self.kq)
             else:  # huge scales go through exact ints
-                coeffs = [0] * n
-                for i in range(ctx.slots):
-                    coeffs[i * gap] = int(re[i])
-                    coeffs[i * gap + nh] = int(im[i])
-                limbs = bigint.ints_to_limbs(coeffs, self.kq)
-        return Plaintext(nu=float(nu), m=self._t(limbs), mod_bits=32 * self.kq,
+                rows = bigint.ints_to_limbs([int(v) for v in vals], self.kq)
+        return Plaintext(nu=float(nu), m=self._rows_pt(rows, gap), mod_bits=32 * self.kq,
                          bound=coeff_bound)
 
     def dcd(self, pt: Plaintext) -> np.ndarray:
@@ -203,17 +196,32 @@ class CKKS:
         return float(np.max(np.abs(u)))
 
     def const_pt(self, num: complex) -> Plaintext:
-        """Constant plaintext (ref: src/he-encode.c:119-125).  The host's
-        build of the limbs is the span ckks.const_pt, their copy ckks.h2d."""
-        n = self.ctx.poly.n
-        nh = n // 2
+        """Constant plaintext (ref: src/he-encode.c:119-125): coefficients 0
+        and n/2.  The host's build of their limbs is the span ckks.const_pt;
+        _rows_pt lays them out."""
         with trace.span("ckks.const_pt"):
-            coeffs = [0] * n
-            coeffs[0] = int(sample.c_round(np.float64(num.real) * self.Delta))
-            coeffs[nh] = int(sample.c_round(np.float64(num.imag) * self.Delta))
-            limbs = bigint.ints_to_limbs(coeffs, self.kq)
-        return Plaintext(nu=self.Delta, m=self._t(limbs), mod_bits=32 * self.kq,
-                         bound=float(max(abs(coeffs[0]), abs(coeffs[nh]), 1)))
+            c = [int(sample.c_round(np.float64(num.real) * self.Delta)),
+                 int(sample.c_round(np.float64(num.imag) * self.Delta))]
+            rows = bigint.ints_to_limbs(c, self.kq)
+        return Plaintext(nu=self.Delta, m=self._rows_pt(rows, self.ctx.poly.n // 2),
+                         mod_bits=32 * self.kq, bound=float(max(abs(c[0]), abs(c[1]), 1)))
+
+    def _rows_pt(self, rows: np.ndarray, stride: int) -> torch.Tensor:
+        """The [n, kq] limbs of a plaintext whose coefficient j * stride has
+        the limbs rows[j] (u32 [n / stride, kq]) and whose others are 0.
+        Sparse rows (stride > 1) whose limbs fit a fill's parameters (at
+        most limbs_cuda.FILL_WORDS words: every const_pt, an ecd of 2 slots
+        kq words) are written on the engine's device by one launch, with no
+        copy and so no synchronise (ops/limbs.py::fill_rows); others (full
+        packing) are laid out on the host and copied (the span ckks.h2d).
+        Counted in trace.ENCODE by route."""
+        if stride > 1 and rows.size <= limbs_cuda.FILL_WORDS:
+            trace.ENCODE["on_card"] += 1
+            return lb.fill_rows(rows, self.ctx.poly.n, stride, self.device)
+        trace.ENCODE["host"] += 1
+        dense = np.zeros((self.ctx.poly.n, rows.shape[1]), dtype=np.uint32)
+        dense[::stride] = rows
+        return self._t(dense)
 
     # ------------------------------------------------------------------
     # keygen (ref: src/he-kem.c)

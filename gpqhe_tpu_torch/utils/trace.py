@@ -31,8 +31,11 @@ recorded where the work happens, read through an op trace or a profiler.
   the change of every launch and copy counter (ops/cuda_build.COUNTERS),
   into an OpTrace; `last()` is the last block that ended.
 - Counters: `H2D`, the bytes and copies of host limbs put on a device
-  (scheme/types.py::limbs_to_torch, every device, the CPU included), one of
-  ops/cuda_build.COUNTERS; `SETUP`, process totals always kept: host
+  (scheme/types.py::limbs_to_torch, every device, the CPU included), and
+  `ENCODE`, the constant and encoded plaintexts by route (scheme/engine.py:
+  `on_card`, few nonzero rows filled on the engine's device by
+  ops/limbs.py::fill_rows; `host`, dense limbs built on the host and
+  copied), both in ops/cuda_build.COUNTERS; `SETUP`, process totals always kept: host
   seconds in switch-key generation outside first calls (`keygen_s`, kept
   by scheme/engine.py::CKKS.genswk), host
   seconds in programs' first calls (`capture_s`) and their count.
@@ -58,6 +61,7 @@ _ACTIVE: "OpTrace | None" = None
 _LAST: "OpTrace | None" = None
 
 H2D = cuda_build.counters({"bytes": 0, "copies": 0})
+ENCODE = cuda_build.counters({"on_card": 0, "host": 0})
 SETUP = {"keygen_s": 0.0, "capture_s": 0.0, "captures": 0}
 _FREE: dict = {}    # CUDA device -> timing events resolved, free for reuse
 POOL = 1024         # events an op_trace block finds made on its device

@@ -29,6 +29,7 @@ import gpqhe_tpu_torch as gt
 from gpqhe_tpu_torch import bootstrap as tbs
 from gpqhe_tpu_torch.ring import sample as tsmp
 from gpqhe_tpu_torch.substrate import surf as tsurf
+from gpqhe_tpu_torch.utils import trace
 
 from test_torch_bootstrap import PLANS, ct_equal
 
@@ -50,7 +51,7 @@ def _run(pkg, bs, smp, surf, logp, **kw):
         ct = eng.moddown(ct)
     ct2, ct = ct, eng.moddown(ct)
     bctx = bs.BootstrapContext(eng)
-    out = dict(eng=eng, sk=sk, m0=m0, ct=ct)
+    out = dict(eng=eng, sk=sk, m0=m0, ct=ct, bctx=bctx, keys=(rlk, ck, rk))
     out["boot"] = bs.bootstrap(eng, bctx, ct, rlk, ck, rk, iter=6)
     out["fallbacks"] = {name: bctx.plan(name).fallbacks for name in PLANS}
     with warnings.catch_warnings(record=True) as w:
@@ -80,6 +81,18 @@ def test_bootstrap_regains_levels_and_decodes(runs):
     assert t["ct"].l == 1 and t["boot"].l > t["ct"].l + 3
     got = eng.dcd(eng.dec(t["boot"], t["sk"]))
     assert np.max(np.abs(got - t["m0"])) < 1e-2
+
+
+def test_bootstrap_constants_are_filled_on_the_device(runs):
+    """Its 19 constant plaintexts (15 const_pt, 4 ecd) take the fill from
+    their nonzero rows, none the host's dense build; the one copy left is
+    raise_modulus's modulus limbs; the output is still the JAX package's."""
+    j, t = runs
+    enc, copies = dict(trace.ENCODE), trace.H2D["copies"]
+    again = tbs.bootstrap(t["eng"], t["bctx"], t["ct"], *t["keys"], iter=6)
+    assert {k: v - enc[k] for k, v in trace.ENCODE.items()} == {"on_card": 19, "host": 0}
+    assert trace.H2D["copies"] - copies == 1
+    ct_equal(j["boot"], again)
 
 
 def test_bootstrap_from_a_large_modulus_warns_alike(runs):

@@ -671,6 +671,51 @@ def test_cuda_elementwise_kernels_read_broadcast_operands(cuda_device, xs, ys):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,k,stride", [(1 << 15, 28, 1 << 14), (1 << 15, 28, 1 << 12),
+                                        (1 << 14, 14, 1 << 13), (1 << 14, 14, 1 << 9),
+                                        (1 << 10, 5, 1 << 6)])
+def test_cuda_fill_rows_equals_plain_in_one_launch(cuda_device, n, k, stride):
+    """csrc/limbs.cu's fill torch.equal to plain_fill_rows at the bootstrap
+    ring's [2^15, 28] and the linear ring's [2^14, 14], with const_pt's
+    stride n/2 and ecd's gap (slots 4 and 16), and at an odd K (a word a
+    thread), in one launch."""
+    from gpqhe_tpu_torch.ops import limbs, limbs_cuda
+    rows = np.random.default_rng(n + stride).integers(
+        0, 1 << 32, size=(n // stride, k), dtype=np.uint64).astype(np.uint32)
+    rows[0] = 0xFFFFFFFF
+    want = limbs.plain_fill_rows(rows, n, stride, cuda_device)
+    torch.cuda.synchronize()
+    before = limbs_cuda.LAUNCHES["fill_rows"]
+    got = limbs.fill_rows(rows, n, stride, cuda_device)
+    assert limbs_cuda.LAUNCHES["fill_rows"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["fills", "bootstrap15"])
+def test_cuda_profile_shows_the_fills_and_one_copy(cuda_device, what):
+    """tests/torch_profile_copies.py in a fresh process (its capture the
+    first of the process: a later one now and then misses a pageable copy):
+    the five fills are five launches and no Memcpy HtoD; a logn=15
+    bootstrap (the benchmark's n15.bootstrap request) makes one Memcpy HtoD,
+    raise_modulus's modulus limbs, and 19 fill launches for its 15 const_pt
+    and 4 ecd, and comes back at l >= 10 within 1e-2 of the message."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = subprocess.run([sys.executable, os.path.join(root, "tests", "torch_profile_copies.py"),
+                        what], cwd=root, capture_output=True, text=True, timeout=600)
+    assert p.returncode == 0, f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}"
+    got = json.loads(p.stdout.splitlines()[-1])
+    if what == "fills":
+        assert got == {"fill_kernels": 5, "memcpy_htod": 0, "equal": True}
+    else:
+        assert {k: got[k] for k in ("fill_launches", "encode", "counted_copies",
+                                    "fill_kernels", "memcpy_htod")} == {
+            "fill_launches": 19, "encode": {"on_card": 19, "host": 0}, "counted_copies": 1,
+            "fill_kernels": 19, "memcpy_htod": 1}
+        assert got["level"] >= 10 and got["decode_diff"] < 1e-2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("logp", [59, 29])
 def test_cuda_keyswitch_path_launches_the_elementwise_kernels(cuda_device, logp):
     """The key-switch path on the card goes through K4-K7 (each kernel's

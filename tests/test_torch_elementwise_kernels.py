@@ -742,7 +742,7 @@ DISPATCHED = {tm: ["mont_mul", "mulmod", "to_mont", "addmod", "submod", "summod"
                    "key_products", "mulmod_sum"],
               tr: ["decompose_core", "decompose", "digit_split", "_digit_partials", "_lift"],
               tl: ["add", "sub", "neg", "add_scalar_bit", "select", "geq_const", "mask_bits",
-                   "rshift_round", "rshift_round_mask", "from_digits16"]}
+                   "rshift_round", "rshift_round_mask", "from_digits16", "fill_rows"]}
 
 
 @pytest.mark.parametrize("module", [tm, tr, tl], ids=["modmath", "rns", "limbs"])

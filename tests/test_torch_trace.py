@@ -1,7 +1,7 @@
 """The port's spans and counters (gpqhe_tpu_torch/utils/trace.py), recorded
 where the work happens: off, a span point is the shared null context; under
-op_trace() a bootstrap records its stages, its encodes and the bytes it
-copies to the device; under torch.profiler the same spans are host ranges
+op_trace() a bootstrap records its stages, its encodes (their limbs filled
+on the device) and the bytes it copies there; under torch.profiler the same spans are host ranges
 and the program calls as many as the op trace counts; a program's first
 call adds to the set-up totals.
 
@@ -62,9 +62,10 @@ def boot():
 
 
 def _h2d_bytes(eng) -> int:
-    """19 constant plaintexts at the top width (15 const_pt, 4 ecd) and
-    raise_modulus's modulus limbs."""
-    return (19 * eng.ctx.poly.n + 1) * eng.kq * 8
+    """raise_modulus's modulus limbs: the bootstrap's 19 constant plaintexts
+    (15 const_pt, 4 ecd) are filled on the device from their nonzero rows,
+    with no copy."""
+    return eng.kq * 8
 
 
 def test_a_span_is_the_shared_null_context_when_nothing_records(boot):
@@ -92,8 +93,9 @@ def test_op_trace_of_a_bootstrap_records_its_stages_encodes_and_copies(boot):
     assert trace.last() is t
     n = {k: len(v) for k, v in t.spans.items()}
     assert {k: n.get(k) for k in STAGES} == STAGES
-    assert (n["ckks.const_pt"], n["ckks.ecd"], n["ckks.h2d"]) == (15, 4, 20)
-    assert t.counter(trace.H2D) == {"bytes": _h2d_bytes(eng), "copies": 20}
+    assert (n["ckks.const_pt"], n["ckks.ecd"], n["ckks.h2d"]) == (15, 4, 1)
+    assert t.counter(trace.H2D) == {"bytes": _h2d_bytes(eng), "copies": 1}
+    assert t.counter(trace.ENCODE) == {"on_card": 19}
     # every program call is a replay span under its head; on the CPU every
     # time is the host's and none the device's
     heads = {k[len("replay."):]: v for k, v in n.items() if k.startswith("replay.")}
@@ -124,7 +126,7 @@ def test_the_profiler_sees_the_ports_spans_as_host_ranges(boot):
                                        "bootstrap.coeff2slot", "ckks.const_pt", "ckks.h2d",
                                        "linalg.gemv")} == {
         "bootstrap.raise_modulus": 1, "bootstrap.subsum": 1, "bootstrap.coeff2slot": 1,
-        "ckks.const_pt": 1, "ckks.h2d": 2, "linalg.gemv": 4}
+        "ckks.const_pt": 1, "ckks.h2d": 1, "linalg.gemv": 4}
     progs = {k[len("replay."):]: v for k, v in ranges.items() if k.startswith("replay.")}
     assert progs == t.counts and not any(k.startswith("capture.") for k in ranges)
 
@@ -187,7 +189,7 @@ def test_on_the_card_counted_copies_are_the_host_to_device_copies():
     copies = trace.H2D["copies"] - before
     htod = [e.name for e in prof.events()
             if e.device_type == DeviceType.CUDA and e.name.startswith("Memcpy HtoD")]
-    assert copies == 20 and len(htod) == copies, htod
+    assert copies == 1 and len(htod) == copies, htod
 
     trace._FREE.pop(dev, None)          # an empty pool, as in a new process
     with trace.op_trace() as t:
