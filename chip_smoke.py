@@ -46,6 +46,12 @@ non-zero:
              words, A past 65535, the three prime widths, constant,
              broadcast, strided and misaligned operands), each torch.equal
              to its plain version.
+  kernels16 — the logn=16 ring of gpubench's ckks-n16-q1751 (58 levels):
+             the u64 NTT forward, inverse and scaled inverse at [4, 60, 2^16]
+             and [2, 90, 2^16] against its twin (NTT16), then decompose into
+             60 and 90 primes, the digit split, the lift at the widths a
+             key switch there takes (LIFT16) and ecd's fill (ring16_cases),
+             each torch.equal to its plain version and timed as in kernels.
   golden   — the logn=11 replay of tests/golden/golden_logn11.json (enc,
              add, mul+rs, conj, rot1, moddown) within tests/test_golden.py's
              tolerances.
@@ -276,6 +282,11 @@ KERNELS["ntt15"] = dict(KERNELS["ntt"], lib="ntt")
 KERNELS["nttmesh"] = dict(KERNELS["ntt"], lib="ntt")
 KERNELS["ntt32mesh"] = dict(KERNELS["ntt32"], lib="ntt32")
 KERNELS["ntt15mesh"] = dict(KERNELS["ntt"], lib="ntt")
+# the u64 kernel at the logn=16 ring of gpubench's ckks-n16-q1751 (58 levels: the
+# product's basis 60 primes, the key switch's 90), the passes at (8, 8)
+KERNELS["ntt16"] = dict(KERNELS["ntt"], lib="ntt")
+NTT16 = [(mode, (lead, dim, 1 << 16)) for dim, lead in ((60, 4), (90, 2))
+         for mode in ("fwd", "inv", "inv_scaled")]
 # the u32 kernel on tests/test_crt_mode.py's logp=9 chain (10-11-bit primes, n=2^4)
 KERNELS["ntt32p9"] = dict(KERNELS["ntt32"], lib="ntt32")
 LOGQ = {14: 438, 15: 881}      # the rings the paths run at, by logn
@@ -1477,6 +1488,110 @@ def retimed15(entry: str) -> tuple:
     if entry in {e for e, *_ in BOOT15_K5}:
         return ()          # timed at the bootstrap's shape classes (the boot15 cases)
     return (0,) if entry.startswith(("limbs_", "modmath_")) or entry == "crt_lift" else ()
+
+
+# the lift at the logn=16 ring: (primes, k_out) whose digit sums [2^16, 2K]
+# lift to K limbs: the exact lift at K = 46, 88 (the n14 and n15 key
+# switches' widths) and 57 (30 primes: the n16 key switch's exact rows), and
+# the fast lift of the n16 key switch's 90 primes to a ciphertext's 55 limbs
+LIFT16 = ((24, None), (47, None), (30, None), (90, 55))
+
+
+def ring16_cases(device, seed: int = 16) -> dict:
+    """{entry: [case, ...]} as elementwise_cases gives them, at the logn=16
+    shapes of gpubench's ckks-n16-q1751 (a ciphertext of 55 limbs, the
+    product's basis 60 primes, the key switch's 90) on the 59-bit chain:
+    decompose of [2^16, 55] limbs into 60 primes and, signed, into 90; the
+    digit split of [3, 60, 2^16] and, scaled, [90, 2^16]; the lift at
+    LIFT16; the fill of a sparse ecd's 8 rows of 55 limbs (slots 4, gap
+    2^13).  (The NTT's shapes are NTT16, against its twin.)"""
+    import numpy as np
+    import torch
+    from gpqhe_tpu_torch.context import PolyContext
+    from gpqhe_tpu_torch.ops import limbs as lb
+    from gpqhe_tpu_torch.ops import rns
+    from gpqhe_tpu_torch.ring.poly import RingEngine
+
+    rng = np.random.default_rng(seed)
+    n, kq = 1 << 16, 55
+    ring = RingEngine(PolyContext(16, q=1 << 20, dim_cap=max(d for d, _ in LIFT16)),
+                      device=device)
+    cases = {}
+
+    def res(dim, lead=()):
+        return ew_residues(rng, ring.pctx.primes[:dim], lead + (dim, n), device)
+
+    def add(entry, shape, kern, plain, inputs, out_words, imad, **kw):
+        cases.setdefault(entry, []).append(dict(
+            shape=list(shape), kern=kern, plain=plain, imad=imad,
+            bytes=nbytes(*inputs) + 8 * out_words, **kw))
+
+    a = ew_limbs(rng, (n, kq), device)
+    for dim, src in ((60, None), (90, 32 * kq)):
+        ba, wts = ring.ba(dim), ring.weights(dim, kq)
+        plain = ((lambda ba=ba, wts=wts: rns.plain_decompose_core(a, ba.ps, ba.pinv, wts))
+                 if src is None else
+                 (lambda ba=ba, wts=wts, src=src:
+                  rns.plain_decompose_signed(a, ba.ps, ba.pinv, wts, src)))
+        add("decompose", [n, kq, dim],
+            lambda ba=ba, wts=wts, src=src: rns.decompose(a, ba, wts, src_bits=src), plain,
+            [a, wts], n * dim, decompose_imad(n * dim, kq, max(ring.pctx.primes[:dim])))
+    for dim, lead, scaled in ((60, (3,), False), (90, (), True)):
+        ba, plan = ring.ba(dim), rns.make_recon_plan(ring.pctx, dim, device)
+        y = res(dim, lead)
+        scale = (ba.phatinv_mont, ba.ps, ba.pinv) if scaled else None
+        add("crt_digit_split", y.shape,
+            lambda y=y, plan=plan, scale=scale: rns.digit_split(y, plan.nd, plan.inv_p, scale),
+            lambda y=y, plan=plan, scale=scale: rns.plain_digit_split(y, plan.nd, plan.inv_p,
+                                                                      scale),
+            [y], y.numel() // dim * (plan.nd * dim + 1), IMAD_MONT * y.numel() if scaled else 0)
+    for dim, k_out in LIFT16:
+        ba, plan = ring.ba(dim), rns.make_recon_plan(ring.pctx, dim, device)
+        kd = min(2 * k_out, plan.ds) if k_out else plan.ds
+        sd, af = rns.plain_digit_partials(res(dim), plan, kd, (ba.phatinv_mont, ba.ps, ba.pinv))
+        k = k_out or plan.ks
+        add("crt_lift", [n, kd, k],
+            lambda sd=sd, af=af, plan=plan, k=k_out: rns._lift(sd, af, plan, True, k),
+            lambda sd=sd, af=af, plan=plan, k=k_out: rns.plain_lift(sd, af, plan, True, k),
+            [sd, af], n * k, 0)
+    gap = (n // 2) // 4
+    rows = rng.integers(0, 1 << 32, size=(n // gap, kq), dtype=np.uint64).astype(np.uint32)
+    add("limbs_fill_rows", [n, kq, gap], lambda: lb.fill_rows(rows, n, gap, device),
+        lambda: lb.plain_fill_rows(rows, n, gap, device), [], n * kq, 0)
+    return cases
+
+
+def phase_kernels16(iters: int) -> dict:
+    """The logn=16 ring of gpubench's ckks-n16-q1751 on the card: the NTT at
+    NTT16 against its twin (lines of kernel `ntt16`), then every
+    ring16_cases entry against its plain version on `kernels16` lines, each
+    timed (device ms in two turns, host µs, the plain version's ms) with
+    its bound.  Raises on any difference."""
+    import torch
+    result = phase_kernels(iters, {"ntt16": NTT16}, tag="kernels16")
+    for entry, cases in ring16_cases(torch.device("cuda")).items():
+        for case in cases:
+            got, want = case["kern"](), case["plain"]()
+            torch.cuda.synchronize()
+            eq, err, extra = ew_compare(got, want)
+            out = {"phase": "kernels16", "kernel": entry, "shape": case["shape"], "equal": eq,
+                   "max_abs_err": err, **extra}
+            if eq:
+                runs = [device_ms_runs(case["kern"], iters) for _ in range(2)]
+                out.update({"ms": median(runs[0] + runs[1]), "turn_ms": [median(r) for r in runs],
+                            "host_us": host_us(case["kern"]),
+                            "plain_ms": cuda_ms(case["plain"], max(3, iters // 4)),
+                            **ew_bound(case)})
+                result[f"{entry} {case['shape']}"] = {k: out[k] for k in (
+                    "max_abs_err", "ms", "host_us", "plain_ms", "bound_ms", "bound_by")}
+            emit(out)
+            if not eq:
+                raise AssertionError(f"CUDA {entry} {case['shape']} at logn=16 differs from "
+                                     f"its plain version")
+    emit({"phase": "kernels16", "summary": "device ms per launch at the logn=16 shapes",
+          "ms": {k: v["ms"] for k, v in result.items()},
+          "bound_share": {k: v["bound_ms"] / v["ms"] for k, v in result.items()}})
+    return result
 
 
 def phase_elementwise(iters: int, rings=((14, 59), (14, 29), (15, 59)), tag: str = "kernels",
@@ -3866,8 +3981,8 @@ def phase_ntt4(iters: int) -> dict:
     return {"kernels": result, "launches": launches, "elementwise": ew_total}
 
 
-PHASES = ("build", "kernels", "golden", "mul_rs", "linalg59", "linalg29", "ntt4", "suite",
-          "mesh", "mesh_mp", "nonlinear", "cmp", "bootstrap", "serialize", "graphs",
+PHASES = ("build", "kernels", "kernels16", "golden", "mul_rs", "linalg59", "linalg29", "ntt4",
+          "suite", "mesh", "mesh_mp", "nonlinear", "cmp", "bootstrap", "serialize", "graphs",
           "mesh_compose", "cli")
 
 
@@ -3914,6 +4029,9 @@ def main(argv=None) -> int:
         kernels = phase_kernels(args.iters)
         kernels.update(phase_elementwise(args.iters))
         clock("kernels")
+    if "kernels16" in phases:
+        kernels.update(phase_kernels16(args.iters))
+        clock("kernels16")
     if "golden" in phases:
         phase_golden()
     if "mul_rs" in phases:

@@ -14,7 +14,9 @@ Dispatch: decompose_core / decompose, digit_split and _lift run their plain
 torch versions (plain_*) on a CPU tensor and the CUDA kernels of
 ops/rns_cuda.py on a CUDA tensor (the digit matmul between the last two,
 _digit_partials, is torch.matmul on both); the plain versions call only
-plain versions.
+plain versions.  LIFT counts the lifts _lift makes on any device, by their
+operands: calls, rows, digit_words (rows x the digit sums a row reads) and
+limb_words (rows x the limbs a row writes).
 """
 
 from __future__ import annotations
@@ -25,9 +27,12 @@ import numpy as np
 import torch
 
 from ..substrate import bigint
+from . import cuda_build
 from . import limbs as lb
 from . import rns_cuda
 from .modmath import plain_mont_mul, u64_to_torch
+
+LIFT = cuda_build.counters({"calls": 0, "rows": 0, "digit_words": 0, "limb_words": 0})
 
 
 @dataclass(frozen=True)
@@ -277,6 +282,12 @@ def plain_lift(s_digits, af, plan: ReconPlan, center: bool, k_out: int | None):
 
 
 def _lift(s_digits, af, plan: ReconPlan, center: bool, k_out: int | None):
+    kout = plan.ks if k_out is None else k_out
+    rows = af.numel()
+    LIFT["calls"] += 1
+    LIFT["rows"] += rows
+    LIFT["digit_words"] += rows * min(s_digits.shape[-1], 2 * kout)
+    LIFT["limb_words"] += rows * kout
     if s_digits.device.type == "cpu":
         return plain_lift(s_digits, af, plan, center, k_out)
     return rns_cuda.lift(s_digits, af, plan, center, k_out)

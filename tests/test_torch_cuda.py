@@ -21,9 +21,10 @@ import pytest
 import torch
 
 from chip_smoke import (GRAPH_ENGINES, GRAPH_INPUTS, GRAPH_OPS, HOISTED,  # the repository
-                        bootstrap_cases, c2s_packing_case, crt_chain_case,   # root is on
-                        crt_chain_ring, equal_cts, gemv_packing_case,        # sys.path
-                        graph_case, graph_check, oracle_module)
+                        LIFT16, NTT16, bootstrap_cases, c2s_packing_case,    # root is on
+                        crt_chain_case, crt_chain_ring, equal_cts,           # sys.path
+                        gemv_packing_case, graph_case, graph_check, kernel_ring,
+                        oracle_module)
 from gpqhe_tpu_torch import CKKS, HeContext, Surf         # (python -m pytest)
 from gpqhe_tpu_torch import bootstrap as bs
 from gpqhe_tpu_torch.algo import linalg, nonlinear
@@ -250,6 +251,56 @@ def test_cuda_kernel_at_the_bootstrap_rings_shapes(cuda_device, case):
     torch.cuda.synchronize()
     assert ntt_cuda.LAUNCHES[mode] == before[mode] + 1
     assert torch.equal(got, _twin(a, ring.ba(dim), mode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,shape", NTT16, ids=[f"{m} {list(s)}" for m, s in NTT16])
+def test_cuda_kernel_at_the_n16_rings_shapes(cuda_device, mode, shape):
+    """logn=16 on the 58-level chain (gpubench's ckks-n16-q1751): the u64
+    kernel's (8, 8) passes at the product's basis [4, 60, 2^16] and the key
+    switch's [2, 90, 2^16], forward, inverse and inverse x n^-1 phat^-1, one
+    launch each, torch.equal to the twin."""
+    dim = shape[-2]
+    ring = kernel_ring("ntt", 16, dim)
+    ps = np.array(ring.pctx.primes[:dim], dtype=np.uint64)[:, None]
+    host = np.random.default_rng(dim).integers(0, 1 << 62, shape, dtype=np.uint64) % ps
+    host[..., :2] = ps - np.uint64(1)
+    a = u64_to_torch(host, cuda_device)
+    before = dict(ntt_cuda.LAUNCHES)
+    got = (ring.ntt_f(a, dim) if mode == "fwd"
+           else ring.ntt_i(a, dim, scale_phatinv=mode == "inv_scaled"))
+    torch.cuda.synchronize()
+    assert ntt_cuda.LAUNCHES[mode] == before[mode] + 1
+    assert torch.equal(got, _twin(a, ring.ba(dim), mode))
+
+
+_RING16 = {}
+RING16_CASES = ([("decompose", i) for i in range(2)] + [("crt_digit_split", i) for i in range(2)]
+                + [("crt_lift", i) for i in range(len(LIFT16))] + [("limbs_fill_rows", 0)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,i", RING16_CASES, ids=[f"{e} {i}" for e, i in RING16_CASES])
+def test_cuda_elementwise_kernels_at_the_n16_rings_shapes(cuda_device, entry, i):
+    """chip_smoke.py's ring16_cases, which its kernels16 phase times: decompose
+    of [2^16, 55] limbs into 60 primes and, signed, into the key switch's
+    90; the digit split of [3, 60, 2^16] and, scaled, [90, 2^16]; the lift
+    at [2^16, 2K -> K] for K = 46, 88, 57 (exact) and from 90 primes to 55
+    limbs (fast); ecd's fill of 8 rows of 55 limbs: each torch.equal to its
+    plain version (the digit split's f64 estimate within a relative 2^-45)
+    in one launch of its kernel."""
+    from chip_smoke import ew_compare, ew_counters, ring16_cases
+    if "cases" not in _RING16:
+        _RING16["cases"] = ring16_cases(cuda_device)
+    case = _RING16["cases"][entry][i]
+    if entry == "crt_lift":
+        assert case["shape"][2] == (LIFT16[i][1] or case["shape"][1] // 2)
+    before = ew_counters()
+    got = case["kern"]()
+    after = ew_counters()
+    eq, err, extra = ew_compare(got, case["plain"]())
+    assert eq, (entry, case["shape"], err, extra)
+    assert after[entry] == before[entry] + 1
 
 
 def _run_deep(device, logp):
@@ -673,12 +724,13 @@ def test_cuda_elementwise_kernels_read_broadcast_operands(cuda_device, xs, ys):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,k,stride", [(1 << 15, 28, 1 << 14), (1 << 15, 28, 1 << 12),
                                         (1 << 14, 14, 1 << 13), (1 << 14, 14, 1 << 9),
-                                        (1 << 10, 5, 1 << 6)])
+                                        (1 << 10, 5, 1 << 6), (1 << 16, 55, 1 << 13)])
 def test_cuda_fill_rows_equals_plain_in_one_launch(cuda_device, n, k, stride):
     """csrc/limbs.cu's fill torch.equal to plain_fill_rows at the bootstrap
     ring's [2^15, 28] and the linear ring's [2^14, 14], with const_pt's
-    stride n/2 and ecd's gap (slots 4 and 16), and at an odd K (a word a
-    thread), in one launch."""
+    stride n/2 and ecd's gap (slots 4 and 16), at an odd K (a word a
+    thread), and at logn=16's [2^16, 55] with ecd's 8 rows (440 of the
+    launch's 512 words), in one launch."""
     from gpqhe_tpu_torch.ops import limbs, limbs_cuda
     rows = np.random.default_rng(n + stride).integers(
         0, 1 << 32, size=(n // stride, k), dtype=np.uint64).astype(np.uint32)

@@ -6,10 +6,11 @@ without a batch axis, all-0xFFFFFFFF rows).  Reconstruct takes the residues
 of random integers of known size: the exact full-width path with center
 True and False, the truncated k_out fast path under its magnitude margin,
 and pre_scaled inputs (residues already multiplied by phat^-1, as the
-scaled inverse NTT emits them).  The results are exact integers, so they
-must agree bit for bit although the port sums S with 16-bit digits in f64
-and the JAX package with 8-bit bf16 planes, and the f64 alpha estimate is
-summed in another order.
+scaled inverse NTT emits them), on bases of 3 and 8 primes and of 69 and 90
+(129 and 167 limbs: the key switch's exact rows on a 58-level chain).  The
+results are exact integers, so they must agree bit for bit although the
+port sums S with 16-bit digits in f64 and the JAX package with 8-bit bf16
+planes, and the f64 alpha estimate is summed in another order.
 """
 
 import functools
@@ -31,7 +32,7 @@ from gpqhe_tpu_torch.ops.modmath import torch_to_u64, u64_to_torch
 
 torch.set_num_threads(1)
 
-LOGN, DIMCAP = 11, 8
+LOGN, DIMCAP = 11, 90
 N = 1 << LOGN
 
 
@@ -94,7 +95,7 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("dim", [3, 8])
+@pytest.mark.parametrize("dim", [3, 8, 69, 90])
 @pytest.mark.parametrize("case", list(CASES))
 def test_reconstruct(ctxs, dim, case):
     jp, tp = ctxs
