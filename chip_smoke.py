@@ -12,13 +12,13 @@ non-zero:
              the card's name and power limit from nvidia-smi; per kernel
              instantiation ptxas's registers, spills, stack and shared
              memory where this run built the source; for every K7, lift,
-             decompose, digit-split, K5 (modmath.cu) and K8 (ntt4.cu)
+             decompose, digit-product, K5 (modmath.cu) and K8 (ntt4.cu)
              instantiation in the libraries as loaded (`row_kernels`),
              cuobjdump's registers, stack, shared and local memory, and a
              raise on any stack frame or local memory; static
              multiply-instruction and tensor-core-product (IMMA, HGMMA)
-             counts from cuobjdump, and a raise where a K8 instantiation
-             has no tensor-core product.
+             counts from cuobjdump, and a raise where a K8 or a digit-
+             product (rns.cu) instantiation has no tensor-core product.
   kernels  — each CUDA NTT (u64 words on the 59-bit chain, u32 words on the
              logp=29 chain) against the plain torch twin on the card:
              torch.equal on random residues at the paths' shapes; the
@@ -27,19 +27,19 @@ non-zero:
              enqueueing ahead of the device, inputs L2-warm; the wrapper's
              host time per call; the twin's median; the bound.  Then every
              entry of the elementwise kernels (K5 modmath, K4 decompose, K6
-             the CRT lift, K7 limbs) torch.equal to its plain torch version
+             the CRT reconstruct, K7 limbs) torch.equal to its plain torch version
              on edge words at the shapes the paths give it (logn=14 on both
              chains, logn=15; batch 8; the reconstruct end to end at its
              bounds), the first shape of each timed as the NTT is, and for
              select and mask_bits one PyTorch call of the same function
              timed the same way and the ratio (`ms_over_library`); K7 and
              the lift timed at logn=15 too, on `kernels15` lines, and
-             decompose, the digit split and every K5 entry at the
+             decompose, the digit product and every K5 entry at the
              bootstrap's shapes there (retimed15; K5 at the shape classes
              the bootstrap launches most, BOOT15_K5); the rows wider than a
              warp timed at both (`wide`: the exact lift at the key switch's
              basis, geq_const at 62 and 125 limbs); then K7, the lift,
-             decompose, the digit split and K5's elementwise entries at the
+             decompose, the digit product and K5's elementwise entries at the
              edges of their designs (elementwise_edge_cases: 1-3071 limbs,
              whole chunks of 32 limbs and one more, partial blocks, tiles of
              primes, every src_bits edge, rows not a multiple of a thread's
@@ -49,8 +49,8 @@ non-zero:
   kernels16 — the logn=16 ring of gpubench's ckks-n16-q1751 (58 levels):
              the u64 NTT forward, inverse and scaled inverse at [4, 60, 2^16]
              and [2, 90, 2^16] against its twin (NTT16), then decompose into
-             60 and 90 primes, the digit split, the lift at the widths a
-             key switch there takes (LIFT16) and ecd's fill (ring16_cases),
+             60 and 90 primes, the digit product (DIGITS16), the lift at
+             the widths a key switch there takes (LIFT16) and ecd's fill (ring16_cases),
              each torch.equal to its plain version and timed as in kernels.
   golden   — the logn=11 replay of tests/golden/golden_logn11.json (enc,
              add, mul+rs, conj, rot1, moddown) within tests/test_golden.py's
@@ -62,8 +62,9 @@ non-zero:
              and bootstrap); keygen seconds and the mul_rs median; with it a
              `profile` line: one mul_rs under torch.profiler, its device
              kernels, busy ms and idle share, split by module (ntt, modmath,
-             rns by entry: decompose, digit_split, lift; limbs, matmul (the
-             digit matmuls), other torch) and modmath by entry.
+             rns by entry: decompose, digit_split (the digit product),
+             lift; limbs, matmul (torch's products: mul_const_mod2k's
+             Toeplitz product), other torch) and modmath by entry.
   linalg59, linalg29 — the key-switch and hoisted-gemv path at the same size
              on each chain, the engine built with no device argument:
              keypair, genrlk, genck, genrk (16 keys), enc_pk, mul_rs, rot,
@@ -458,15 +459,22 @@ def phase_build():
     mma = sass["ntt4.cu"] and {k: v["tensor_core"] for k, v in sass["ntt4.cu"].items()}
     if mma is not None and (len(mma) != ROW_KERNELS["ntt4.cu"] or not all(mma.values())):
         raise AssertionError(f"K8 instantiations without tensor-core products in SASS: {mma}")
+    mma = sass["rns.cu"] and {k: v["tensor_core"] for k, v in sass["rns.cu"].items()
+                              if "rns_digit_split_kernel_mma" in k}
+    if mma is not None and (len(mma) != DIGIT_PRODUCTS or not all(mma.values())):
+        raise AssertionError(f"digit-product instantiations without tensor-core products in "
+                             f"SASS: {mma}")
 
 
 # instantiations of the gated kernels by source: K7's eight chains on rows of
 # one chunk and of more, its word kernel by word and by pair for mask_bits
 # and select, and the fill by word and by pair; the lift on f64 and int64
-# digit sums at 1, 2 and 4 chunks, decompose and the digit split; K5's elementwise kernel by op, the
-# cross terms, the key products and the sum by mode; K8's stage by byte
-# planes (2, 4, 8) and transpose
-ROW_KERNELS = {"limbs.cu": 22, "rns.cu": 8, "modmath.cu": 9, "ntt4.cu": 6}
+# digit sums at 1, 2 and 4 chunks, decompose and the digit product by the
+# bytes of a residue (8, 4: DIGIT_PRODUCTS, each with IMMA in its SASS);
+# K5's elementwise kernel by op, the cross terms, the key products and the
+# sum by mode; K8's stage by byte planes (2, 4, 8) and transpose
+DIGIT_PRODUCTS = 2
+ROW_KERNELS = {"limbs.cu": 22, "rns.cu": 7 + DIGIT_PRODUCTS, "modmath.cu": 9, "ntt4.cu": 6}
 
 
 def resource_usage(library: str) -> dict:
@@ -741,6 +749,22 @@ BOOT15_K5 = (("modmath_cross_terms", 26, (4,), 0), ("modmath_key_products", 47, 
              ("modmath_mulmod", 16, (), 0))
 
 
+def digit_product_case(y, plan, kd: int, scale) -> tuple:
+    """(kern, plain, inputs, out_words, imad, kw) of the digit product of a
+    reconstruct as elementwise_cases' add takes them, kw its u8 tensor-core
+    operations (int8_ops: 2 rows (nb dim) (2 kd), nb =
+    rns_cuda.residue_bytes) and kd: rns._digit_partials (the kernel on a
+    card) against rns.plain_digit_partials (16-bit split, f64 matmul)."""
+    from gpqhe_tpu_torch.ops import rns, rns_cuda
+    dim = y.shape[-2]
+    rows = y.numel() // dim
+    nb = rns_cuda.residue_bytes(plan.nd)
+    return ((lambda: rns._digit_partials(y, plan, kd, scale)),
+            (lambda: rns.plain_digit_partials(y, plan, kd, scale)),
+            [y], rows * (kd + 1), IMAD_MONT * y.numel() if scale else 0,
+            {"int8_ops": 2 * rows * nb * dim * 2 * kd, "kd": kd})
+
+
 def decompose_imad(out_words: int, k: int, pmax: int) -> int:
     """32-bit multiplies of rns.cu's decompose: per output word, for each
     limb the low and high 32-bit products of the limb and each 32-bit half
@@ -978,19 +1002,16 @@ def elementwise_cases(logn: int, logp: int, device, seed: int = 8) -> dict:
             [a, wts], out_words, decompose_imad(out_words, klv, max(ring.pctx.primes[:dim])),
             imad_mont=IMAD_MONT * out_words * ((klv + 1) // 2), signed_bits=src, dim=dim)
 
-    # K6 the CRT lift: digit_split and lift on their own inputs, and the
-    # whole reconstruct (split, matmul, lift) on values that meet its bounds
-    for dim, lead, scaled in ((dim_m, (), False), (dim_m, (3,), False), (dim_s, (), True)):
+    # K6 the CRT reconstruct: the digit product and lift on their own inputs,
+    # and the whole reconstruct on values that meet its bounds; the product
+    # at the key switch's (fast, the ciphertext's limbs) and its exact widths
+    for dim, lead, scaled, kd in ((dim_m, (), False, 2 * klv), (dim_m, (3,), False, 2 * klv),
+                                  (dim_s, (), True, None)):
         ba, plan = ring.ba(dim), ring.recon(dim)
         y = res(dim, lead)
         scale = (ba.phatinv_mont, ba.ps, ba.pinv) if scaled else None
-        ncoef = y.numel() // dim
-        add("crt_digit_split", y.shape,
-            lambda y=y, plan=plan, scale=scale: rns.digit_split(y, plan.nd, plan.inv_p, scale),
-            lambda y=y, plan=plan, scale=scale: rns.plain_digit_split(y, plan.nd, plan.inv_p,
-                                                                      scale),
-            [y], ncoef * (plan.nd * dim + 1), IMAD_MONT * y.numel() if scaled else 0,
-            af_check=True)
+        *args, kw = digit_product_case(y, plan, kd or plan.ds, scale)
+        add("crt_digit_split", y.shape, *args, **kw)
     # (dim, k_out, center, bound, inv_p off by a factor 1 + 2^-22: the exact
     # path's +-1 corrections must absorb it)
     cases_lift = ((dim_m, klv, True, ctx.bits_mul(L), False),
@@ -1235,35 +1256,41 @@ DECOMPOSE_EDGES = (
     (29, 16, 1, 1, "plain"), (29, 20, 125, 32 * 125, "broadcast"), (9, 6, 3, None, "plain"),
     (9, 6, 14, 32 * 14, "lead"), (9, 5, 1, 1, "plain"), (9, 6, 125, 32 * 125 - 5, "plain"),
     (9, 6, 300, None, "row_strided"))
-# the digit split at the edges of its design: (logp, dim, n, lead, scaled,
-# layout): n a multiple of the block's 64 coefficients, even but not (the
-# 16-byte pairs, a partial block) and odd (word stores), dims around its 8
-# warps of primes (1-47), nd = 4, 2 and 1 digits (the three chains); S = 0,
-# residues broadcast over two slabs, a prime slice of a wider stack, every
-# other coefficient (word loads), a view one word off 16-byte alignment, a
-# strided inv_p, and a mesh shard's plan whose rows past the basis have
-# inv_p = 0 (make_recon_plan(rows=...))
-SPLIT_EDGES = (
-    (59, 16, 1024, (), False, "plain"), (59, 16, 518, (), True, "plain"),
-    (59, 17, 519, (), True, "plain"), (59, 47, 1024, (3,), True, "plain"),
-    (59, 1, 519, (), False, "plain"), (59, 9, 64, (2,), True, "plain"),
-    (59, 16, 518, (), False, "S0"), (59, 24, 518, (), True, "broadcast"),
-    (59, 16, 1024, (), True, "prime_slice"), (59, 17, 518, (), False, "coef_strided"),
-    (59, 16, 518, (2,), True, "unaligned"), (59, 8, 1024, (), False, "inv_p_strided"),
-    (59, 8, 518, (), False, "shard"), (29, 31, 518, (), True, "plain"),
-    (29, 47, 519, (2,), False, "plain"), (29, 16, 1024, (), True, "unaligned"),
-    (9, 6, 16, (), True, "plain"), (9, 5, 519, (), False, "plain"),
-    (9, 6, 518, (3,), True, "broadcast"))
+# the digit product at the edges of its design: (logp, dim, n, lead, scaled,
+# layout, k_out (None: the exact width, the plan's ds digit sums)): byte
+# columns 2 kd within one warp's 64 (a block of 256 rows), two warps' (128
+# rows), four (64 rows) and past 256 (a second block of columns: the key
+# switch's 47 primes exact, the lift's widest row, 128 limbs at 68 primes);
+# n a multiple of the block's rows and not (odd, below one block); depth
+# NB dim one chunk of 128 bytes, past it (17 primes: 136 bytes) and five
+# chunks; residues of 8 bytes (59-bit chain) and 4 (logp=29, and the logp=9
+# chain's 10-bit primes); S = 0, residues broadcast over two slabs, a prime
+# slice of a wider stack, every other coefficient, a view one word off
+# 16-byte alignment, a strided inv_p, and a mesh shard's plan whose rows
+# past the basis are zero (make_recon_plan(rows=...))
+DIGIT_EDGES = (
+    (59, 16, 1024, (), False, "plain", 14), (59, 16, 518, (), True, "plain", None),
+    (59, 17, 519, (), True, "plain", None), (59, 47, 1024, (3,), True, "plain", None),
+    (59, 1, 519, (), False, "plain", None), (59, 9, 64, (2,), True, "plain", 5),
+    (59, 16, 518, (), False, "S0", 14), (59, 24, 518, (), True, "broadcast", None),
+    (59, 16, 1024, (), True, "prime_slice", 16), (59, 17, 518, (), False, "coef_strided", 14),
+    (59, 16, 518, (2,), True, "unaligned", None), (59, 8, 1024, (), False, "inv_p_strided", None),
+    (59, 8, 518, (), False, "shard", None), (59, 68, 300, (), True, "plain", None),
+    (29, 31, 518, (), True, "plain", None), (29, 47, 519, (2,), False, "plain", 20),
+    (29, 16, 1024, (), True, "unaligned", None), (9, 6, 16, (), True, "plain", None),
+    (9, 5, 519, (), False, "plain", None), (9, 6, 518, (3,), True, "broadcast", None))
 
 
 def rns_edge_cases(device, rings: dict, seed: int = 10) -> list:
-    """decompose and the digit split at the edges of their designs
-    (DECOMPOSE_EDGES, SPLIT_EDGES), each a dict with entry, shape, op and
+    """decompose and the digit product at the edges of their designs
+    (DECOMPOSE_EDGES, DIGIT_EDGES), each a dict with entry, shape, op and
     args (ops/rns_cuda.py's entry and its arguments), kern (the dispatcher)
     and plain (the plain version on the same tensors).  decompose's rows:
     EDGE_ROWS (a partial block of 64), the first all 0xFFFFFFFF, all 0 and
     0xFFFFFFFF below a zero top limb, then the sign bit alone, all bits
     below it, and p - 1, p, p + 1 of the first prime (where K holds them)."""
+    import dataclasses
+
     import numpy as np
     import torch
     from gpqhe_tpu_torch.context import PolyContext
@@ -1311,7 +1338,7 @@ def rns_edge_cases(device, rings: dict, seed: int = 10) -> list:
         case("decompose", [logp, dim, src, layout] + list(a.shape), "decompose", args,
              lambda args=args: rns.decompose_core(*args), plain)
 
-    for logp, dim, n, lead, scaled, layout in SPLIT_EDGES:
+    for logp, dim, n, lead, scaled, layout, k_out in DIGIT_EDGES:
         ring = rings[logp]
         rows_ = dim + 3 if layout == "prime_slice" else dim
         plan = rns.make_recon_plan(ring, dim, device)
@@ -1328,19 +1355,19 @@ def rns_edge_cases(device, rings: dict, seed: int = 10) -> list:
             y = y[None].expand((2,) + y.shape)
         elif layout == "S0":
             y = y[None][:0]
-        inv_p = plan.inv_p
-        if layout == "inv_p_strided":
-            inv_p = torch.stack([inv_p, inv_p + 1], dim=-1)[:, 0]
+        elif layout == "inv_p_strided":
+            plan = dataclasses.replace(
+                plan, inv_p=torch.stack([plan.inv_p, plan.inv_p + 1], dim=-1)[:, 0])
         elif layout == "shard":
             # rows 4 .. dim + 3 of the basis: the last 4 past it
             plan = rns.make_recon_plan(ring, dim, device, rows=(4, dim + 4))
-            inv_p = plan.inv_p
             y = ew_residues(rng, ring.primes[4:dim + 4], (dim, n), device)
         scale = (ba.phatinv_mont[:dim], ba.ps[:dim], ba.pinv[:dim]) if scaled else None
-        args = (y, plan.nd, inv_p, scale)
-        case("crt_digit_split", [logp, plan.nd, scaled, layout] + list(y.shape), "digit_split",
-             args, lambda args=args: rns.digit_split(*args),
-             lambda args=args: rns.plain_digit_split(*args))
+        kd = min(2 * k_out, plan.ds) if k_out else plan.ds
+        args = (y, plan, kd, scale)
+        case("crt_digit_split", [logp, plan.nd, scaled, layout, kd] + list(y.shape),
+             "digit_sums", args, lambda args=args: rns._digit_partials(*args),
+             lambda args=args: rns.plain_digit_partials(*args))
     return cases
 
 
@@ -1437,13 +1464,20 @@ def ew_cpu(consts):
 
 def ew_compare(got, want) -> tuple[bool, float, dict]:
     """(equal, max_abs_err, extra) of a kernel's output against the plain
-    version's: torch.equal on every tensor; for digit_split the f64 af
-    estimate (summed in another order) is held to a relative 2^-45
-    instead (its use tolerates far more: ops/rns.py reconstruct_core)."""
+    version's: torch.equal on every tensor; for the digit product the int64
+    digit sums against the plain version's f64 ones as the values they
+    stand for, mod 2^(16 kd) (the columns differ: digit_sums sums byte
+    columns, rns_cuda.digit_sums), and the f64 af estimate (summed in
+    another order) held to a relative 2^-45 instead (its use tolerates far
+    more: ops/rns.py reconstruct_core)."""
     import torch
     if isinstance(got, tuple):
         Y, af = got
         pY, paf = want
+        if Y.dtype != pY.dtype:
+            from gpqhe_tpu_torch.ops import limbs as lb
+            kd = Y.shape[-1]
+            Y, pY = (lb.plain_from_digits16(v.to(torch.int64), kd // 2) for v in (Y, pY))
         if not af.numel():             # no coefficients (S = 0)
             return bool(torch.equal(Y, pY) and torch.equal(af, paf)), 0.0, {"af_max_rel": 0.0}
         rel = float(((af - paf).abs() / paf.abs().clamp_min(1e-300)).max().item())
@@ -1457,8 +1491,11 @@ def ew_compare(got, want) -> tuple[bool, float, dict]:
 
 
 def ew_bound(case) -> dict:
+    """The least time of a case: its bytes over the memory rate, its 32-bit
+    multiplies over the integer rate, or (int8_ops) its u8 tensor-core
+    operations over the int8 rate, whichever is largest."""
     t_bytes = case["bytes"] / PEAK_BYTES_S * 1e3
-    t_ops = case["imad"] / PEAK_IMAD_S * 1e3
+    t_ops = max(case["imad"] / PEAK_IMAD_S, case.get("int8_ops", 0) / PEAK_INT8_S) * 1e3
     out = {"bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bytes_ms": t_bytes, "operations_ms": t_ops}
@@ -1477,7 +1514,7 @@ def retimed15(entry: str) -> tuple:
     at logn=15 too (`kernels15` lines): K7 and the lift, whose rows are 28
     limbs wide there, at their main shape; decompose into the product's
     and the key switch's bases ([2^15, 28] -> 31 and 47 primes); the digit
-    split of the product's three polys and of the key switch's exact
+    product of the product's three polys and of the key switch's exact
     reconstruct ([3, 31, 2^15], scaled [47, 2^15]); every K5 entry at its
     main shape, but those the bootstrap launches, which are timed at its
     shape classes instead (BOOT15_K5)."""
@@ -1495,6 +1532,11 @@ def retimed15(entry: str) -> tuple:
 # switches' widths) and 57 (30 primes: the n16 key switch's exact rows), and
 # the fast lift of the n16 key switch's 90 primes to a ciphertext's 55 limbs
 LIFT16 = ((24, None), (47, None), (30, None), (90, 55))
+# the digit product there: (primes, rows of the stack, leading axes, scaled,
+# k_out (None: exact)): mul_rs's product of three polys to 55 limbs, the key
+# switch's c (both halves) to 55 and its exact sub-basis r over the first 30
+# of the 90 rows, scaled
+DIGITS16 = ((60, 60, (3,), False, 55), (90, 90, (2,), False, 55), (30, 90, (2,), True, None))
 
 
 def ring16_cases(device, seed: int = 16) -> dict:
@@ -1502,8 +1544,7 @@ def ring16_cases(device, seed: int = 16) -> dict:
     shapes of gpubench's ckks-n16-q1751 (a ciphertext of 55 limbs, the
     product's basis 60 primes, the key switch's 90) on the 59-bit chain:
     decompose of [2^16, 55] limbs into 60 primes and, signed, into 90; the
-    digit split of [3, 60, 2^16] and, scaled, [90, 2^16]; the lift at
-    LIFT16; the fill of a sparse ecd's 8 rows of 55 limbs (slots 4, gap
+    digit product at DIGITS16; the lift at LIFT16; the fill of a sparse ecd's 8 rows of 55 limbs (slots 4, gap
     2^13).  (The NTT's shapes are NTT16, against its twin.)"""
     import numpy as np
     import torch
@@ -1536,15 +1577,12 @@ def ring16_cases(device, seed: int = 16) -> dict:
         add("decompose", [n, kq, dim],
             lambda ba=ba, wts=wts, src=src: rns.decompose(a, ba, wts, src_bits=src), plain,
             [a, wts], n * dim, decompose_imad(n * dim, kq, max(ring.pctx.primes[:dim])))
-    for dim, lead, scaled in ((60, (3,), False), (90, (), True)):
+    for dim, rows, lead, scaled, k_out in DIGITS16:
         ba, plan = ring.ba(dim), rns.make_recon_plan(ring.pctx, dim, device)
-        y = res(dim, lead)
+        y = res(rows, lead)[..., :dim, :]
         scale = (ba.phatinv_mont, ba.ps, ba.pinv) if scaled else None
-        add("crt_digit_split", y.shape,
-            lambda y=y, plan=plan, scale=scale: rns.digit_split(y, plan.nd, plan.inv_p, scale),
-            lambda y=y, plan=plan, scale=scale: rns.plain_digit_split(y, plan.nd, plan.inv_p,
-                                                                      scale),
-            [y], y.numel() // dim * (plan.nd * dim + 1), IMAD_MONT * y.numel() if scaled else 0)
+        *args, kw = digit_product_case(y, plan, 2 * k_out if k_out else plan.ds, scale)
+        add("crt_digit_split", y.shape, *args, **kw)
     for dim, k_out in LIFT16:
         ba, plan = ring.ba(dim), rns.make_recon_plan(ring.pctx, dim, device)
         kd = min(2 * k_out, plan.ds) if k_out else plan.ds
@@ -1794,9 +1832,10 @@ def profile_op(op: str, fn, host_ops: bool = True, warm: bool = True, **tags):
 def kernel_module(name: str) -> str:
     """The module whose kernel a device kernel's name is: ntt (csrc/ntt.cu,
     ntt32.cu), ntt4 (the four-step stage, csrc/ntt4.cu), modmath, "rns
-    <entry>" (decompose, digit_split or lift) or limbs (the elementwise
-    kernels, named by their prefix), "matmul" (torch's matrix products: the
-    f64 digit matmuls of the reconstructs), "copies" (the device's copies
+    <entry>" (decompose, digit_split (the digit product,
+    rns_digit_split_kernel_mma) or lift) or limbs (the elementwise kernels,
+    named by their prefix), "matmul" (torch's matrix products: the f64
+    Toeplitz products of limbs.mul_const_mod2k), "copies" (the device's copies
     and fills: a graph's static inputs and the clones of its outputs), else
     "other torch" (torch's other kernels: stacks, gathers, the plain
     chains)."""

@@ -56,6 +56,7 @@
 // Plain C interface, loaded with ctypes.  Launches on the caller's stream,
 // allocates nothing, does not synchronise, returns cudaGetLastError().
 
+#include "mma.cuh"
 #include "mont.cuh"
 
 #define NTT4_THREADS 256      // a block: 8 warps, 2 fragments each
@@ -69,9 +70,6 @@
 #define NTT4_MAX_K 256        // the longest contraction (logn <= 16)
 #define NTT4_LOAD_ITEMS 4     // X items a warp loads before it cuts any
 
-typedef unsigned int u32;
-typedef unsigned char u8;
-
 constexpr int WARPS = NTT4_THREADS / 32;
 constexpr int SMEM_MAX = 8 * (NTT4_TILE_M8 + NTT4_TILE_J) * (NTT4_MAX_K + NTT4_PAD);
 static_assert(4 * (NTT4_TILE_M4 + NTT4_TILE_J) <= 8 * (NTT4_TILE_M8 + NTT4_TILE_J),
@@ -79,28 +77,6 @@ static_assert(4 * (NTT4_TILE_M4 + NTT4_TILE_J) <= 8 * (NTT4_TILE_M8 + NTT4_TILE_
 static_assert(NTT4_WARP_M == 16 && NTT4_WARP_J == 8, "a warp's outputs: one m16n8 fragment");
 static_assert((NTT4_TILE_M_MIN / NTT4_WARP_M) * (NTT4_TILE_J / NTT4_WARP_J) % WARPS == 0,
               "the warps share a block's fragments evenly");
-
-__device__ __forceinline__ u32 smem_addr(const void *p) {
-    return static_cast<u32>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(u32 dst, const void *src) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
-}
-
-__device__ __forceinline__ void ldsm_x4(u32 (&r)[4], u32 addr) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr));
-}
-
-// d += a b for a [16 x 32] u8 (row), b [32 x 8] u8 (col), d [16 x 8] s32
-__device__ __forceinline__ void mma_u8(int (&d)[4], const u32 (&a)[4], u32 b0, u32 b1) {
-    asm("mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 template <int P8, bool TRANSPOSE>
 __global__ void __launch_bounds__(NTT4_THREADS, 2)

@@ -1,24 +1,26 @@
-// RNS decompose and the CRT lift around the digit matmul, for Hopper (sm_90a).
+// RNS decompose and the CRT reconstruct, for Hopper (sm_90a).
 //
 // Replaces, on CUDA tensors, the torch chains of gpqhe_tpu_torch/ops/rns.py
 // that XLA fuses inside each jitted program of the JAX package:
 //   decompose    gpqhe_tpu/ops/rns.py:110 decompose_core (and the signed form
 //                of gpqhe_tpu_torch/ring/poly.py, the JAX ring engine's
 //                _decompose_signed): limbs [S, n, K] -> residues [S, dim, n];
-//   digit_split  the first half of gpqhe_tpu/ops/rns.py:200 reconstruct_core:
-//                residues y -> the transposed 16-bit digits of y as f64
-//                [S, n, nd * dim] and the estimate af = sum_d y_d / p_d;
-//   lift         its second half: the digit sums of the f64 matmul (which
-//                stays torch.matmul, as the JAX package leaves it to XLA)
-//                and af -> limbs, with the alpha correction, the 16-bit carry
-//                walk and either the fast path (frac > 1/2 -> -P) or the exact
-//                path (+-P, then centring).
+//   digit_split  the first half of gpqhe_tpu/ops/rns.py:200 reconstruct_core,
+//                the 16-bit digit split and the f64 digit matmul in one:
+//                residues y -> the digit sums of S = sum_d y_d phat_d as
+//                int64 [S, n, kd], by u8 products on the tensor cores, and
+//                the estimate af = sum_d y_d / p_d;
+//   lift         its second half: the digit sums and af -> limbs, with the
+//                alpha correction, the 16-bit carry walk and either the fast
+//                path (frac > 1/2 -> -P) or the exact path (+-P, then
+//                centring).
 // In torch a decompose of a 14-limb poly into 16 primes is ~440 launches and a
-// reconstruct ~130; here a decompose is one launch and a reconstruct three
-// (digit_split, the matmul, lift).
+// reconstruct ~130; here a decompose is one launch and a reconstruct two
+// (digit_split, lift).
 //
 // What bounds them on the H100: bytes for digit_split and lift (a word in,
-// four f64 digits out; a row of f64 digit sums in, u32 limbs out, in int64);
+// its digit sums out, 8 bytes each; a row of digit sums in, u32 limbs out, in
+// int64), the tensor cores' u8 products close behind digit_split's bytes;
 // multiplies for decompose: per output word and limb the 32 x 64-bit product
 // of the limb and its constant, 2 IMAD and 2 IMAD.HI where the primes pass
 // 32 bits.  The designs.  decompose: a block stages a tile of 64 rows'
@@ -29,20 +31,15 @@
 // carry chain, and one Montgomery reduction (the earlier design did K/2
 // Montgomery products and modular adds an output, each thread re-reading
 // its row from L2 for every 2 primes; PERF.md has both and the designs
-// tried between, on the tensor cores among them).  digit_split: a block
-// takes 64 coefficients, warp w the primes w, w + 8, ..., a lane a
-// neighbouring pair, so that a warp stores 64 words of a digit row as 16-byte
-// pairs; the estimate af is summed by each thread over its primes, then by
-// warp 0 over the warps, in a fixed order (the earlier design: one thread a
-// coefficient walking every prime, 128 blocks at 2^14 coefficients).  The
-// lift reads and writes neighbouring words across a warp (rowwarp.cuh): a
-// warp per row group, lane i of a group limb i, which reads digit sums 2i
-// and 2i + 1, brings
-// their carries to 0/1 by two shuffles and takes the rest, the compares and
-// the +-P corrections from ballots; a row of more than 32 limbs (the exact
-// path on bases of 17 primes and more: the key switch's 46 limbs at logn=14,
-// 88 at logn=15) takes the whole warp, 32 limbs a chunk, its limbs in NCH
-// registers a lane, at most MAX_CHUNKS (128 limbs, as before).  (The
+// tried between, on the tensor cores among them).  digit_split: see the
+// kernel.  The lift reads and writes neighbouring words across a warp
+// (rowwarp.cuh): a warp per row group, lane i of a group limb i, which
+// reads digit sums 2i and 2i + 1, brings their carries to 0/1 by two
+// shuffles and takes the rest, the compares and the +-P corrections from
+// ballots; a row of more than 32 limbs (the exact path on bases of 17
+// primes and more: the key switch's 46 limbs at logn=14, 88 at logn=15)
+// takes the whole warp, 32 limbs a chunk, its limbs in NCH registers a
+// lane, at most MAX_CHUNKS (128 limbs, as before).  (The
 // first design walked each row in global memory, digits kd words apart
 // across a warp, and kept the limbs in a 1 KB local array, u64 r[128]:
 // 8.5 us at 5.0x its byte bound.)
@@ -50,10 +47,9 @@
 // Plain C interface, loaded with ctypes.  Launches on the caller's stream,
 // allocates nothing, does not synchronise, returns cudaGetLastError().
 
+#include "mma.cuh"
 #include "mont.cuh"
 #include "rowwarp.cuh"
-
-typedef unsigned int u32;
 
 #define MAX_CHUNKS 4      // the lift's chunks of 32 limbs a row: at most 128 limbs
 
@@ -69,11 +65,27 @@ typedef unsigned int u32;
 #define DEC_RL (DEC_ROWS / 32)          // rows a lane
 #define DEC_PL (DEC_PRIMES / DEC_WARPS) // primes a warp
 
-// digit_split: a block takes SPLIT_COEFS coefficients (a pair a lane) of one
-// slab, warp w the primes w, w + SPLIT_WARPS, ...
-#define SPLIT_WARPS 8
-#define SPLIT_COEFS 64
-#define SPLIT_BATCH 4     // a warp's primes loaded before the first is worked
+// digit_split, the digit product on the tensor cores: a block of DS_WARPS
+// warps, each DS_WARP_M coefficients x DS_WARP_N byte columns (two m16 and
+// eight n8 fragments), the depth in chunks of DS_DEPTH bytes, two stages
+#define DS_WARPS 8
+#define DS_WARP_M 32
+#define DS_WARP_N 64
+#define DS_DEPTH 128      // a chunk's depth: 128 / NB primes of NB bytes
+#define DS_PAD 16         // bytes past a row's chunk in shared memory
+#define DS_BLOCKS_AN_SM 2 // resident blocks an SM (registers and shared memory)
+#define DS_OUT_PAD 4      // words past a row of a warp's staged digit sums
+
+constexpr int DS_KS = DS_DEPTH + DS_PAD;                        // a row in shared memory
+constexpr int DS_TILE = DS_WARPS * DS_WARP_M * DS_WARP_N;       // a block's bm x bn
+// two stages of bm + bn <= 320 rows
+constexpr int DS_SMEM = 2 * (DS_TILE / DS_WARP_N + DS_WARP_N) * DS_KS;
+static_assert(DS_WARP_M == 32 && DS_WARP_N % 16 == 0, "a warp: two m16 fragments, n8 pairs");
+static_assert(DS_TILE / DS_WARP_N == 256, "bm = 256 / wn: 2^(8 - log2 wn) rows");
+// a warp's staged digit sums: 16 rows of its 32 (DS_WARP_N / 2), DS_OUT_W
+// words apart; the warps' together fit in a stage at every wn
+constexpr int DS_OUT_W = DS_WARP_N / 2 + DS_OUT_PAD;
+static_assert(DS_WARPS * 16 * DS_OUT_W * 8 <= (128 + 128) * DS_KS, "the warps' sums fit a stage");
 
 // c_i = 2^(32 i) R mod p (R = 2^64) of limb i, from the weights w_j = R^(j+1)
 // mod p (row of one prime) and c1 = 2^32 R mod p: c_2j = w_j and
@@ -289,89 +301,207 @@ __global__ void __launch_bounds__(DEC_WARPS * 32, 3) rns_decompose_kernel(DecArg
     }
 }
 
-// residues y [S, dim, n] (a view) -> Yt f64 [S, nd * dim, n], row t * dim + d
-// holding digit t of y_d (the matmul takes its transpose, column-major, in
-// place), and af f64 [S, n] = sum_d y_d / p_d.  With scale, y_d is first
-// replaced by mont_mul(y_d, scale_d) (the phat^-1 multiply).  Lane l of warp
-// w takes coefficients 2 l and 2 l + 1 of the block's SPLIT_COEFS and the
-// primes w, w + SPLIT_WARPS, ...: a warp stores 64 neighbouring words of a
-// digit row, a 16-byte pair a lane where n is even.  af: each thread sums
-// its primes in order, then warp 0 the warps' sums in order (a fixed order,
-// not the plain version's).
-__global__ void __launch_bounds__(SPLIT_WARPS * 32)
-rns_digit_split_kernel(double *__restrict__ Y, double *__restrict__ af, i64 S, int dim, i64 n,
-                       int nd, View y, PerPrime scale, PerPrime P, PerPrime V,
-                       const double *__restrict__ inv_p, i64 ipd) {
-    __shared__ double part[SPLIT_WARPS][SPLIT_COEFS];
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const i64 k = (i64)blockIdx.x * SPLIT_COEFS + 2 * lane;
-    const bool both = k + 1 < n, pair = both && n % 2 == 0;
-    const bool vload = pair && y.sk == 1 && y.sd % 2 == 0 && y.sa % 2 == 0 &&
-                       (reinterpret_cast<uintptr_t>(y.p) & 15) == 0;
-    for (i64 s = blockIdx.y; s < S; s += gridDim.y) {
-        double acc0 = 0.0, acc1 = 0.0;
-        // SPLIT_BATCH primes' loads in flight before the first is worked
-        for (int db = warp; k < n && db < dim; db += SPLIT_BATCH * SPLIT_WARPS) {
-            u64 v0[SPLIT_BATCH], v1[SPLIT_BATCH];
-#pragma unroll
-            for (int u = 0; u < SPLIT_BATCH; ++u) {
-                const int d = db + u * SPLIT_WARPS;
-                v0[u] = v1[u] = 0;
-                if (d >= dim) continue;
-                if (vload) {
-                    const longlong2 v = __ldg(reinterpret_cast<const longlong2 *>(
-                        y.p + s * y.sa + d * y.sd + k));
-                    v0[u] = (u64)v.x;
-                    v1[u] = (u64)v.y;
-                } else {
-                    v0[u] = y.at(0, s, d, k);
-                    if (both) v1[u] = y.at(0, s, d, k + 1);
-                }
-            }
-#pragma unroll
-            for (int u = 0; u < SPLIT_BATCH; ++u) {
-                const int d = db + u * SPLIT_WARPS;
-                if (d >= dim) continue;
-                u64 x0 = v0[u], x1 = v1[u];
+// residues y [S, dim, n] (a view) -> the digit sums of S = sum_d y_d phat_d,
+// int64 [S, n, kd], and af f64 [S, n] = sum_d y_d / p_d.  With scale, y_d is
+// first replaced by mont_mul(y_d, scale_d) (the phat^-1 multiply).  The
+// product on the tensor cores: a residue below 2^(8 NB) is its own NB
+// little-endian bytes (NB = 8, or 4 where the primes fit 32 bits), so the A
+// operand is the residues themselves, row = coefficient, depth (d, t) =
+// byte t of y_d at d NB + t; B is the plan's table (u8 [2 ds, tdepth], row
+// c, depth d NB + t: byte c - t of phat_d), and mma.sync m16n8k32 u8 x u8 ->
+// s32 sums byte column c of S,
+//   B_c = sum_{d, t} y_d[t] phat_d[c - t] <= NB dim 255^2 < 2^31 (dim <= 4128 at NB = 8),
+// exact.  The epilogue combines byte columns 2j and 2j + 1 into the 16-bit
+// digit sum S16_j = B_2j + 256 B_2j+1 < 2^40, so that sum_j S16_j 2^(16 j)
+// = S mod 2^(16 kd) (the table's columns stop at 2 kd: the lift works mod
+// 2^(32 k_out), 32 k_out <= 16 kd).
+//
+// A tile is bm coefficients of one slab against bn byte columns, bm bn =
+// DS_TILE: the warps' DS_WARP_M x DS_WARP_N tiles, wn of them across the
+// columns (wn = 1, 2 or 4: the fewest that cover 2 kd columns, bn = 64 wn,
+// bm = 256 / wn; past 256 columns a second tile of columns).  The blocks are
+// persistent, DS_BLOCKS_AN_SM an SM, each walking the tiles gridDim.x apart
+// (columns fastest, then coefficients, then slabs) in chunks of DS_DEPTH
+// bytes of depth (128 / NB primes), two stages in shared memory: while the
+// warps multiply one chunk, cp.async brings the next, the next tile's
+// first after a tile's last, so that the loads run on through the
+// epilogue.  The residues come NB bytes a copy straight into their rows
+// (16 / NB lanes fill a row's 16 bytes, coalesced along n; zeros past n and
+// dim), the table's rows of the tile's columns 16 bytes a copy.  Then each
+// thread reads its row's residues of the chunk back, scales them in place
+// and adds them into af.  Rows are DS_KS bytes apart (16 bytes past the
+// chunk), so that ldmatrix's rows are free of bank conflicts; an
+// ldmatrix.x4 of A [16 rows x 32 bytes] is an A fragment, of B [16 columns
+// x 32 bytes] the B fragments of two n8 tiles.  Per 32 bytes of depth a
+// warp loads its two A fragments and its live B fragments once and issues
+// up to 16 products; the depth past NB dim is not walked.  The digit sums
+// go through the stage just worked, each warp its own 16 rows at a time
+// (rows DS_OUT_PAD words longer than its 32 sums, free of bank conflicts,
+// no block-wide barrier), to 32 neighbouring words of a row in device
+// memory (from the registers, a store would be 8 rows x 4 words: two
+// sectors for each 32 bytes where a row's words are not 32-byte aligned).
+// af: each thread sums its primes in chunk order, then thread r of
+// the block the threads of its row in order (a fixed order, not the plain
+// version's).
+// One tile of the digit product: slab s, coefficients k0 .. k0 + rows - 1,
+// byte columns c0 .. c0 + cols - 1, of which a warp's live n8 tiles.
+struct DsTile {
+    const u64 *ys;                              // the tile's first residue
+    i64 s, k0;
+    int rows, c0, cols, live;
+};
+
+template <int NB>
+__global__ void __launch_bounds__(DS_WARPS * 32, 2)
+rns_digit_split_kernel_mma(i64 *__restrict__ sums, double *__restrict__ af, i64 S, int dim,
+                           i64 n, int kd, int lwn, View y, PerPrime scale, PerPrime P,
+                           PerPrime V, const double *__restrict__ inv_p, i64 ipd,
+                           const u8 *__restrict__ table, int tdepth) {
+    constexpr int LE = NB == 8 ? 1 : 2;         // 2^LE residues a 16-byte run of a row
+    constexpr int DCP = DS_DEPTH / NB;          // primes a chunk
+    constexpr int FN = DS_WARP_N / 8;           // a warp's n8 tiles
+    extern __shared__ __align__(16) u8 smem[];
+    __shared__ double part[DS_WARPS * 32];
+    const int lbm = 8 - lwn, bm = 1 << lbm, bn = DS_WARP_N << lwn;   // bm bn = DS_TILE
+    const u32 stage = (bm + bn) * DS_KS;        // a stage: A [bm][DS_KS], B [bn][DS_KS]
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t = lane & 3;
+    const int wr = (warp >> lwn) * DS_WARP_M, wc = (warp & ((1 << lwn) - 1)) * DS_WARP_N;
+    const int r = tid & (bm - 1), u = tid >> lbm, qs = DS_WARPS * 32 >> lbm;  // af: row r
+    const int chunks = (NB * dim + DS_DEPTH - 1) / DS_DEPTH;
+    const int tiles_c = (2 * kd + bn - 1) >> (6 + lwn);
+    const i64 tiles_k = (n + bm - 1) >> lbm, items = S * tiles_k * tiles_c;
+    const u32 s0 = smem_addr(smem);
+    const u32 a_lane = (wr + (lane & 7) + 8 * ((lane >> 3) & 1)) * DS_KS + 16 * (lane >> 4);
+    const u32 b_lane = bm * DS_KS + (wc + (lane & 7) + 8 * (lane >> 4)) * DS_KS +
+                       16 * ((lane >> 3) & 1);
+    // item -> tile: column blocks fastest, then coefficients, then slabs
+    auto tile_of = [&](i64 item) {
+        DsTile T;
+        const i64 q = item / tiles_c;
+        T.c0 = (int)(item - q * tiles_c) * bn;
+        T.s = q / tiles_k;
+        T.k0 = (q - T.s * tiles_k) << lbm;
+        T.rows = n - T.k0 < bm ? (int)(n - T.k0) : bm;
+        T.cols = 2 * kd - T.c0 < bn ? 2 * kd - T.c0 : bn;
+        T.live = T.cols - wc <= 0 ? 0 : T.cols - wc >= DS_WARP_N ? FN : (T.cols - wc + 7) / 8;
+        T.ys = y.p + T.s * y.sa + T.k0 * y.sk;
+        return T;
+    };
+    // chunk ch of tile T into stage st: copy idx = (pg bm + row) 2^LE + e takes
+    // residue (row, d0 + pg 2^LE + e), 2^LE lanes a row's 16 bytes
+    auto fetch = [&](const DsTile &T, int ch, int st) {
+        const u32 base = s0 + st * stage;
+        const int d0 = ch * DCP;
+        for (int idx = tid; idx < bm * DCP; idx += DS_WARPS * 32) {
+            const int e = idx & ((1 << LE) - 1), rest = idx >> LE;
+            const int row = rest & (bm - 1), d = ((rest >> lbm) << LE) + e;
+            const bool in = d0 + d < dim && row < T.rows;
+            cp_async_zfill<NB>(base + row * DS_KS + NB * d,
+                               in ? T.ys + (i64)(d0 + d) * y.sd + row * y.sk : y.p, in);
+        }
+        for (int i = tid; i < T.cols * (DS_DEPTH / 16); i += DS_WARPS * 32) {
+            const int c = i >> 3, o = i & 7;
+            cp_async16(base + (bm + c) * DS_KS + 16 * o,
+                       table + (i64)(T.c0 + c) * tdepth + ch * DS_DEPTH + 16 * o);
+        }
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+    };
+    i64 item = blockIdx.x;
+    if (item >= items) return;
+    DsTile T = tile_of(item);
+    fetch(T, 0, 0);
+    int acc[2][FN][4] = {};
+    double ap = 0.0;
+    for (int ch = 0, st = 0;; st ^= 1) {
+        // the next step (the next chunk, or the next tile's first) lands
+        // while this one is worked
+        const bool last = ch + 1 == chunks;
+        const i64 next = last ? item + gridDim.x : item;
+        const bool more = next < items;
+        const DsTile N = last && more ? tile_of(next) : T;
+        if (more) {
+            fetch(N, last ? 0 : ch + 1, st ^ 1);
+            asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+        } else {
+            asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+        }
+        __syncthreads();
+        u8 *as = smem + st * stage;
+        const int d0 = ch * DCP;
+        if (r < T.rows) {
+            for (int d = u; d < DCP && d0 + d < dim; d += qs) {
+                u8 *w = as + r * DS_KS + NB * d;
+                u64 x = NB == 8 ? *(u64 *)w : *(u32 *)w;
                 if (scale.p) {
-                    const u64 sc = scale.at(d), p = P.at(d), pv = V.at(d);
-                    x0 = mont_mul(x0, sc, p, pv);
-                    x1 = mont_mul(x1, sc, p, pv);
+                    x = mont_mul(x, scale.at(d0 + d), P.at(d0 + d), V.at(d0 + d));
+                    if constexpr (NB == 8) *(u64 *)w = x; else *(u32 *)w = (u32)x;
                 }
-                const double ip = __ldg(inv_p + d * ipd);
-                acc0 += (double)(i64)x0 * ip;
-                acc1 += (double)(i64)x1 * ip;
-                double *row = Y + (s * nd * dim + d) * n + k;
-                for (int t = 0; t < nd; ++t, row += (i64)dim * n) {
-                    const double g0 = (double)((x0 >> (16 * t)) & 0xFFFF);
-                    const double g1 = (double)((x1 >> (16 * t)) & 0xFFFF);
-                    if (pair) {
-                        *reinterpret_cast<double2 *>(row) = make_double2(g0, g1);
-                    } else {
-                        row[0] = g0;
-                        if (both) row[1] = g1;
+                ap += (double)(i64)x * __ldg(inv_p + (d0 + d) * ipd);
+            }
+        }
+        if (scale.p) __syncthreads();
+        const int depth = NB * dim - d0 * NB < DS_DEPTH ? NB * dim - d0 * NB : DS_DEPTH;
+        if (T.live > 0) {
+            const u32 base = s0 + st * stage;
+            for (int kk = 0; kk < depth; kk += 32) {
+                u32 a0[4], a1[4];
+                ldsm_x4(a0, base + a_lane + kk);
+                ldsm_x4(a1, base + a_lane + 16 * DS_KS + kk);
+#pragma unroll
+                for (int j = 0; j < FN; j += 2) {
+                    if (j >= T.live) break;
+                    u32 b[4];
+                    ldsm_x4(b, base + b_lane + 8 * j * DS_KS + kk);
+                    mma_u8(acc[0][j], a0, b[0], b[1]);
+                    mma_u8(acc[1][j], a1, b[0], b[1]);
+                    if (j + 1 < T.live) {
+                        mma_u8(acc[0][j + 1], a0, b[2], b[3]);
+                        mma_u8(acc[1][j + 1], a1, b[2], b[3]);
                     }
                 }
             }
         }
-        part[warp][2 * lane] = acc0;
-        part[warp][2 * lane + 1] = acc1;
-        __syncthreads();
-        if (warp == 0 && k < n) {
-            double a0 = part[0][2 * lane], a1 = part[0][2 * lane + 1];
+        __syncthreads();                        // the stage's readers are done
+        if (last) {
+            // the epilogue: byte columns 2j and 2j + 1 (this lane's 2t, 2t + 1
+            // of each n8 tile) into digit sum j, rows g and g + 8 of each
+            // fragment; a warp stages each of its two fragments' 16 rows x 32
+            // sums in its own part of the stage just worked (rows DS_OUT_PAD
+            // words longer), then writes them a row at a time, 32 neighbouring
+            // words
+            i64 *out = (i64 *)(smem + st * stage) + warp * 16 * DS_OUT_W;
+            const int wcols = T.cols / 2 - wc / 2 < 4 * T.live ? T.cols / 2 - wc / 2 : 4 * T.live;
 #pragma unroll
-            for (int w = 1; w < SPLIT_WARPS; ++w) {
-                a0 += part[w][2 * lane];
-                a1 += part[w][2 * lane + 1];
+            for (int f = 0; f < 2; ++f) {
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+#pragma unroll
+                    for (int j = 0; j < FN; ++j) {
+                        if (j < T.live)
+                            out[(g + 8 * h) * DS_OUT_W + 4 * j + t] =
+                                (i64)(u32)acc[f][j][2 * h] + ((i64)(u32)acc[f][j][2 * h + 1] << 8);
+                        acc[f][j][2 * h] = acc[f][j][2 * h + 1] = 0;
+                    }
+                __syncwarp();
+                i64 *o = sums + (T.s * n + T.k0 + wr + 16 * f) * kd + T.c0 / 2 + wc / 2 + lane;
+                for (int row = 0; row < 16 && wr + 16 * f + row < T.rows; ++row)
+                    if (lane < wcols) o[(i64)row * kd] = out[row * DS_OUT_W + lane];
+                __syncwarp();
             }
-            if (pair) {
-                *reinterpret_cast<double2 *>(af + s * n + k) = make_double2(a0, a1);
-            } else {
-                af[s * n + k] = a0;
-                if (both) af[s * n + k + 1] = a1;
+            part[tid] = ap;
+            ap = 0.0;
+            __syncthreads();
+            if (T.c0 == 0 && tid < T.rows) {
+                double a = part[tid];
+                for (int v = 1; v < qs; ++v) a += part[tid + v * bm];
+                af[T.s * n + T.k0 + tid] = a;
             }
         }
-        __syncthreads();
+        if (!more) break;
+        ch = last ? 0 : ch + 1;
+        item = next;
+        T = N;
     }
 }
 
@@ -487,18 +617,45 @@ extern "C" int gpqhe_rns_decompose(i64 S, i64 n, int K, i64 ss, i64 sn, int dim,
     return (int)cudaGetLastError();
 }
 
-extern "C" int gpqhe_rns_digit_split(i64 S, int dim, i64 n, int nd, void *Y, void *af,
-                                     const void *y, i64 ys, i64 yd, i64 yk,
-                                     const void *scale, i64 scd, const void *ps, i64 psd,
-                                     const void *pinv, i64 pvd, const void *inv_p, i64 ipd,
-                                     void *stream) {
-    const dim3 grid((unsigned)((n + SPLIT_COEFS - 1) / SPLIT_COEFS),
-                    (unsigned)(S < 65535 ? S : 65535));
+// table: u8 [2 ds, tdepth] (tdepth a multiple of DS_DEPTH, >= nb dim), its
+// rows 16-byte aligned; nb the bytes a residue takes (8, or 4 for primes
+// below 2^32).
+extern "C" int gpqhe_rns_digit_sums(i64 S, int dim, i64 n, int nb, int kd, void *sums,
+                                    void *af, const void *y, i64 ys, i64 yd, i64 yk,
+                                    const void *scale, i64 scd, const void *ps, i64 psd,
+                                    const void *pinv, i64 pvd, const void *inv_p, i64 ipd,
+                                    const void *table, int tdepth, void *stream) {
+    static bool ready[64][2];           // the shared-memory limit set, by device and kernel
+    static int sms[64];                 // the device's SMs
+    void (*kernel)(i64 *, double *, i64, int, i64, int, int, View, PerPrime, PerPrime,
+                   PerPrime, const double *, i64, const u8 *, int) =
+        nb == 8 ? rns_digit_split_kernel_mma<8> : nb == 4 ? rns_digit_split_kernel_mma<4>
+                                                          : nullptr;
+    int dev = 0;
+    if (!kernel || kd < 1 || tdepth % DS_DEPTH || (i64)nb * dim > tdepth ||
+        cudaGetDevice(&dev) != cudaSuccess || dev >= 64)
+        return (int)cudaErrorInvalidValue;
+    if (!ready[dev][nb == 8]) {
+        cudaError_t rc = cudaFuncSetAttribute(
+            (const void *)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DS_SMEM);
+        if (rc == cudaSuccess && !sms[dev])
+            rc = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+        if (rc != cudaSuccess) return (int)rc;
+        ready[dev][nb == 8] = true;
+    }
+    const int lwn = 2 * kd <= DS_WARP_N ? 0 : 2 * kd <= 2 * DS_WARP_N ? 1 : 2;   // log2 wn
+    const int bn = DS_WARP_N << lwn, bm = DS_TILE / bn;
+    const i64 items = S * ((n + bm - 1) / bm) * ((2 * kd + bn - 1) / bn);
+    if (items == 0) return (int)cudaSuccess;
+    // persistent blocks, two an SM, each walking tiles gridDim.x apart
+    const unsigned grid = (unsigned)(items < DS_BLOCKS_AN_SM * sms[dev] ? items
+                                                                     : DS_BLOCKS_AN_SM * sms[dev]);
     const View yv = {(const u64 *)y, 0, ys, yd, yk};
     const PerPrime sc = {(const u64 *)scale, scd}, P = {(const u64 *)ps, psd},
                    V = {(const u64 *)pinv, pvd};
-    rns_digit_split_kernel<<<grid, SPLIT_WARPS * 32, 0, (cudaStream_t)stream>>>(
-        (double *)Y, (double *)af, S, dim, n, nd, yv, sc, P, V, (const double *)inv_p, ipd);
+    kernel<<<grid, DS_WARPS * 32, DS_SMEM, (cudaStream_t)stream>>>(
+        (i64 *)sums, (double *)af, S, dim, n, kd, lwn, yv, sc, P, V, (const double *)inv_p,
+        ipd, (const u8 *)table, tdepth);
     return (int)cudaGetLastError();
 }
 

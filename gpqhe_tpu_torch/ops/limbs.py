@@ -205,9 +205,13 @@ def plain_from_digits16(d, k_out: int):
 
 
 def to_digits16_f64(a):
-    """[..., K] limbs -> f64[..., 2K] 16-bit digits (exact in f64)."""
-    return torch.stack([a & _M16, a >> 16], dim=-1).reshape(
-        a.shape[:-1] + (2 * a.shape[-1],)).to(torch.float64)
+    """[..., K] limbs -> f64[..., 2K] 16-bit digits (exact in f64), written
+    into the one f64 buffer (no int64 stack to cast: the key switch's
+    mul_const_mod2k runs it on every ciphertext)."""
+    d = torch.empty(a.shape[:-1] + (2 * a.shape[-1],), dtype=torch.float64, device=a.device)
+    d[..., 0::2] = a & _M16
+    d[..., 1::2] = a >> 16
+    return d
 
 
 def to_f64_centered(a, q_bits: int):

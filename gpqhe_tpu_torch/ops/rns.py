@@ -10,13 +10,17 @@ mod p_d, S = sum_d y_d*phat_d (exact 16-bit digit accumulation), and the CRT
 overflow multiple alpha = floor(S/P) < dim is estimated in f64 and corrected
 exactly with limb compares.
 
-Dispatch: decompose_core / decompose, digit_split and _lift run their plain
-torch versions (plain_*) on a CPU tensor and the CUDA kernels of
-ops/rns_cuda.py on a CUDA tensor (the digit matmul between the last two,
-_digit_partials, is torch.matmul on both); the plain versions call only
-plain versions.  LIFT counts the lifts _lift makes on any device, by their
-operands: calls, rows, digit_words (rows x the digit sums a row reads) and
-limb_words (rows x the limbs a row writes).
+Dispatch: decompose_core / decompose, _digit_partials and _lift run their
+plain torch versions (plain_*) on a CPU tensor and the CUDA kernels of
+ops/rns_cuda.py on a CUDA tensor; the plain versions call only plain
+versions.  The digit product of a reconstruct, _digit_partials, is the
+plain 16-bit digit split and an f64 torch.matmul on a CPU tensor, one
+launch of rns_cuda.digit_sums (u8 products on the tensor cores) on a CUDA
+tensor; RECON counts them by route on any device: imma (the kernel),
+matmul (torch.matmul), replayed with the graphs.  LIFT counts the lifts
+_lift makes on any device, by their operands: calls, rows, digit_words
+(rows x the digit sums a row reads) and limb_words (rows x the limbs a row
+writes).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from . import rns_cuda
 from .modmath import plain_mont_mul, u64_to_torch
 
 LIFT = cuda_build.counters({"calls": 0, "rows": 0, "digit_words": 0, "limb_words": 0})
+RECON = cuda_build.counters({"imma": 0, "matmul": 0})
 
 
 @dataclass(frozen=True)
@@ -59,6 +64,7 @@ class ReconPlan:
     logP: int                   # P.bit_length() (fast-path margin validation)
     nd: int                     # 16-bit digits covering one residue (< p)
     phat_digits: torch.Tensor   # f64[nd * dim, ds], see phat_digit_table
+    phat_bytes: torch.Tensor    # u8[2 ds, depth], see phat_byte_table
     inv_p: torch.Tensor         # f64[dim] 1/p_d
     negP16: torch.Tensor        # int64[ds] digits of 2^(16 ds) - P
     P_limbs: torch.Tensor       # int64[ks]
@@ -66,8 +72,14 @@ class ReconPlan:
     MminusP_limbs: torch.Tensor  # int64[ks] 2^(32 ks) - P
 
 
-def make_basis_arrays(poly_ctx, dim: int, device) -> BasisArrays:
+def make_basis_arrays(poly_ctx, dim: int, device, twiddles=None) -> BasisArrays:
+    """twiddles: (zetas, zetas_inv) of at least dim primes on the device,
+    whose first dim rows the arrays take as views (a ring's shared tables);
+    else the arrays get tables of their own."""
     b = poly_ctx.basis(dim)
+    if twiddles is None:
+        twiddles = (u64_to_torch(poly_ctx.zetas(dim), device),
+                    u64_to_torch(poly_ctx.zetas_inv(dim), device))
     return BasisArrays(
         dim=dim,
         ps=u64_to_torch(b.ps, device),
@@ -76,8 +88,8 @@ def make_basis_arrays(poly_ctx, dim: int, device) -> BasisArrays:
         r2=u64_to_torch(b.r2, device),
         phatinv_mont=u64_to_torch(b.phatinv_mont, device),
         ninvphat_mont=u64_to_torch(b.ninvphat_mont, device),
-        zetas=u64_to_torch(poly_ctx.zetas(dim), device),
-        zetas_inv=u64_to_torch(poly_ctx.zetas_inv(dim), device),
+        zetas=twiddles[0][:dim],
+        zetas_inv=twiddles[1][:dim],
     )
 
 
@@ -97,11 +109,30 @@ def phat_digit_table(phat16: np.ndarray, nd: int) -> np.ndarray:
     return out.reshape(nd * dim, ds)
 
 
+def phat_byte_table(phat16: np.ndarray, nd8: int) -> np.ndarray:
+    """u8[2 ds, depth]: row c, column d * nd8 + t holds byte c - t of
+    phat16[d] (0 where c < t), depth = nd8 * dim rounded up to a chunk of
+    rns_cuda.digit_sums (DEPTH bytes), the rest zero; nd8 =
+    rns_cuda.residue_bytes(nd), the bytes the kernel takes of a residue.
+
+    Operand of the digit product on the tensor cores: the nd8 bytes of each
+    y_d against this table give the byte columns of S = sum_d y_d * phat_d
+    mod 2^(16 ds); a column sums at most nd8 * dim products below 2^16, so
+    it is < 2^31 for nd8 = 8 and dim <= 4128 (exact in the kernel's s32)."""
+    dim, ds = phat16.shape
+    pb = phat16.astype("<u2").view(np.uint8).reshape(dim, 2 * ds)
+    depth = -(-nd8 * dim // rns_cuda.DEPTH) * rns_cuda.DEPTH
+    out = np.zeros((2 * ds, depth), dtype=np.uint8)
+    for t in range(nd8):
+        out[t:, t:nd8 * dim:nd8] = pb[:, :2 * ds - t].T
+    return out
+
+
 def make_recon_plan(poly_ctx, dim: int, device,
                     rows: tuple[int, int] | None = None) -> ReconPlan:
     """The plan over the first dim primes.  rows=(r0, r1) gives the plan of a
-    limb shard that holds primes r0..r1-1 of a residue stack: phat_digits and
-    inv_p carry those rows only, digit-major over the local rows as
+    limb shard that holds primes r0..r1-1 of a residue stack: phat_digits,
+    phat_bytes and inv_p carry those rows only, digit-major over the local rows as
     reconstruct_sharded stacks the shard's digits, and are zero for a prime
     outside the basis (row >= dim), whose share of the digit sums and of the
     alpha estimate then vanishes under the limb sum (the sub-basis
@@ -129,6 +160,7 @@ def make_recon_plan(poly_ctx, dim: int, device,
     return ReconPlan(
         dim=dim, ds=ds, ks=ks, logP=b.P.bit_length(), nd=nd,
         phat_digits=t(phat_digit_table(phat16, nd)),
+        phat_bytes=t(phat_byte_table(phat16, rns_cuda.residue_bytes(nd))),
         inv_p=t(inv_p),
         negP16=t(bigint.digits16(M - b.P, ds).astype(np.int64)),
         P_limbs=limbs(b.P), Phalf_limbs=limbs(b.P_half),
@@ -236,12 +268,6 @@ def plain_digit_split(y, nd: int, inv_p, scale=None):
     return Y.to(torch.float64), af
 
 
-def digit_split(y, nd: int, inv_p, scale=None):
-    if y.device.type == "cpu":
-        return plain_digit_split(y, nd, inv_p, scale)
-    return rns_cuda.digit_split(y, nd, inv_p, scale)
-
-
 def plain_digit_partials(y, plan: ReconPlan, kd: int, scale=None):
     """(digit sums f64[..., n, kd] of S = sum_d y_d * phat_d over the low kd
     16-bit digit columns, f64[..., n] estimate of S / P) from the y_d of the
@@ -253,8 +279,14 @@ def plain_digit_partials(y, plan: ReconPlan, kd: int, scale=None):
 
 
 def _digit_partials(y, plan: ReconPlan, kd: int, scale=None):
-    Y, af = digit_split(y, plan.nd, plan.inv_p, scale)
-    return torch.matmul(Y, plan.phat_digits[:, :kd]), af
+    """plain_digit_partials on a CPU tensor; on a CUDA tensor one launch of
+    rns_cuda.digit_sums, whose int64 digit sums are the plain version's
+    value mod 2^(16 kd) (which the lift reads), not its columns."""
+    if y.device.type == "cpu":
+        RECON["matmul"] += 1
+        return plain_digit_partials(y, plan, kd, scale)
+    RECON["imma"] += 1
+    return rns_cuda.digit_sums(y, plan, kd, scale)
 
 
 def plain_lift(s_digits, af, plan: ReconPlan, center: bool, k_out: int | None):
@@ -304,10 +336,11 @@ def reconstruct_sharded(res: dict, consts: dict, psum, center: bool = True) -> d
     shard gets the limbs [..., n, ks].
 
     Always the exact full-width path: the digit partials are integers far
-    below 2^53, so their f64 sum is exact in any order, and the +-1 limb
-    compares make the result independent of the last bits of the f64 sum
-    of the alpha estimate.  The output therefore equals reconstruct()'s
-    whatever the number of shards."""
+    below 2^53 (f64 on the CPU, int64 from rns_cuda.digit_sums on a card,
+    each shard's value mod 2^(16 ds) either way), so their sum is exact in
+    any order, and the +-1 limb compares make the result independent of
+    the last bits of the f64 sum of the alpha estimate.  The output
+    therefore equals reconstruct()'s whatever the number of shards."""
     s_part, af_part = {}, {}
     for k, r in res.items():
         ps, pinv, phatinv_mont, plan = consts[k]

@@ -1,14 +1,17 @@
-"""Hand-written CUDA RNS decompose and CRT lift (csrc/rns.cu on csrc/mont.cuh):
-bindings, launch counters and argument checks.
+"""Hand-written CUDA RNS decompose and CRT reconstruct (csrc/rns.cu on
+csrc/mont.cuh and csrc/mma.cuh): bindings, launch counters and argument
+checks.
 
 Replaces, on CUDA tensors, the torch chains of ops/rns.py that XLA fuses
 inside each jitted program of the JAX package: decompose_core
 (gpqhe_tpu/ops/rns.py:110, with the signed form of the ring engine's
-decompose) and the two halves of reconstruct_core (gpqhe_tpu/ops/rns.py:200)
-around the f64 digit matmul, which stays torch.matmul: digit_split (y ->
-transposed 16-bit digits and the S / P estimate) and lift (digit sums ->
-limbs).  ops/rns.py dispatches here for a CUDA tensor; its plain_* functions
-serve the CPU.  LAUNCHES counts launches per entry.  The lift takes a warp
+decompose) and the two halves of reconstruct_core (gpqhe_tpu/ops/rns.py:200):
+digit_sums (y -> the int64 digit sums of S = sum_d y_d phat_d and the S / P
+estimate, the 16-bit digit split and the f64 digit matmul of the plain
+version in one launch, u8 products on the tensor cores) and lift (digit
+sums -> limbs).  ops/rns.py dispatches here for a CUDA tensor; its plain_*
+functions serve the CPU.  LAUNCHES counts launches per entry (digit_sums
+under "digit_split", the kernel's class in a trace).  The lift takes a warp
 per row group (csrc/rowwarp.cuh), a row of more than 32 limbs the whole
 warp, 32 limbs at a time.
 """
@@ -25,6 +28,7 @@ from . import cuda_build
 
 SOURCE = os.path.join(cuda_build.CSRC, "rns.cu")
 MAX_LIMBS = 128          # the lift's per-row limbs (csrc/rns.cu)
+DEPTH = 128              # bytes of depth a chunk of digit_sums walks (csrc/rns.cu DS_DEPTH)
 
 LAUNCHES = cuda_build.counters({"decompose": 0, "digit_split": 0, "lift": 0})
 
@@ -32,13 +36,19 @@ _VP, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = {
     "gpqhe_rns_decompose": [_I64, _I64, _I32, _I64, _I64, _I32, _I32, _VP, _VP, _VP,
                             _VP, _I64, _VP, _I64, _I32, _VP],
-    "gpqhe_rns_digit_split": [_I64, _I32, _I64, _I32, _VP, _VP, _VP, _I64, _I64, _I64,
-                              _VP, _I64, _VP, _I64, _VP, _I64, _VP, _I64, _VP],
+    "gpqhe_rns_digit_sums": [_I64, _I32, _I64, _I32, _I32, _VP, _VP, _VP, _I64, _I64, _I64,
+                             _VP, _I64, _VP, _I64, _VP, _I64, _VP, _I64, _VP, _I32, _VP],
     "gpqhe_rns_lift": [_I64, _I32, _I32, _VP, _VP, _I32, _VP, _I32, _I32, _I32,
                        _VP, _VP, _VP, _VP, _VP],
 }
 
 _lib = None
+
+
+def residue_bytes(nd: int) -> int:
+    """The bytes a residue of nd 16-bit digits takes in digit_sums' product:
+    8, or 4 where the primes fit 32 bits (the kernel copies 4 or 8)."""
+    return 8 if nd > 2 else 4
 
 
 def reset_launches() -> None:
@@ -112,34 +122,48 @@ def decompose(a, ps, pinv, weights, src_bits: int | None = None) -> torch.Tensor
     return out
 
 
-def digit_split(y, nd: int, inv_p, scale=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """[..., dim, n] residues -> (Y f64 [..., n, nd * dim], af f64 [..., n]);
-    scale = (phatinv_mont, ps, pinv) first multiplies y_d by phatinv_d in
-    Montgomery form.  Y is the transposed view of the [..., nd * dim, n]
-    rows the kernel stores (as plain_digit_split's is)."""
+def digit_sums(y, plan, kd: int, scale=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """[..., dim, n] residues -> (digit sums int64 [..., n, kd] of S = sum_d
+    y_d phat_d, af f64 [..., n] = sum_d y_d / p_d) over the primes whose rows
+    plan.phat_bytes and plan.inv_p hold; scale = (phatinv_mont, ps, pinv)
+    first multiplies y_d by phatinv_d in Montgomery form.  The digit sums
+    are not plain_digit_partials' column by column: sum_j S16_j 2^(16 j) is
+    S mod 2^(16 kd), which is all the lift reads."""
     dev = y.device
     if y.ndim < 2:
-        raise ValueError(f"digit_split takes [..., dim, n] residues, got {tuple(y.shape)}")
+        raise ValueError(f"digit_sums takes [..., dim, n] residues, got {tuple(y.shape)}")
     dim, n = y.shape[-2], y.shape[-1]
+    nb = residue_bytes(plan.nd)
     cuda_build.check_dtype(y, *(scale or ()))
-    cuda_build.check_dtype(inv_p, dtype=torch.float64)
-    ipd = _prime_vector(inv_p, dim, "inv_p")
+    cuda_build.check_dtype(plan.inv_p, dtype=torch.float64)
+    ipd = _prime_vector(plan.inv_p, dim, "inv_p")
+    table = plan.phat_bytes
+    depth = table.shape[-1]
+    if (table.dtype != torch.uint8 or tuple(table.shape) != (2 * plan.ds, depth)
+            or depth % DEPTH or depth < nb * dim or not table.is_contiguous()
+            or table.data_ptr() % 16):
+        raise ValueError(f"the phat byte table must be contiguous, 16-byte aligned u8 "
+                         f"[{2 * plan.ds}, a multiple of {DEPTH} >= {nb * dim}], got "
+                         f"{table.dtype} {tuple(table.shape)}")
+    if not 1 <= kd <= plan.ds:
+        raise ValueError(f"{kd} digit sums: the plan has {plan.ds}")
     sargs = [None, 0, None, 0, None, 0]
     if scale is not None:
         sargs = [a for t, name in zip(scale, ("phatinv", "ps", "pinv"))
                  for a in (t.data_ptr(), _prime_vector(t, dim, name))]
-    cuda_build.check_device(dev, y, inv_p, *(scale or ()))
+    cuda_build.check_device(dev, y, plan.inv_p, table, *(scale or ()))
     v, _, ys, yd, yk = cuda_build.strides3(y, tuple(y.shape))
     lead = tuple(y.shape[:-2])
     S = math.prod(lead)
-    Yt = torch.empty(lead + (nd * dim, n), dtype=torch.float64, device=dev)
+    sums = torch.empty(lead + (n, kd), dtype=torch.int64, device=dev)
     af = torch.empty(lead + (n,), dtype=torch.float64, device=dev)
-    if Yt.numel():
-        _check(load_library().gpqhe_rns_digit_split(
-            S, dim, n, nd, Yt.data_ptr(), af.data_ptr(), v.data_ptr(), ys, yd, yk, *sargs,
-            inv_p.data_ptr(), ipd, cuda_build.stream_of(dev)), "digit_split")
+    if af.numel():
+        _check(load_library().gpqhe_rns_digit_sums(
+            S, dim, n, nb, kd, sums.data_ptr(), af.data_ptr(), v.data_ptr(), ys, yd, yk,
+            *sargs, plan.inv_p.data_ptr(), ipd, table.data_ptr(), depth,
+            cuda_build.stream_of(dev)), "digit_sums")
         LAUNCHES["digit_split"] += 1
-    return Yt.transpose(-1, -2), af
+    return sums, af
 
 
 def lift(s_digits, af, plan, center: bool, k_out: int | None) -> torch.Tensor:

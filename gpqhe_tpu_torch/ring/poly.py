@@ -63,6 +63,7 @@ class RingEngine:
         self.device = torch.device(device)
         self.ntt_mod = ntt_module(pctx)
         self._ba: dict[int, rns_ops.BasisArrays] = {}
+        self._twiddles: tuple[torch.Tensor, torch.Tensor] | None = None
         self._recon: dict[int, rns_ops.ReconPlan] = {}
         self._weights: dict[tuple[int, int], torch.Tensor] = {}
         self._r2: dict[int, torch.Tensor] = {}
@@ -78,8 +79,16 @@ class RingEngine:
     # -- plan caches --------------------------------------------------------
 
     def ba(self, dim: int) -> rns_ops.BasisArrays:
+        """The arrays of the first dim primes.  Their twiddles are the first
+        dim rows of one table, the widest basis's asked for so far, not a
+        [dim, n] table a basis (on the card only the plain twin reads them:
+        the NTT kernels read their plan's own)."""
         if dim not in self._ba:
-            self._ba[dim] = rns_ops.make_basis_arrays(self.pctx, dim, self.device)
+            if self._twiddles is None or self._twiddles[0].shape[0] < dim:
+                self._twiddles = (u64_to_torch(self.pctx.zetas(dim), self.device),
+                                  u64_to_torch(self.pctx.zetas_inv(dim), self.device))
+            self._ba[dim] = rns_ops.make_basis_arrays(self.pctx, dim, self.device,
+                                                      self._twiddles)
         return self._ba[dim]
 
     def recon(self, dim: int) -> rns_ops.ReconPlan:

@@ -20,8 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (GRAPH_ENGINES, GRAPH_INPUTS, GRAPH_OPS, HOISTED,  # the repository
-                        LIFT16, NTT16, bootstrap_cases, c2s_packing_case,    # root is on
+from chip_smoke import (DIGITS16, GRAPH_ENGINES, GRAPH_INPUTS, GRAPH_OPS,  # the repository
+                        HOISTED, LIFT16, NTT16, bootstrap_cases, c2s_packing_case,    # root is on
                         crt_chain_case, crt_chain_ring, equal_cts,           # sys.path
                         gemv_packing_case, graph_case, graph_check, kernel_ring,
                         oracle_module)
@@ -275,7 +275,8 @@ def test_cuda_kernel_at_the_n16_rings_shapes(cuda_device, mode, shape):
 
 
 _RING16 = {}
-RING16_CASES = ([("decompose", i) for i in range(2)] + [("crt_digit_split", i) for i in range(2)]
+RING16_CASES = ([("decompose", i) for i in range(2)]
+                + [("crt_digit_split", i) for i in range(len(DIGITS16))]
                 + [("crt_lift", i) for i in range(len(LIFT16))] + [("limbs_fill_rows", 0)])
 
 
@@ -284,11 +285,13 @@ RING16_CASES = ([("decompose", i) for i in range(2)] + [("crt_digit_split", i) f
 def test_cuda_elementwise_kernels_at_the_n16_rings_shapes(cuda_device, entry, i):
     """chip_smoke.py's ring16_cases, which its kernels16 phase times: decompose
     of [2^16, 55] limbs into 60 primes and, signed, into the key switch's
-    90; the digit split of [3, 60, 2^16] and, scaled, [90, 2^16]; the lift
+    90; the digit product at DIGITS16 ([3, 60, 2^16] and [2, 90, 2^16] to
+    110 digit sums, the exact [2, 30 of 90, 2^16], scaled, to 114); the lift
     at [2^16, 2K -> K] for K = 46, 88, 57 (exact) and from 90 primes to 55
     limbs (fast); ecd's fill of 8 rows of 55 limbs: each torch.equal to its
-    plain version (the digit split's f64 estimate within a relative 2^-45)
-    in one launch of its kernel."""
+    plain version (the digit sums as values mod 2^(16 kd), the f64 estimate
+    within a relative 2^-45: chip_smoke.ew_compare) in one launch of its
+    kernel."""
     from chip_smoke import ew_compare, ew_counters, ring16_cases
     if "cases" not in _RING16:
         _RING16["cases"] = ring16_cases(cuda_device)
@@ -301,6 +304,70 @@ def test_cuda_elementwise_kernels_at_the_n16_rings_shapes(cuda_device, entry, i)
     eq, err, extra = ew_compare(got, case["plain"]())
     assert eq, (entry, case["shape"], err, extra)
     assert after[entry] == before[entry] + 1
+
+
+# the reconstruct at the cells' shapes: (logn, leading axes, primes, rows of
+# the stack, k_out (None: the exact path, center=False), scaled): n14's
+# mul_rs product and key switch (c to 14 limbs over 24 primes, its exact r
+# over the first 8 of them), n15's product and key switch (31 and 47 primes
+# to 28 limbs), n16's product and key switch (60 and 90 primes to 55 limbs,
+# the exact r over the first 30 of 90: 57 limbs)
+RECON_SHAPES = ((14, (3, 8), 16, 16, 14, False), (14, (2, 8), 24, 24, 14, False),
+                (14, (2, 8), 8, 24, None, True), (15, (3,), 31, 31, 28, False),
+                (15, (2,), 47, 47, 28, False), (16, (3,), 60, 60, 55, False),
+                (16, (2,), 90, 90, 55, False), (16, (2,), 30, 90, None, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logn,lead,dim,rows,k_out,scaled", RECON_SHAPES)
+def test_cuda_reconstruct_through_the_digit_product(cuda_device, logn, lead, dim, rows, k_out,
+                                                    scaled):
+    """rns.reconstruct on the card, its digit product one launch of
+    rns_cuda.digit_sums (u8 products on the tensor cores), torch.equal to
+    the plain reconstruct (16-bit split, f64 matmul, plain lift) on the same
+    tensors: the fast path on values within its bound (|value| < 2^(logP -
+    3), pre-scaled residues as the key switch's c and mul_rs's product take
+    them), the exact path on any residues of a prime slice, scaled.  As a
+    CUDA graph, equal to graphs.disabled() at the capture and at a replay,
+    each call counted once in LAUNCHES["digit_split"] and RECON["imma"] and
+    never in RECON["matmul"]."""
+    from gpqhe_tpu_torch.ops import limbs as lb
+    from gpqhe_tpu_torch.ops import rns, rns_cuda
+    from gpqhe_tpu_torch.ops.modmath import plain_mont_mul
+    rng = np.random.default_rng(logn * 1000 + dim)
+    ring = RingEngine(PolyContext(logn, q=1 << 20, dim_cap=rows), device=cuda_device)
+    n, plan, ba = 1 << logn, ring.recon(dim), ring.ba(dim)
+    kd = min(2 * k_out, plan.ds) if k_out else plan.ds
+    if k_out:
+        bound = plan.logP - 3
+        vals = torch.from_numpy(rng.integers(0, 1 << 32, size=lead + (n, plan.ks))).to(cuda_device)
+        vals = lb.plain_mask_bits(vals, bound - 1)
+        vals = lb.plain_select(torch.from_numpy(rng.random(lead + (n,)) < 0.5).to(cuda_device),
+                               lb.plain_neg(vals), vals)
+        c = rns.decompose(vals, ba, ring.weights(dim, plan.ks), src_bits=32 * plan.ks)
+        y = plain_mont_mul(c, ba.phatinv_mont[:, None], ba.ps[:, None], ba.pinv[:, None])
+    else:
+        bound = None
+        p = np.asarray(ring.pctx.primes[:rows], dtype=np.uint64)[:, None]
+        stack = rng.integers(0, 1 << 63, size=lead + (rows, n), dtype=np.uint64) % p
+        y = torch.from_numpy(stack.view(np.int64)).to(cuda_device)[..., :dim, :]
+    scale = (ba.phatinv_mont, ba.ps, ba.pinv) if scaled else None
+    center = k_out is not None
+    want = rns.plain_lift(*rns.plain_digit_partials(y, plan, kd, scale), plan, center, k_out)
+
+    def recon(y):
+        return rns.reconstruct(y, ba, plan, center=center, k_out=k_out, bound_bits=bound,
+                               pre_scaled=not scaled)
+    prog = graphs.Graphs().program(recon, ("reconstruct", logn, dim))
+    with graphs.disabled():
+        eager = recon(y)
+    before = (rns_cuda.LAUNCHES["digit_split"], rns.RECON["imma"], rns.RECON["matmul"])
+    first, again = prog(y), prog(y)
+    torch.cuda.synchronize()
+    assert torch.equal(eager, want)
+    assert torch.equal(first, want) and torch.equal(again, want)
+    assert (rns_cuda.LAUNCHES["digit_split"], rns.RECON["imma"], rns.RECON["matmul"]) == \
+        (before[0] + 2, before[1] + 2, before[2])
 
 
 def _run_deep(device, logp):
@@ -603,8 +670,9 @@ def test_cuda_elementwise_kernels_match_plain(cuda_device, logn, logp):
     """Every entry of the modmath, decompose, CRT-lift and limb kernels
     torch.equal to its plain torch version on the same CUDA tensors, at the
     paths' shapes of the ring (logn=14: dims 16/24/26 or 31/47/50; logn=15:
-    31/47/48; batch 8) on edge words; digit_split's f64 estimate within a
-    relative 2^-45 (summed in another order)."""
+    31/47/48; batch 8) on edge words; the digit product's sums as values
+    mod 2^(16 kd), its f64 estimate within a relative 2^-45 (summed in
+    another order)."""
     from chip_smoke import ew_compare, ew_counters, elementwise_cases
     before = ew_counters()
     cases = elementwise_cases(logn, logp, cuda_device)
@@ -635,17 +703,18 @@ def _edge_cases(device):
                                    "limbs_from_digits16", "crt_lift", "decompose",
                                    "crt_digit_split"])
 def test_cuda_row_kernels_at_tile_edges(cuda_device, entry):
-    """K7, the CRT lift, decompose and the digit split at the edges of their
+    """K7, the CRT lift, decompose and the digit product at the edges of their
     designs (chip_smoke.py's elementwise_edge_cases): K = 1 .. 3071 limbs
     around whole chunks of 32, rows not a multiple of a block's, constant,
     broadcast (two leading rows), row-strided and limb-strided operands
     through cuda_build.strides3, bool and int64 row bits, the lift at one,
     two and four chunks; decompose around its tiles of primes and staged
     chunks of limbs, at every src_bits edge, on the three widths of prime;
-    the digit split around its blocks of coefficients and warps of primes,
-    on strided, broadcast and misaligned residues; each launch torch.equal
-    to the plain version on the same CUDA tensors (the split's f64 estimate
-    within a relative 2^-45: chip_smoke.ew_compare)."""
+    the digit product around its blocks of coefficients and byte columns
+    and its chunks of depth, on strided, broadcast and misaligned residues;
+    each launch torch.equal to the plain version on the same CUDA tensors
+    (the digit sums as values mod 2^(16 kd), the f64 estimate within a
+    relative 2^-45: chip_smoke.ew_compare)."""
     from chip_smoke import ew_compare, ew_counters
     cases = [c for c in _edge_cases(cuda_device) if c["entry"] == entry]
     before = ew_counters()[entry]

@@ -459,8 +459,8 @@ def test_lift_model(path, logp):
 
 
 def test_digit_split_is_the_matmul_operand():
-    """plain_digit_split's Y column t * dim + d holds digit t of y_d, as
-    rns.cu's digit_split writes it; af = sum_d y_d / p_d."""
+    """plain_digit_split's Y column t * dim + d holds digit t of y_d, the
+    operand of plain_digit_partials' f64 matmul; af = sum_d y_d / p_d."""
     tp = CHAINS[59][1]
     dim = 5
     plan = tr.make_recon_plan(tp, dim, "cpu")
@@ -740,7 +740,7 @@ def test_ntt_twin_binds_only_plain_modmath():
 
 DISPATCHED = {tm: ["mont_mul", "mulmod", "to_mont", "addmod", "submod", "summod", "cross_terms",
                    "key_products", "mulmod_sum"],
-              tr: ["decompose_core", "decompose", "digit_split", "_digit_partials", "_lift"],
+              tr: ["decompose_core", "decompose", "_digit_partials", "_lift"],
               tl: ["add", "sub", "neg", "add_scalar_bit", "select", "geq_const", "mask_bits",
                    "rshift_round", "rshift_round_mask", "from_digits16", "fill_rows"]}
 
@@ -780,9 +780,12 @@ def _bad_calls():
                             "contiguous"),
         "decompose primes": (lambda: rns_cuda.decompose(limbs, p[:, 0], p[:2, 0],
                                                         torch.zeros((3, 3), dtype=i64)), "primes"),
-        "digit_split dtype": (lambda: rns_cuda.digit_split(x.double(), 4, plan.inv_p), "int64"),
-        "digit_split primes": (lambda: rns_cuda.digit_split(torch.zeros((4, 16), dtype=i64), 4,
-                                                            plan.inv_p), "primes"),
+        "digit_split dtype": (lambda: rns_cuda.digit_sums(x.double(), plan, 4), "int64"),
+        "digit_split primes": (lambda: rns_cuda.digit_sums(torch.zeros((4, 16), dtype=i64), plan,
+                                                           4), "primes"),
+        "digit_split width": (lambda: rns_cuda.digit_sums(x, plan, plan.ds + 1), "digit sums"),
+        "digit_split table": (lambda: rns_cuda.digit_sums(
+            x, dataclasses.replace(plan, phat_bytes=plan.phat_bytes[:, 1:]), 4), "byte table"),
         "lift table": (lambda: rns_cuda.lift(
             torch.zeros((16, 4), dtype=torch.float64), torch.zeros(16, dtype=torch.float64),
             dataclasses.replace(plan, P_limbs=torch.zeros((plan.ks, 2), dtype=i64)[:, 0]),
@@ -863,7 +866,7 @@ def test_sources_name_their_kernels():
 # (module, its kernel's name, the dispatched entries that launch one kernel
 # each, as their callers reach them)
 _ENTRIES = [(tm, "modmath", DISPATCHED[tm]),
-            (tr, "rns", ["decompose_core", "digit_split", "_lift"]),
+            (tr, "rns", ["decompose_core", "_digit_partials", "_lift"]),
             (tl, "limbs", DISPATCHED[tl])]
 
 
@@ -951,18 +954,24 @@ def test_launch_model_of_the_main_path():
     mul = launch_model(lambda: eng.mul_rs(ct, ct, rlk))
     rot = launch_model(lambda: eng.rot(ct, 1, rk))
     # mul_rs: 2 decomposes (the 4 polys in one, then d2), 3 reconstructs
-    # (digit_split + lift each: the 3 products in one, the key switch's c and
-    # r of both halves), the cross terms and key products, the limb steps of
-    # one divide-round of both halves and the rescale; 4 NTT launches of 2
-    # passes; beside them the inputs' stack, the digit matmuls and the cast
-    # of the key switch (from 5 decomposes, 7 reconstructs, 19 limb and 18
-    # torch launches when each poly and half went alone: 66 launches -> 39)
+    # (the digit product + lift each: the 3 products in one, the key
+    # switch's c and r of both halves), the cross terms and key products,
+    # the limb steps of one divide-round of both halves and the rescale; 4
+    # NTT launches of 2 passes; beside them the inputs' stack and
+    # mul_const_mod2k's digits (&, >>: their two writes into its f64 buffer
+    # are in-place copies, which this model takes for views) and product
+    # (from 5 decomposes, 7 reconstructs, 19 limb and 18 torch launches when
+    # each poly and half went alone: 66 launches -> 39; 34 since the digit
+    # product took the reconstructs' three digit matmuls and the digits
+    # their int64 stack's cast)
     assert mul["ntt"] == 8 and mul["rns"] == 2 + 2 * 3 and mul["modmath"] == 2
-    assert mul["limbs"] == 12 and sum(mul["other torch"].values()) == 9, mul
-    # rot: 1 decompose, 2 reconstructs (from 4), 13 limb and 11 torch
-    # launches (from 18 and 18: 50 -> 34)
+    assert mul["limbs"] == 12 and sum(mul["other torch"].values()) == 4, mul
+    # the one matrix product left is mul_const_mod2k's
+    assert sum(v for k, v in mul["other torch"].items() if k in ("mm", "bmm")) == 1, mul
+    # rot: 1 decompose, 2 reconstructs (from 4), 13 limb and 7 torch
+    # launches (from 18 and 18: 50 -> 30)
     assert rot["ntt"] == 4 and rot["rns"] == 1 + 2 * 2 and rot["modmath"] == 1
-    assert rot["limbs"] == 13 and sum(rot["other torch"].values()) == 11, rot
+    assert rot["limbs"] == 13 and sum(rot["other torch"].values()) == 7, rot
     # before the kernels: the same program's chains, launch by launch
     before = launch_model(lambda: eng.mul_rs(ct, ct, rlk), plain=True)
     assert before["ntt"] == 8 and before["other torch"] == mul["other torch"]
@@ -988,14 +997,15 @@ def test_launch_model_of_mul_rs_on_the_matmul_backend():
     assert bf["ntt"] == 8 and bf["ntt4"] == 0
     # 16 K8 launches (split + combine) and 8 torch.bmm before the fused stage
     assert mm["ntt"] == 0 and mm["ntt4"] == 4 * 2
-    # no digit GEMM left in torch: the reconstructs' digit matmuls are the
-    # only bmm launches, on both backends
+    # no digit GEMM left in torch: the torch launches are the butterfly
+    # engine's, on both backends
     assert mm["other torch"] == bf["other torch"]
     assert all(mm[k] == bf[k] for k in ("rns", "modmath", "limbs"))
-    # 39 launches on both backends (55 on matmul before the fused stage)
+    # 34 launches on both backends (55 on matmul before the fused stage, 39
+    # before the reconstructs' digit product left torch.matmul)
     total = {k: sum(v[m] for m in ("ntt", "ntt4", "rns", "modmath", "limbs"))
              + sum(v["other torch"].values()) for k, v in got.items()}
-    assert total == {"butterfly": 39, "matmul": 39}, total
+    assert total == {"butterfly": 34, "matmul": 34}, total
 
 
 def test_launch_model_counts_a_plain_mulmod():

@@ -325,7 +325,9 @@ def test_cpu_tensors_never_reach_the_kernels():
 
 
 def test_model_constants_match_the_source():
-    src = open(ntt4_cuda.SOURCE).read()
+    # the stage with the headers it includes (its mma and ldmatrix wrappers
+    # are csrc/mma.cuh's, which the digit product shares)
+    src = cuda_build._with_includes(ntt4_cuda.SOURCE).decode()
     defs = dict(re.findall(r"^#define (\w+) (\d+)", src, flags=re.M))
     for name in ("THREADS", "TILE_M8", "TILE_M4", "TILE_M_MIN", "TILE_J", "WARP_M", "WARP_J",
                  "PAD", "MAX_K", "LOAD_ITEMS"):

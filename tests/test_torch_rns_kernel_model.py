@@ -1,14 +1,22 @@
-"""K4 decompose and K6's digit split (csrc/rns.cu) without a card: the
+"""K4 decompose and K6's digit product (csrc/rns.cu) without a card: the
 numpy model of each kernel (tests/torch_rns_model.py) against Python
 integers and the plain torch versions.
 
   - decompose's arithmetic (the limb constants made from the weights, the
     32 x 64-bit products summed in four 32-bit words by the PTX carry
-    chain, one Montgomery reduction a group of 256 limbs, the signed form) on edge rows: all 0xFFFFFFFF, 0, the
-    multiples of p and their neighbours, two's-complement values at every
-    src_bits edge, on the 59-bit, logp=29 and logp=9 primes;
-  - both launches' work split (blocks, tiles of primes, lanes and warps,
-    staged chunks, the slab loop, the 16-byte pairs): every output word
+    chain, one Montgomery reduction a group of 256 limbs, the signed form)
+    on edge rows: all 0xFFFFFFFF, 0, the multiples of p and their
+    neighbours, two's-complement values at every src_bits edge, on the
+    59-bit, logp=29 and logp=9 primes;
+  - the digit product's arithmetic (the residues' byte planes against the
+    plan's u8 table, the s32 byte-column sums and their bound, the combine
+    into 16-bit digit sums): the digit sums equal plain_digit_partials'
+    value mod 2^(16 kd), and lifted by plain_lift the plain reconstruct,
+    on both widths of residue, fast and exact, scaled and pre-scaled, at
+    1-128 primes, rows and depth off the tiles' edges, and on a mesh
+    shard's table;
+  - both launches' work split (blocks, tiles of primes or byte columns,
+    lanes and warps, staged chunks, the slab loop): every output word
     written once, through ops/rns_cuda.py's wrappers as they call the
     library, on chip_smoke.py's edge cases (the card runs the same ones);
   - the model's constants against rns.cu's #defines.
@@ -95,12 +103,20 @@ def _defines(path):
 
 def test_rns_constants_mirror_the_source():
     d = _defines(rns_cuda.SOURCE)
-    for name in ("DEC_WARPS", "DEC_ROWS", "DEC_PRIMES", "DEC_KC", "DEC_GROUP", "SPLIT_WARPS",
-                 "SPLIT_COEFS"):
+    for name in ("DEC_WARPS", "DEC_ROWS", "DEC_PRIMES", "DEC_KC", "DEC_GROUP", "DS_WARPS",
+                 "DS_WARP_M", "DS_WARP_N", "DS_DEPTH", "DS_PAD", "DS_BLOCKS_AN_SM",
+                 "DS_OUT_PAD"):
         assert d[name] == getattr(rm, name), name
+    assert rns_cuda.DEPTH == rm.DS_DEPTH
     # a warp takes two primes of a tile and a lane two rows, 32 apart
     assert rm.DEC_PRIMES == 2 * rm.DEC_WARPS and rm.DEC_ROWS == 64
-    assert rm.SPLIT_COEFS == 2 * 32 and rm.DEC_GROUP % rm.DEC_KC == 0
+    assert rm.DEC_GROUP % rm.DEC_KC == 0
+    # the digit product: a block's bm x bn tile, 256 / wn rows against 64 wn
+    # byte columns, and a row of a chunk 16 bytes past its 128 (ldmatrix's
+    # rows an odd number of 16-byte units apart)
+    assert [rm.launch_shape(kd)[1:] for kd in (32, 64, 128)] == [(256, 64), (128, 128),
+                                                                 (64, 256)]
+    assert ((rm.DS_DEPTH + rm.DS_PAD) // 16) % 2 == 1
 
 
 def test_fastdiv_splits_the_staged_chunks():
@@ -157,29 +173,36 @@ def test_decompose_launches_at_the_edges(model_lib, edge_cases):
 
 
 def test_digit_split_launches_at_the_edges(model_lib, edge_cases):
-    """chip_smoke.py's digit-split edge cases through the wrapper and the
-    model: the digits equal the plain version's, af within a relative
-    2^-45 (ew_compare), every digit and estimate written once, and the
-    16-byte pairs, the word stores, the 16-byte loads and the word loads all
-    taken, at 1, 2 and 4 digits, scaled or not."""
+    """chip_smoke.py's digit-product edge cases through the wrapper and the
+    model of the launch (rns_cuda.digit_sums): the digit sums equal the
+    plain version's as values mod 2^(16 kd), af within a relative 2^-45
+    (ew_compare), every digit sum and estimate written once, every byte
+    column left to a warp, and every branch of the design taken (one, two
+    and four warps across the columns, a second block of columns, residues
+    of 4 and 8 bytes, scaled or not, partial blocks of rows and chunks of
+    depth, five chunks)."""
     seen = []
     for case in (c for c in edge_cases if c["entry"] == "crt_digit_split"):
         out, plans = _run(model_lib, case)
         eq, err, extra = ew_compare(out, case["plain"]())
         assert eq, (case["shape"], err, extra)
+        assert len(plans) == (1 if out[1].numel() else 0), case["shape"]
         seen += plans
-    for key, want in (("pair", {True, False}), ("vload", {True, False}), ("nd", {1, 2, 4}),
-                      ("scaled", {True, False}), ("partial_block", {True, False})):
+    for key, want in (("wn", {1, 2, 4}), ("col_blocks", {1, 2}), ("nb", {4, 8}),
+                      ("scaled", {True, False}), ("partial_block", {True, False}),
+                      ("partial_depth", {True, False})):
         assert want <= {p[key] for p in seen}, key
-    assert max(p["primes_a_warp"] for p in seen) >= 6
+    assert max(p["chunks"] for p in seen) >= 5
 
 
 @pytest.mark.parametrize("K", [3, 70])
 def test_slab_loop_past_the_grid(model_lib, K):
-    """More slabs than blocks on the grid's last axis (65535 on the card; 2
+    """More slabs than blocks on the grid's slab axis (65535 on the card; 2
     here): a block walks slab after slab, decompose making its constants
-    once where a row fits one chunk, and every word is written once."""
-    model_lib.grid_z = 2
+    once where a row fits one chunk; the digit product's persistent blocks
+    (two an SM; one SM here) walk tile after tile; every word is written
+    once."""
+    model_lib.grid_z, model_lib.sms = 2, 1
     pctx = CHAINS[59]
     rng = np.random.default_rng(4)
     ba = tr.make_basis_arrays(pctx, 5, "cpu")
@@ -192,6 +215,162 @@ def test_slab_loop_past_the_grid(model_lib, K):
     plan = tr.make_recon_plan(pctx, 5, "cpu")
     y = torch.from_numpy((rng.integers(0, 1 << 62, size=(5, 5, 70), dtype=np.uint64)
                           % np.asarray(pctx.primes[:5], dtype=U)[:, None]).view(np.int64))
-    assert ew_compare(rns_cuda.digit_split(y, plan.nd, plan.inv_p),
-                      tr.plain_digit_split(y, plan.nd, plan.inv_p))[0]
+    assert ew_compare(rns_cuda.digit_sums(y, plan, plan.ds),
+                      tr.plain_digit_partials(y, plan, plan.ds))[0]
     assert model_lib.plans[-1]["slab_loop"]
+
+
+# ---------------------------------------------------------------------------
+# the digit product's arithmetic
+# ---------------------------------------------------------------------------
+
+_DIGIT_RINGS = {}
+
+
+def _digit_ring(logp):
+    """A logn=8 ring of 128 primes of the chain's width."""
+    if logp not in _DIGIT_RINGS:
+        _DIGIT_RINGS[logp] = PolyContext(8, q=1 << 20, logp=logp, dim_cap=128)
+    return _DIGIT_RINGS[logp]
+
+
+def _in_bound_residues(rng, pctx, ba, plan, lead, n, bound):
+    """Residues [lead, dim, n] of signed values |v| < 2^bound (half of them
+    negative), through the plain decompose."""
+    from gpqhe_tpu_torch.ops import limbs as lb
+    vals = torch.from_numpy(rng.integers(0, 1 << 32, size=lead + (n, plan.ks)))
+    vals = lb.plain_mask_bits(vals, bound - 1)
+    vals = lb.plain_select(torch.from_numpy(rng.random(lead + (n,)) < 0.5), lb.plain_neg(vals),
+                           vals)
+    w = torch.from_numpy(tr.make_decomp_weights(pctx, plan.dim, plan.ks).view(np.int64))
+    return tr.decompose(vals, ba, w, src_bits=32 * plan.ks)
+
+
+def _digit_values(sums, kd):
+    """The value sum_j sums_j 2^(16 j) mod 2^(16 kd) of digit sums, as limbs."""
+    from gpqhe_tpu_torch.ops import limbs as lb
+    return lb.plain_from_digits16(sums.to(torch.int64), kd // 2)
+
+
+@pytest.mark.parametrize("scaled", [True, False], ids=["scaled", "pre_scaled"])
+@pytest.mark.parametrize("path", ["fast", "exact"])
+@pytest.mark.parametrize("dim", [1, 8, 24, 31, 47, 60, 90, 128])
+@pytest.mark.parametrize("logp", [59, 29])
+def test_digit_product_lifts_to_the_plain_reconstruct(model_lib, logp, dim, path, scaled):
+    """The model of rns_cuda.digit_sums (byte planes of the residues against
+    the plan's u8 table, s32 byte-column sums, combined into 16-bit digit
+    sums) on [2, dim, 333] residues, rows off every block's edge and the
+    depth nb dim (8 bytes a residue on the 59-bit chain, 4 on logp=29) on
+    and off its chunks' edges: the digit sums equal plain_digit_partials'
+    as values mod 2^(16 kd), and plain_lift of them is torch.equal to the
+    plain reconstruct: the fast path (kd = 2 k_out) on values within its
+    bound, the exact path (kd = ds) on any residues."""
+    rng = np.random.default_rng(dim * 7 + logp)
+    pctx = _digit_ring(logp)
+    plan, ba = tr.make_recon_plan(pctx, dim, "cpu"), tr.make_basis_arrays(pctx, dim, "cpu")
+    lead, n = (2,), 333
+    if path == "fast":
+        bound = plan.logP - 3
+        k_out = max(1, min(plan.ks, (bound + 31) // 32))
+        c = _in_bound_residues(rng, pctx, ba, plan, lead, n, bound)
+        center = True
+    else:
+        bound = k_out = None
+        p = np.asarray(pctx.primes[:dim], dtype=U)[:, None]
+        c = torch.from_numpy((rng.integers(0, 1 << 63, size=lead + (dim, n), dtype=U) % p)
+                             .view(np.int64))
+        center = dim % 2 == 0
+    scale = (ba.phatinv_mont, ba.ps, ba.pinv)
+    y = c if scaled else tr.plain_mont_mul(c, ba.phatinv_mont[:, None], ba.ps[:, None],
+                                           ba.pinv[:, None])
+    kd = min(2 * k_out, plan.ds) if k_out else plan.ds
+    sums, af = rns_cuda.digit_sums(y, plan, kd, scale if scaled else None)
+    assert model_lib.plans[-1]["nb"] == (8 if logp == 59 else 4)
+    assert sums.dtype == torch.int64 and sums.shape == lead + (n, kd)
+    psd, paf = tr.plain_digit_partials(y, plan, kd, scale if scaled else None)
+    assert torch.equal(_digit_values(sums, kd), _digit_values(psd, kd))
+    assert ((af - paf).abs() <= 2.0 ** -45 * paf.abs()).all()
+    want = tr.reconstruct(y, ba, plan, center=center, k_out=k_out, bound_bits=bound,
+                          pre_scaled=not scaled)
+    assert torch.equal(tr.plain_lift(sums, af, plan, center, k_out), want)
+
+
+def test_digit_product_column_sums_stay_in_s32():
+    """The bound the kernel's s32 accumulators rest on: a byte-column sum is
+    at most nb dim 255^2, below 2^31 for dim <= 4128 at nb = 8; at 128 primes
+    the model's extreme (every byte of the residues and of the table 255)
+    reaches nb dim 255^2, and the combined digit sums stay below 2^40, inside
+    from_digits16's 2^48."""
+    assert 8 * 4128 * 255**2 < 2**31 <= 8 * 4129 * 255**2
+    a = np.full((3, 8 * 128), 255, dtype=np.uint8)
+    t = np.full((16, 8 * 128), 255, dtype=np.uint8)
+    cols = rm.column_sums(a, t, 16)
+    assert (cols == 8 * 128 * 255**2).all()
+    assert rm.combine16(cols).max() < 2**40
+    with pytest.raises(AssertionError, match="s32"):
+        rm.column_sums(np.full((1, 8 * 4129), 255, dtype=np.uint8),
+                       np.full((2, 8 * 4129), 255, dtype=np.uint8), 2)
+
+
+def test_phat_byte_table_holds_the_bytes_of_phat():
+    """Row c, column d nb + t of the table is byte c - t of phat_d: the
+    residues' byte planes against it sum to S = sum_d y_d phat_d mod
+    2^(16 ds), checked on Python integers (nb = 8 and 4)."""
+    rng = np.random.default_rng(5)
+    for logp, dim in ((59, 5), (29, 9)):
+        pctx = _digit_ring(logp)
+        plan = tr.make_recon_plan(pctx, dim, "cpu")
+        b = pctx.basis(dim)
+        nb = rns_cuda.residue_bytes(plan.nd)
+        y = rng.integers(0, 1 << 62, size=(4, dim), dtype=U) % np.asarray(b.primes, dtype=U)
+        cols = rm.column_sums(rm.byte_planes(y, nb), plan.phat_bytes.numpy(), 2 * plan.ds)
+        for row, c in zip(y, cols):
+            got = sum(int(v) << (8 * j) for j, v in enumerate(c))
+            want = sum(int(v) * ph for v, ph in zip(row, b.phat))
+            assert got % (1 << (16 * plan.ds)) == want % (1 << (16 * plan.ds))
+
+
+def test_digit_product_on_a_shard_plan(model_lib):
+    """A mesh shard's plan (make_recon_plan(rows=...)) holds its rows of the
+    whole table, and zeros for rows past the basis: the shards' digit sums
+    and estimates, added (reconstruct_sharded's psum), lift to the whole
+    basis's exact reconstruct."""
+    rng = np.random.default_rng(9)
+    pctx = _digit_ring(59)
+    dim, n, cut = 10, 200, ((0, 4), (4, 8), (8, 12))
+    full, ba = tr.make_recon_plan(pctx, dim, "cpu"), tr.make_basis_arrays(pctx, dim, "cpu")
+    nb = rns_cuda.residue_bytes(full.nd)
+    p = np.asarray(pctx.primes[:dim], dtype=U)[:, None]
+    y = torch.from_numpy((rng.integers(0, 1 << 63, size=(dim, n), dtype=U) % p).view(np.int64))
+    pad = lambda t: torch.cat([t, torch.zeros_like(t[:2])])          # noqa: E731
+    yp, sc = pad(y), pad(ba.phatinv_mont)
+    ps, pv = torch.cat([ba.ps, ba.ps[:2]]), torch.cat([ba.pinv, ba.pinv[:2]])
+    total, af = 0, 0
+    for r0, r1 in cut:
+        shard = tr.make_recon_plan(pctx, dim, "cpu", rows=(r0, r1))
+        live = min(r1, dim) - r0
+        assert torch.equal(shard.phat_bytes[:, :nb * live],
+                           full.phat_bytes[:, nb * r0:nb * (r0 + live)])
+        assert not shard.phat_bytes[:, nb * live:].any()
+        s, a = rns_cuda.digit_sums(yp[r0:r1], shard, full.ds, (sc[r0:r1], ps[r0:r1], pv[r0:r1]))
+        total, af = total + s, af + a
+    want = tr.reconstruct(y, ba, full, center=True)
+    assert torch.equal(tr.plain_lift(total, af, full, True, None), want)
+
+
+def test_recon_counts_each_digit_product_by_route():
+    """RECON counts a reconstruct's digit product once, by its route (on a
+    CPU tensor the plain split and torch.matmul), and a graphed program's
+    replays count it again, as its launches are."""
+    from gpqhe_tpu_torch.utils import graphs
+    from torch_standin import StandIn
+    pctx = _digit_ring(59)
+    plan, ba = tr.make_recon_plan(pctx, 6, "cpu"), tr.make_basis_arrays(pctx, 6, "cpu")
+    p = np.asarray(pctx.primes[:6], dtype=U)[:, None]
+    y = torch.from_numpy((np.random.default_rng(2).integers(0, 1 << 63, size=(6, 64), dtype=U)
+                          % p).view(np.int64))
+    prog = graphs.Graphs(StandIn()).program(lambda y: tr.reconstruct(y, ba, plan), ("recon",))
+    before = dict(tr.RECON)
+    outs = [prog(y) for _ in range(3)]
+    assert tr.RECON == {"imma": before["imma"], "matmul": before["matmul"] + 3}
+    assert all(torch.equal(o, tr.reconstruct(y, ba, plan)) for o in outs)

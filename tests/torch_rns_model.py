@@ -1,12 +1,15 @@
-"""K4 decompose and K6's digit split (csrc/rns.cu) in numpy, for the CPU
+"""K4 decompose and K6's digit product (csrc/rns.cu) in numpy, for the CPU
 tests of both kernels: each launch's work split as the kernel makes it
-(which block takes which rows or coefficients and which tile of primes,
-which lane and warp of it which outputs, the slab loop past 65535 blocks,
-the staged chunks of 64 limbs, the 16-byte pairs) and its arithmetic as
-the kernel runs it (the limb constants made from the weights, the 32 x
-64-bit products summed in four 32-bit words by the PTX carry chain, one
-Montgomery reduction a group of 256 limbs, the signed form), on native
-u64 words, vectorised over rows.
+(which block takes which rows or coefficients and which tile of primes or
+byte columns, which lane and warp of it which outputs, the slab loop past
+65535 blocks, the staged chunks of 64 limbs, the chunks of 128 bytes of
+depth) and its arithmetic as the kernel runs it (decompose: the limb
+constants made from the weights, the 32 x 64-bit products summed in four
+32-bit words by the PTX carry chain, one Montgomery reduction a group of
+256 limbs, the signed form; the digit product: the residues' byte planes
+against the plan's u8 table, the s32 byte-column sums and their bound, the
+combine into 16-bit digit sums, af in the kernel's order), on native u64
+words, vectorised over rows.
 
 ModelLib stands in for the built library at its C interface: the wrappers
 of ops/rns_cuda.py call it with the same arguments (pointers, strides,
@@ -27,8 +30,15 @@ DEC_ROWS = 64             # rns.cu: rows of a decompose block, two a lane
 DEC_PRIMES = 16           # rns.cu: primes of a block's tile, two a warp
 DEC_KC = 64               # rns.cu: limbs of a row staged at a time
 DEC_GROUP = 256           # rns.cu: limbs summed before a reduction
-SPLIT_WARPS = 8           # rns.cu: warps of a digit-split block
-SPLIT_COEFS = 64          # rns.cu: coefficients of a digit-split block, two a lane
+DS_WARPS = 8              # rns.cu: warps of a digit-product block
+DS_WARP_M = 32            # rns.cu: a warp's coefficients (two m16 fragments)
+DS_WARP_N = 64            # rns.cu: a warp's byte columns (eight n8 fragments)
+DS_DEPTH = 128            # rns.cu: bytes of depth a chunk
+DS_PAD = 16               # rns.cu: bytes past a row's chunk in shared memory
+DS_BLOCKS_AN_SM = 2       # rns.cu: the digit product's persistent blocks an SM
+DS_OUT_PAD = 4            # rns.cu: words past a row of a warp's staged digit sums
+SMS = 132                 # the H100's SMs
+DS_TILE = DS_WARPS * DS_WARP_M * DS_WARP_N
 GRID_Z = 65535            # the launches' largest grid.y / grid.z
 
 
@@ -172,6 +182,73 @@ def decompose_rows(x, w, p, pinv, src_bits=0):
 
 
 # ---------------------------------------------------------------------------
+# the digit product's arithmetic
+# ---------------------------------------------------------------------------
+
+def byte_planes(x, nb: int):
+    """Residues x u64 [rows, dim] (each < 2^(8 nb)) -> the A operand u8
+    [rows, nb dim]: column d nb + t holds byte t of x_d, the residue's own
+    little-endian bytes, as the kernel copies them."""
+    assert nb == 8 or (x >> U(8 * nb) == 0).all(), "a residue past nb bytes"
+    b = np.ascontiguousarray(x, dtype="<u8").view(np.uint8).reshape(x.shape + (8,))
+    return b[..., :nb].reshape(x.shape[0], -1)
+
+
+def column_sums(a, table, cols: int):
+    """The s32 byte-column sums of the product: a u8 [rows, depth'] against
+    the table's first `cols` rows (u8 [cols, depth >= depth']) -> int64
+    [rows, cols], each checked below 2^31 (the mma's s32 accumulator)."""
+    b = table[:cols, :a.shape[1]].astype(np.int64)
+    out = a.astype(np.int64) @ b.T
+    assert (out < 2**31).all(), "a byte-column sum past s32"
+    return out
+
+
+def combine16(cols):
+    """Byte columns 2j and 2j + 1 -> 16-bit digit sum j = B_2j + 256 B_2j+1."""
+    return cols[..., 0::2] + (cols[..., 1::2] << 8)
+
+
+def launch_shape(kd: int):
+    """(wn, bm, bn): warps across the columns, a block's coefficients and
+    byte columns (rns.cu gpqhe_rns_digit_sums)."""
+    wn = 1 if 2 * kd <= DS_WARP_N else 2 if 2 * kd <= 2 * DS_WARP_N else 4
+    bn = DS_WARP_N * wn
+    return wn, DS_TILE // bn, bn
+
+
+def af_in_order(x, inv_p, nb: int, bm: int):
+    """af of each row as the kernel sums it: thread u of the row's qs threads
+    adds y_d / p_d of the primes u, u + qs, ... of each chunk, chunk after
+    chunk, then the threads' sums in order (f64 products and sums; the card
+    may contract them into FMAs)."""
+    rows, dim = x.shape
+    dcp, qs = DS_DEPTH // nb, DS_WARPS * 32 // bm
+    terms = x.view(np.int64).astype(np.float64) * inv_p[None, :]
+    parts = []
+    for uu in range(qs):
+        ap = np.zeros(rows)
+        for d0 in range(0, dim, dcp):
+            for d in range(d0 + uu, min(d0 + dcp, dim), qs):
+                ap = ap + terms[:, d]
+        parts.append(ap)
+    out = parts[0]
+    for ap in parts[1:]:
+        out = out + ap
+    return out
+
+
+def fetch_order(bm: int, nb: int):
+    """(row, prime of the chunk) of each residue copy of a chunk in the order
+    the block's threads issue them (thread i: copies i, i + 256, ...): 16 / nb
+    neighbouring lanes a row's 16-byte run, then the next row."""
+    e_ = 16 // nb
+    idx = np.arange(bm * (DS_DEPTH // nb))
+    e, rest = idx % e_, idx // e_
+    return rest % bm, (rest // bm) * e_ + e
+
+
+# ---------------------------------------------------------------------------
 # memory behind the wrappers' pointers
 # ---------------------------------------------------------------------------
 
@@ -192,11 +269,11 @@ def _strided(ptr, sizes, strides, ctype=ctypes.c_uint64):
 
 
 class ModelLib:
-    """The library's decompose and digit_split entries, run by the model;
+    """The library's decompose and digit_sums entries, run by the model;
     each call appends what it did to `plans`."""
 
-    def __init__(self, grid_z: int = GRID_Z):
-        self.grid_z = grid_z
+    def __init__(self, grid_z: int = GRID_Z, sms: int = SMS):
+        self.grid_z, self.sms = grid_z, sms
         self.plans = []
 
     def gpqhe_rns_decompose(self, S, n, K, ss, sn, dim, J, out, a, w, ps, psd, pinv, pvd,
@@ -239,52 +316,75 @@ class ModelLib:
                            "signed": bool(src_bits)})
         return 0
 
-    def gpqhe_rns_digit_split(self, S, dim, n, nd, Y, af, y, ys, yd, yk, scale, scd, ps, psd,
-                              pinv, pvd, inv_p, ipd, stream):
+    def gpqhe_rns_digit_sums(self, S, dim, n, nb, kd, sums, af, y, ys, yd, yk, scale, scd, ps,
+                             psd, pinv, pvd, inv_p, ipd, table, tdepth, stream):
+        if kd < 1 or tdepth % DS_DEPTH or nb * dim > tdepth or nb not in (4, 8):
+            return 1                                # cudaErrorInvalidValue
+        if S * n == 0:
+            return 0
         yv = _strided(y, (S, dim, n), (ys, yd, yk))
-        Yo = _mem(Y, S * nd * dim * n, ctypes.c_double).reshape(S, nd * dim, n)
+        So = _mem(sums, S * n * kd).reshape(S, n, kd)
         afo = _mem(af, S * n, ctypes.c_double).reshape(S, n)
         ip = _strided(inv_p, (dim,), (ipd,), ctypes.c_double)
+        tab = _mem(table, 2 * kd * tdepth, ctypes.c_uint8).reshape(2 * kd, tdepth)
         if scale:
             sc, P, V = (_strided(q, (dim,), (st,)).astype(U)
                         for q, st in ((scale, scd), (ps, psd), (pinv, pvd)))
-        seen_y = np.zeros((S, nd * dim, n), dtype=np.int64)
+        wn, bm, bn = launch_shape(kd)
+        tiles_k, tiles_c = -(-n // bm), -(-2 * kd // bn)
+        items = S * tiles_k * tiles_c
+        blocks = min(items, DS_BLOCKS_AN_SM * self.sms)
+        chunks = -(-nb * dim // DS_DEPTH)
+        seen_s = np.zeros((S, n, kd), dtype=np.int64)
         seen_af = np.zeros((S, n), dtype=np.int64)
-        gx, gy = -(-n // SPLIT_COEFS), min(S, self.grid_z)
-        pair = n % 2 == 0
-        vload = pair and yk == 1 and yd % 2 == 0 and ys % 2 == 0 and y % 16 == 0
-        lane = np.arange(32)
-        for bx in range(gx):
-            k = bx * SPLIT_COEFS + 2 * lane
-            k0, k1 = k[k < n], k[k + 1 < n] + 1          # a lane's first and second word
-            for by in range(gy):
-                for s in range(by, S, gy):
-                    part = np.zeros((SPLIT_WARPS, 32, 2))
-                    for warp in range(SPLIT_WARPS):
-                        for d in range(warp, dim, SPLIT_WARPS):
-                            v = np.zeros((32, 2), dtype=U)
-                            v[k < n, 0] = yv[s, d, k0]
-                            v[k + 1 < n, 1] = yv[s, d, k1]
-                            if scale:
-                                v = mont_mul(v, sc[d], P[d], V[d])
-                            part[warp] += v.view(np.int64).astype(np.float64) * ip[d]
-                            for t in range(nd):
-                                dig = ((v >> U(16 * t)) & U(0xFFFF)).astype(np.float64)
-                                Yo[s, t * dim + d, k0] = dig[k < n, 0]
-                                Yo[s, t * dim + d, k1] = dig[k + 1 < n, 1]
-                                seen_y[s, t * dim + d, k0] += 1
-                                seen_y[s, t * dim + d, k1] += 1
-                    a = part[0].copy()
-                    for warp in range(1, SPLIT_WARPS):
-                        a += part[warp]
-                    afo[s, k0] = a[k < n, 0]
-                    afo[s, k1] = a[k + 1 < n, 1]
-                    seen_af[s, k0] += 1
-                    seen_af[s, k1] += 1
-        assert (seen_y == 1).all() and (seen_af == 1).all(), \
+        # the warps' tiles: wn across the columns, 8 // wn down the rows
+        w = np.arange(DS_WARPS)
+        wr, wc = (w // wn) * DS_WARP_M, (w % wn) * DS_WARP_N
+        row, prime = fetch_order(bm, nb)
+        assert sorted(zip(row, prime)) == [(a, b) for a in range(bm)
+                                           for b in range(DS_DEPTH // nb)], "a copy missed"
+        maxcol, slabs = 0, {}
+        walked = [0] * blocks
+        for item in range(items):
+            walked[item % blocks] += 1          # block item % blocks takes it
+            q, tc = divmod(item, tiles_c)
+            s, tk = divmod(q, tiles_k)
+            c0, k0 = tc * bn, tk * bm
+            cols = min(2 * kd - c0, bn)
+            if s not in slabs:                  # the slab's arithmetic, all its rows at once
+                x = np.ascontiguousarray(yv[s].T).astype(U)             # [n, dim]
+                if scale:
+                    x = mont_mul(x, sc[None, :], P[None, :], V[None, :])
+                a = byte_planes(x, nb)
+                acc = np.zeros((n, 2 * kd), dtype=np.int64)
+                for ch in range(chunks):
+                    lo, hi = ch * DS_DEPTH, min(nb * dim, (ch + 1) * DS_DEPTH)
+                    acc += column_sums(a[:, lo:hi], tab[:, lo:hi], 2 * kd)
+                assert (acc < 2**31).all(), "a byte-column sum past s32"
+                maxcol = max(maxcol, int(acc.max(initial=0)))
+                slabs = {s: (combine16(acc), af_in_order(x, ip, nb, bm))}
+            d16, af_s = slabs[s]
+            live = np.clip(-(-(cols - wc) // 8), 0, DS_WARP_N // 8)
+            covered = {(a_, c) for a0, c1, lv in zip(wr, wc, live)
+                       for a_ in range(a0, a0 + DS_WARP_M) for c in range(c1, c1 + 8 * lv)}
+            assert all((a_, c) in covered for a_ in range(bm) for c in range(cols)), \
+                "a byte column of the tile left to no warp"
+            # the tile's epilogue, each warp's 16 rows of 32 sums at a time
+            # staged in the stage just worked: the rows below n, the cols / 2
+            # digit sums
+            assert DS_WARPS * 16 * (DS_WARP_N // 2 + DS_OUT_PAD) * 8 <= \
+                (bm + bn) * (DS_DEPTH + DS_PAD)
+            k = np.arange(k0, min(n, k0 + bm))
+            So[s, k, c0 // 2:c0 // 2 + cols // 2] = d16[k, c0 // 2:c0 // 2 + cols // 2]
+            seen_s[s, k, c0 // 2:c0 // 2 + cols // 2] += 1
+            if c0 == 0:
+                afo[s, k] = af_s[k]
+                seen_af[s, k] += 1
+        assert (seen_s == 1).all() and (seen_af == 1).all(), \
             "an output word written other than once"
-        self.plans.append({"entry": "digit_split", "grid": (gx, gy), "pair": pair,
-                           "vload": vload, "partial_block": n % SPLIT_COEFS != 0,
-                           "primes_a_warp": math.ceil(dim / SPLIT_WARPS), "nd": nd,
-                           "scaled": bool(scale), "slab_loop": S > gy})
+        self.plans.append({"entry": "digit_sums", "blocks": blocks, "wn": wn, "bm": bm,
+                           "nb": nb, "chunks": chunks, "col_blocks": tiles_c,
+                           "partial_depth": nb * dim % DS_DEPTH != 0,
+                           "partial_block": n % bm != 0, "scaled": bool(scale),
+                           "slab_loop": max(walked) > 1, "max_column": maxcol})
         return 0
