@@ -4,7 +4,8 @@
 # power limit, measured by the same script: NEW_DIR's chip_smoke.py, copied
 # into OLD_DIR as chip_smoke_turns.py so that there it imports OLD_DIR's
 # package (or OLD_DIR's own script: TURNS_OLD_SCRIPT below).  Each turn's output goes to OUT_DIR/<n>_<old|new>.log; the exit
-# code is the first non-zero one of the turns.
+# code is the first non-zero one of the turns.  The script imports its cases
+# from the tree it runs in (that tree's tests/torch_cases.py).
 #
 #   bash chip_turns.sh OLD_DIR NEW_DIR OUT_DIR [chip_smoke.py arguments ...]
 #

@@ -505,7 +505,7 @@ rns_digit_split_kernel_mma(i64 *__restrict__ sums, double *__restrict__ af, i64 
     }
 }
 
-// digit sums [R, kd] (f64 or int64, contiguous) and af [R] -> limbs [R, k_out]
+// int64 digit sums [R, kd] (contiguous) and af [R] -> limbs [R, k_out]
 // (exact: k_out = ks).  alpha = clamp(floor(af), 0, dim); the digits of
 // S + alpha (2^(16 ds) - P) are carried into limbs; then the fast path
 // subtracts P where af - alpha > 1/2, or the exact path corrects alpha by
@@ -518,9 +518,9 @@ rns_digit_split_kernel_mma(i64 *__restrict__ sums, double *__restrict__ af, i64 
 // corrections by ballots, chunk after chunk, the row's NCH limbs a lane and
 // the constant limbs and digits in registers.  WARP_GROUPS / NCH rows a
 // lane (four at two chunks kept a stack frame).
-template <typename T, int NCH>
+template <int NCH>
 __global__ void __launch_bounds__(ROWWARP_THREADS)
-rns_lift_kernel(u64 *out, i64 R, int kd, int kuse, const T *sd, const double *af, double dimf,
+rns_lift_kernel(u64 *out, i64 R, int kd, int kuse, const i64 *sd, const double *af, double dimf,
                 const i64 *negP16, int k_out, int exact, int center, const i64 *Pl,
                 const i64 *Phalf, const i64 *MminusP) {
     constexpr int RL = WARP_GROUPS / NCH;
@@ -549,8 +549,8 @@ rns_lift_kernel(u64 *out, i64 R, int kd, int kuse, const T *sd, const double *af
         for (int c = 0; c < NCH; ++c) {
             const int j0 = 2 * (32 * c + lg.i), j1 = j0 + 1;
             const bool l = live && lane_limb[c];
-            s0[u][c] = l && j0 < kuse ? (u64)(i64)__ldg(sd + row * kd + j0) : 0;
-            s1[u][c] = l && j1 < kuse ? (u64)(i64)__ldg(sd + row * kd + j1) : 0;
+            s0[u][c] = l && j0 < kuse ? (u64)__ldg(sd + row * kd + j0) : 0;
+            s1[u][c] = l && j1 < kuse ? (u64)__ldg(sd + row * kd + j1) : 0;
         }
         a[u] = live ? __ldg(af + row) : 0.0;
     }
@@ -659,9 +659,8 @@ extern "C" int gpqhe_rns_digit_sums(i64 S, int dim, i64 n, int nb, int kd, void 
     return (int)cudaGetLastError();
 }
 
-// digits_f64: 1 when the digit sums are f64 (the matmul's output), 0 for int64.
-extern "C" int gpqhe_rns_lift(i64 R, int kd, int digits_f64, const void *sd, const void *af,
-                              int dim, const void *negP16, int k_out, int exact, int center,
+extern "C" int gpqhe_rns_lift(i64 R, int kd, const void *sd, const void *af, int dim,
+                              const void *negP16, int k_out, int exact, int center,
                               const void *P, const void *Phalf, const void *MminusP,
                               void *out, void *stream) {
     if (k_out < 1 || k_out > 32 * MAX_CHUNKS || kd < 0) return (int)cudaErrorInvalidValue;
@@ -670,15 +669,11 @@ extern "C" int gpqhe_rns_lift(i64 R, int kd, int digits_f64, const void *sd, con
     const unsigned per_block = rows_a_block(k_out, WARP_GROUPS / nch);
     const unsigned blocks = (unsigned)((R + per_block - 1) / per_block);
     cudaStream_t s = (cudaStream_t)stream;
-#define LIFT(TY, N) rns_lift_kernel<TY, N><<<blocks, ROWWARP_THREADS, 0, s>>>(           \
-        (u64 *)out, R, kd, kuse, (const TY *)sd, (const double *)af, (double)dim,          \
+#define LIFT(N) rns_lift_kernel<N><<<blocks, ROWWARP_THREADS, 0, s>>>(                      \
+        (u64 *)out, R, kd, kuse, (const i64 *)sd, (const double *)af, (double)dim,         \
         (const i64 *)negP16, k_out, exact, center, (const i64 *)P, (const i64 *)Phalf,     \
         (const i64 *)MminusP)
-    if (digits_f64) {
-        if (nch == 1) LIFT(double, 1); else if (nch == 2) LIFT(double, 2); else LIFT(double, 4);
-    } else {
-        if (nch == 1) LIFT(i64, 1); else if (nch == 2) LIFT(i64, 2); else LIFT(i64, 4);
-    }
+    if (nch == 1) LIFT(1); else if (nch == 2) LIFT(2); else LIFT(4);
 #undef LIFT
     return (int)cudaGetLastError();
 }

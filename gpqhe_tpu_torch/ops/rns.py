@@ -16,8 +16,7 @@ ops/rns_cuda.py on a CUDA tensor; the plain versions call only plain
 versions.  The digit product of a reconstruct, _digit_partials, is the
 plain 16-bit digit split and an f64 torch.matmul on a CPU tensor, one
 launch of rns_cuda.digit_sums (u8 products on the tensor cores) on a CUDA
-tensor; RECON counts them by route on any device: imma (the kernel),
-matmul (torch.matmul), replayed with the graphs.  LIFT counts the lifts
+tensor, whose int64 digit sums the card's lift takes.  LIFT counts the lifts
 _lift makes on any device, by their operands: calls, rows, digit_words
 (rows x the digit sums a row reads) and limb_words (rows x the limbs a row
 writes).
@@ -37,7 +36,6 @@ from . import rns_cuda
 from .modmath import plain_mont_mul, u64_to_torch
 
 LIFT = cuda_build.counters({"calls": 0, "rows": 0, "digit_words": 0, "limb_words": 0})
-RECON = cuda_build.counters({"imma": 0, "matmul": 0})
 
 
 @dataclass(frozen=True)
@@ -283,9 +281,7 @@ def _digit_partials(y, plan: ReconPlan, kd: int, scale=None):
     rns_cuda.digit_sums, whose int64 digit sums are the plain version's
     value mod 2^(16 kd) (which the lift reads), not its columns."""
     if y.device.type == "cpu":
-        RECON["matmul"] += 1
         return plain_digit_partials(y, plan, kd, scale)
-    RECON["imma"] += 1
     return rns_cuda.digit_sums(y, plan, kd, scale)
 
 
@@ -337,14 +333,17 @@ def reconstruct_sharded(res: dict, consts: dict, psum, center: bool = True) -> d
 
     Always the exact full-width path: the digit partials are integers far
     below 2^53 (f64 on the CPU, int64 from rns_cuda.digit_sums on a card,
-    each shard's value mod 2^(16 ds) either way), so their sum is exact in
-    any order, and the +-1 limb compares make the result independent of
-    the last bits of the f64 sum of the alpha estimate.  The output
-    therefore equals reconstruct()'s whatever the number of shards."""
+    each shard's value mod 2^(16 ds) either way), summed as int64 (the
+    card's lift takes no other, and a mesh of the card and the host sums
+    both kinds), so their sum is exact in any order, and the +-1 limb
+    compares make the result independent of the last bits of the f64 sum
+    of the alpha estimate.  The output therefore equals reconstruct()'s
+    whatever the number of shards."""
     s_part, af_part = {}, {}
     for k, r in res.items():
         ps, pinv, phatinv_mont, plan = consts[k]
-        s_part[k], af_part[k] = _digit_partials(r, plan, plan.ds, (phatinv_mont, ps, pinv))
+        s, af_part[k] = _digit_partials(r, plan, plan.ds, (phatinv_mont, ps, pinv))
+        s_part[k] = s.to(torch.int64)
     s_sum, af_sum = psum(s_part), psum(af_part)
     return {k: _lift(s_sum[k], af_sum[k], consts[k][3], center, None) for k in res}
 

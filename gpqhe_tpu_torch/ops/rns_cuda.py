@@ -38,7 +38,7 @@ _ARGTYPES = {
                             _VP, _I64, _VP, _I64, _I32, _VP],
     "gpqhe_rns_digit_sums": [_I64, _I32, _I64, _I32, _I32, _VP, _VP, _VP, _I64, _I64, _I64,
                              _VP, _I64, _VP, _I64, _VP, _I64, _VP, _I64, _VP, _I32, _VP],
-    "gpqhe_rns_lift": [_I64, _I32, _I32, _VP, _VP, _I32, _VP, _I32, _I32, _I32,
+    "gpqhe_rns_lift": [_I64, _I32, _VP, _VP, _I32, _VP, _I32, _I32, _I32,
                        _VP, _VP, _VP, _VP, _VP],
 }
 
@@ -167,11 +167,11 @@ def digit_sums(y, plan, kd: int, scale=None) -> tuple[torch.Tensor, torch.Tensor
 
 
 def lift(s_digits, af, plan, center: bool, k_out: int | None) -> torch.Tensor:
-    """Digit sums [..., n, kd] (f64 or int64) and af [..., n] -> limbs
+    """int64 digit sums [..., n, kd] (digit_sums') and af [..., n] -> limbs
     [..., n, k_out] (fast path) or [..., n, plan.ks] (exact, k_out None)."""
     dev = s_digits.device
-    if s_digits.dtype not in (torch.float64, torch.int64):
-        raise ValueError(f"the lift takes f64 or int64 digit sums, got {s_digits.dtype}")
+    if s_digits.dtype != torch.int64:
+        raise ValueError(f"the lift takes int64 digit sums, got {s_digits.dtype}")
     cuda_build.check_dtype(af, dtype=torch.float64)
     ks = plan.ks
     tables = {"negP16": plan.negP16, "P_limbs": plan.P_limbs,
@@ -194,7 +194,7 @@ def lift(s_digits, af, plan, center: bool, k_out: int | None) -> torch.Tensor:
     out = torch.empty(tuple(af.shape) + (kout,), dtype=torch.int64, device=dev)
     if R:
         _check(load_library().gpqhe_rns_lift(
-            R, kd, int(sd.dtype == torch.float64), sd.data_ptr(), afc.data_ptr(), plan.dim,
+            R, kd, sd.data_ptr(), afc.data_ptr(), plan.dim,
             plan.negP16.data_ptr(), kout, int(exact), int(center), plan.P_limbs.data_ptr(),
             plan.Phalf_limbs.data_ptr(), plan.MminusP_limbs.data_ptr(), out.data_ptr(),
             cuda_build.stream_of(dev)), "lift")

@@ -114,9 +114,10 @@ def test_u32_kernel_schedule_on_the_logp9_chain(mode):
 
 
 def test_chip_smoke_case_on_the_cpu():
-    """chip_smoke.py's logp=9 path (the suite phase runs it on the card):
+    """torch_cases.py's logp=9 path (tests/test_torch_cuda.py runs it on the
+    card):
     decompose, reconstruct and the NTT round trips exact at every dim."""
-    from chip_smoke import crt_chain_case, crt_chain_ring
+    from torch_cases import crt_chain_case, crt_chain_ring
     ring = crt_chain_ring("cpu")
     assert ring.ntt_mod is ntt_cuda32
     out = crt_chain_case(ring)

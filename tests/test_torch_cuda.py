@@ -10,6 +10,7 @@ neither jax nor gpqhe_tpu, so it runs on a machine without them:
 (--noconftest: tests/conftest.py configures jax for the JAX package's tests.)
 """
 
+import contextlib
 import gc
 import json
 import os
@@ -20,12 +21,12 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (DIGITS16, GRAPH_ENGINES, GRAPH_INPUTS, GRAPH_OPS,  # the repository
-                        HOISTED, LIFT16, NTT16, bootstrap_cases, c2s_packing_case,    # root is on
-                        crt_chain_case, crt_chain_ring, equal_cts,           # sys.path
-                        gemv_packing_case, graph_case, graph_check, kernel_ring,
-                        oracle_module)
-from gpqhe_tpu_torch import CKKS, HeContext, Surf         # (python -m pytest)
+from torch_cases import (DIGITS16, GRAPH_ENGINES, GRAPH_INPUTS, GRAPH_OPS,  # tests/ is on
+                         HOISTED, LIFT16, NTT16, bootstrap_cases, c2s_packing_case,  # sys.path
+                         crt_chain_case, crt_chain_ring, equal_cts, full_width_checks,
+                         gemv_packing_case, graph_case, graph_check, kernel_ring,
+                         oracle_module)
+from gpqhe_tpu_torch import CKKS, HeContext, Surf         # the root too (python -m pytest)
 from gpqhe_tpu_torch import bootstrap as bs
 from gpqhe_tpu_torch.algo import linalg, nonlinear
 from gpqhe_tpu_torch.context import PolyContext
@@ -283,16 +284,17 @@ RING16_CASES = ([("decompose", i) for i in range(2)]
 @pytest.mark.cuda
 @pytest.mark.parametrize("entry,i", RING16_CASES, ids=[f"{e} {i}" for e, i in RING16_CASES])
 def test_cuda_elementwise_kernels_at_the_n16_rings_shapes(cuda_device, entry, i):
-    """chip_smoke.py's ring16_cases, which its kernels16 phase times: decompose
+    """torch_cases.py's ring16_cases, which chip_smoke.py's kernels16 phase
+    times: decompose
     of [2^16, 55] limbs into 60 primes and, signed, into the key switch's
     90; the digit product at DIGITS16 ([3, 60, 2^16] and [2, 90, 2^16] to
     110 digit sums, the exact [2, 30 of 90, 2^16], scaled, to 114); the lift
     at [2^16, 2K -> K] for K = 46, 88, 57 (exact) and from 90 primes to 55
     limbs (fast); ecd's fill of 8 rows of 55 limbs: each torch.equal to its
     plain version (the digit sums as values mod 2^(16 kd), the f64 estimate
-    within a relative 2^-45: chip_smoke.ew_compare) in one launch of its
+    within a relative 2^-45: torch_cases.ew_compare) in one launch of its
     kernel."""
-    from chip_smoke import ew_compare, ew_counters, ring16_cases
+    from torch_cases import ew_compare, ew_counters, ring16_cases
     if "cases" not in _RING16:
         _RING16["cases"] = ring16_cases(cuda_device)
     case = _RING16["cases"][entry][i]
@@ -329,8 +331,7 @@ def test_cuda_reconstruct_through_the_digit_product(cuda_device, logn, lead, dim
     3), pre-scaled residues as the key switch's c and mul_rs's product take
     them), the exact path on any residues of a prime slice, scaled.  As a
     CUDA graph, equal to graphs.disabled() at the capture and at a replay,
-    each call counted once in LAUNCHES["digit_split"] and RECON["imma"] and
-    never in RECON["matmul"]."""
+    each call counted once in LAUNCHES["digit_split"]."""
     from gpqhe_tpu_torch.ops import limbs as lb
     from gpqhe_tpu_torch.ops import rns, rns_cuda
     from gpqhe_tpu_torch.ops.modmath import plain_mont_mul
@@ -361,13 +362,12 @@ def test_cuda_reconstruct_through_the_digit_product(cuda_device, logn, lead, dim
     prog = graphs.Graphs().program(recon, ("reconstruct", logn, dim))
     with graphs.disabled():
         eager = recon(y)
-    before = (rns_cuda.LAUNCHES["digit_split"], rns.RECON["imma"], rns.RECON["matmul"])
+    before = rns_cuda.LAUNCHES["digit_split"]
     first, again = prog(y), prog(y)
     torch.cuda.synchronize()
     assert torch.equal(eager, want)
     assert torch.equal(first, want) and torch.equal(again, want)
-    assert (rns_cuda.LAUNCHES["digit_split"], rns.RECON["imma"], rns.RECON["matmul"]) == \
-        (before[0] + 2, before[1] + 2, before[2])
+    assert rns_cuda.LAUNCHES["digit_split"] == before + 2
 
 
 def _run_deep(device, logp):
@@ -400,6 +400,310 @@ def test_cuda_deep_circuit_ops_match_cpu(cuda_device, logp):
     assert c["raised"].l == 8 and c["raised"].c0.shape[-1] == 8
     assert np.array_equal(got, got_cpu)
     assert np.max(np.abs(got - want)) < 1e-3       # Goldschmidt, 3 iterations, x in [0.5, 1]
+
+
+# -- the reference binary's outputs, the full-width paths, the CLI ----------
+
+def _golden(name):
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", name)) as f:
+        return {k: np.array([complex(a, b) for a, b in v]) for k, v in json.load(f).items()}
+
+
+def _chain_launches(logp):
+    """(this chain's NTT launch counters, the other kernel's)."""
+    return ((ntt_cuda.LAUNCHES, ntt_cuda32.LAUNCHES32) if logp > 29
+            else (ntt_cuda32.LAUNCHES32, ntt_cuda.LAUNCHES))
+
+
+def _reference_logn11(device):
+    """tests/test_golden.py on the card: enc, add, mul+rs, conj, rot1 and
+    moddown at logn=11 within its tolerances of the binary's decodes, the
+    messages the Surf() stream's."""
+    from gpqhe_tpu_torch import params
+    g = _golden("golden_logn11.json")
+    ctx = HeContext(logn=11, q=1 << 48, slots=4, Delta=1 << 20)
+    eng = CKKS(ctx, rng=Surf(), device=device)
+    pk, sk = eng.keypair()
+    rlk, ck, rk = eng.genrlk(sk), eng.genck(sk), eng.genrk(sk)
+    m0 = sample.sample_z01vec(eng.rng, ctx.slots)
+    ct1 = eng.enc_pk(eng.ecd(m0), pk)
+    m1 = sample.sample_z01vec(eng.rng, ctx.slots)
+    ct2 = eng.enc_pk(eng.ecd(m1), pk)
+    assert np.array_equal(m0, g["m0"]) and np.array_equal(m1, g["m1"])
+    tol_ks = (params.BLKSIZ + 2) / ctx.Delta
+    got = {"enc": (ct1, 1e-9), "add": (eng.add(ct1, ct2), 1e-9),
+           "mulrs": (eng.rs(eng.mul(ct1, ct2, rlk)), tol_ks),
+           "conj": (eng.conj(ct1.copy(), ck), tol_ks), "rot1": (eng.rot(ct1.copy(), 1, rk), tol_ks),
+           "moddown": (eng.moddown(ct1), 1e-9)}
+    for name, (ct, tol) in got.items():
+        assert ct.c0.is_cuda
+        diff = np.max(np.abs(eng.dcd(eng.dec(ct, sk)) - g[name]))
+        assert diff < tol, (name, diff, tol)
+
+
+def _reference_linear(device):
+    """The key-switch and hoisted-gemv path at logn=14/logq=438/slots=16/
+    Delta=2^50 on both chains: the binary's vector and matrix from the
+    Surf() stream (tests/golden/golden_algo_linear.json), its gemv within
+    1e-9 on the 59-bit chain; mul_rs, rot, conj, mulpt, a batch's last
+    product and the gemv fully hoisted and BSGS (on a bank of the baby steps
+    and the giant-step multiples, where the full route declines) within
+    1e-5; a batch of 8 torch.equal to 8 mul_rs; no fallback; this chain's
+    kernel launched, the other's not; the chains' mul_rs and gemv decodes
+    within 1e-9 of each other."""
+    g = _golden("golden_algo_linear.json")
+    v, A = g["v"], g["A"]
+    Av = A.reshape(16, 16) @ v
+    decoded = {}
+    for logp in (59, 29):
+        ctx = HeContext(logn=14, q=1 << 438, slots=16, Delta=1 << 50, logp=logp)
+        eng = CKKS(ctx, rng=Surf(), device=device)
+        mine, other = _chain_launches(logp)
+        before, before_other = dict(mine), dict(other)
+        pk, sk = eng.keypair()
+        rlk, ck, rk = eng.genrlk(sk), eng.genck(sk), eng.genrk(sk)
+        if logp == 59:
+            assert np.array_equal(sample.sample_z01vec(eng.rng, 16), v)
+            assert np.array_equal(sample.sample_z01vec(eng.rng, 256), A)
+        rng = np.random.default_rng(438)
+        ms = rng.random((8, 2, 16)) + 1j * rng.random((8, 2, 16))
+        m2 = ms[0, 1]
+        ct, ct2 = eng.enc_pk(eng.ecd(v), pk), eng.enc_pk(eng.ecd(m2), pk)
+        plan = linalg.HoistedGemvPlan(eng, A)
+        bank = {r: rk[r] for r in rk if r < plan.n1 or r % plan.n1 == 0}
+        cts1 = [eng.enc_pk(eng.ecd(m[0]), pk) for m in ms]
+        cts2 = [eng.enc_pk(eng.ecd(m[1]), pk) for m in ms]
+        batch = eng.mul_rs_batch(cts1, cts2, rlk)
+        for b, x, y in zip(batch, cts1, cts2):
+            assert not any(equal_cts(b, eng.mul_rs(x, y, rlk)).values())
+        assert linalg.gemv_hoisted_full(eng, plan, ct, rk) is not None
+        assert linalg.gemv_hoisted_full(eng, plan, ct, bank) is None
+        got = {"mul_rs": (eng.mul_rs(ct, ct2, rlk), v * m2), "rot": (eng.rot(ct, 1, rk), np.roll(v, -1)),
+               "conj": (eng.conj(ct, ck), np.conj(v)),
+               "mulpt": (eng.rs(eng.mulpt(ct, eng.ecd(m2))), v * m2),
+               "batch7": (batch[-1], ms[-1, 0] * ms[-1, 1]),
+               "gemv_full": (linalg.gemv(eng, None, ct, rk, plan=plan, hoisted=True), Av),
+               "gemv_bsgs": (linalg.gemv_hoisted(eng, plan, ct, bank), Av)}
+        decoded[logp] = {k: eng.dcd(eng.dec(c, sk)) for k, (c, _) in got.items()}
+        diffs = {k: np.max(np.abs(decoded[logp][k] - want)) for k, (_, want) in got.items()}
+        assert all(d < 1e-5 for d in diffs.values()), (logp, diffs)
+        assert plan.fallbacks == 0
+        assert all(mine[k] > before[k] for k in MODES) and other == before_other
+        if logp == 59:
+            assert np.max(np.abs(decoded[59]["gemv_full"] - g["gemv"])) < 1e-9
+    for k in ("mul_rs", "gemv_full", "gemv_bsgs"):
+        assert np.max(np.abs(decoded[59][k] - decoded[29][k])) < 1e-9, k
+
+
+def _reference_nonlinear(device):
+    """algo/nonlinear.py at logn=14/logq=438/slots=4/Delta=2^30, the op
+    sequence of tests/test_golden_algo.py: on the 59-bit chain m0 from the
+    Surf() stream and he_inv(5), he_exp(5), he_sigmoid, he_log, he_sqrt(6)
+    within 1e-4 of the binary's decodes; on logp=29 the same five within
+    the per-op CLI's tolerances of the plaintext functions (inv by the
+    evaluator's own Goldschmidt recurrence); this chain's kernel launched,
+    the other's not."""
+    from gpqhe_tpu_torch.algo import nonlinear as nl
+    g = _golden("golden_algo_nonlinear.json")
+    a = 2j * np.pi / float(1 << 30)
+    for logp in (59, 29):
+        ctx = HeContext(logn=14, q=1 << 438, slots=4, Delta=1 << 30, logp=logp)
+        eng = CKKS(ctx, rng=Surf(), device=device)
+        mine, other = _chain_launches(logp)
+        before, before_other = dict(mine), dict(other)
+        pk, sk = eng.keypair()
+        rlk = eng.genrlk(sk)
+        m0 = sample.sample_z01vec(eng.rng, ctx.slots)
+        assert logp != 59 or np.array_equal(m0, g["m0"])
+        m0 = g["m0"]
+        msgs = {"inv": m0.real + 0.5, "exp": m0 * a, "sigmoid": m0 / 10,
+                "log": m0.real / 100000, "sqrt": m0.real + 0j}
+        cts = {k: eng.enc_pk(eng.ecd(np.asarray(m, dtype=np.complex128)), pk)
+               for k, m in msgs.items()}
+        outs = {"inv": nl.he_inv(eng, cts["inv"], rlk, 5), "exp": nl.he_exp(eng, a, cts["exp"], rlk, 5),
+                "sigmoid": nl.he_sigmoid(eng, cts["sigmoid"], rlk),
+                "log": nl.he_log(eng, cts["log"], rlk), "sqrt": nl.he_sqrt(eng, cts["sqrt"], rlk, 6)}
+        got = {k: eng.dcd(eng.dec(c, sk)) for k, c in outs.items()}
+        if logp == 59:
+            diffs = {k: np.max(np.abs(got[k] - g[k])) for k in outs}
+            assert all(d < 1e-4 for d in diffs.values()), diffs
+        else:
+            an, bn = 2 - msgs["inv"], 1 - msgs["inv"]
+            for _ in range(5):
+                bn = bn * bn
+                an = an * (bn + 1)
+            plain = {"inv": (an, 1e-4), "exp": (np.exp(a * msgs["exp"]), 1e-4),
+                     "sigmoid": (1 / (1 + np.exp(-msgs["sigmoid"])), 1e-3),
+                     "log": (np.log(1 + msgs["log"]), 1e-2), "sqrt": (np.sqrt(msgs["sqrt"]), 1e-2)}
+            diffs = {k: np.max(np.abs(got[k] - want)) for k, (want, _) in plain.items()}
+            assert all(diffs[k] < tol for k, (_, tol) in plain.items()), diffs
+        assert all(mine[k] > before[k] for k in MODES) and other == before_other
+
+
+def _reference_cmp(device):
+    """he_cmp at logn=15/logq=881/slots=4/Delta=2^30, iter=5, alpha=2
+    (tests/test_golden_algo.py::test_golden_algo_cmp): within 1e-4 of the
+    binary's decode, the decision bits those of the plaintext comparison."""
+    from gpqhe_tpu_torch.algo import nonlinear as nl
+    g = _golden("golden_algo_cmp.json")
+    ctx = HeContext(logn=15, q=1 << 881, slots=4, Delta=1 << 30)
+    eng = CKKS(ctx, rng=Surf(), device=device)
+    pk, sk = eng.keypair()
+    rlk = eng.genrlk(sk)
+    m0 = sample.sample_z01vec(eng.rng, ctx.slots)
+    m0 = sample.sample_z01vec(eng.rng, ctx.slots)      # sampled twice, as the binary does
+    assert np.array_equal(m0, g["m0"])
+    ma, mb = m0.real + 0.5, m0.imag + 0.5
+    ct1 = eng.enc_pk(eng.ecd(np.asarray(ma, dtype=np.complex128)), pk)
+    ct2 = eng.enc_pk(eng.ecd(np.asarray(mb, dtype=np.complex128)), pk)
+    got = eng.dcd(eng.dec(nl.he_cmp(eng, ct1, ct2, rlk, iter=5, alpha=2), sk))
+    assert np.max(np.abs(got - g["cmp"])) < 1e-4
+    assert np.array_equal(np.round(got.real), (ma > mb).astype(float))
+
+
+REFERENCE = {"logn11": _reference_logn11, "linear": _reference_linear,
+             "nonlinear": _reference_nonlinear, "cmp": _reference_cmp}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(REFERENCE))
+def test_cuda_matches_the_reference_binary(cuda_device, case):
+    """The engine on the card against the reference binary's outputs
+    (tests/golden/): each case's gates raise inside it."""
+    REFERENCE[case](cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_full_width_checks(cuda_device):
+    """tests/test_full_params.py on the card at logn=14/logq=438/slots=16/
+    Delta=2^50 (torch_cases.full_width_checks): enc_sk, enc_pk, moddown,
+    the add and mul variants, a chained product, conj and rot by every r in
+    0..15, each within 1e-5; rs(mul) one level down."""
+    eng = CKKS(HeContext(logn=14, q=1 << 438, slots=16, Delta=1 << 50), rng=Surf(),
+               device=cuda_device)
+    pk, sk = eng.keypair()
+    out = full_width_checks(eng, pk, sk, eng.genrlk(sk), eng.genck(sk), eng.genrk(sk))
+    assert out["mul_level_ok"] and all(f"rot{r}" in out["diffs"] for r in range(16))
+    assert all(d < 1e-5 for d in out["diffs"].values()), out["diffs"]
+
+
+@pytest.mark.cuda
+def test_cuda_bootstrap_at_logn15(cuda_device):
+    """tests/test_bootstrap_refscale.py on the card: HeContext(15, 2^881, 4,
+    2^30), rlk, ck and the bootstrap's rotation keys, m0 = sample_z01vec *
+    0.1 and a second message, each encrypted, taken down to l = 1 and
+    bootstrapped (iter derived, 9): back at l >= 10 within 1e-2; every u64
+    NTT entry launched over encrypt, bootstrap and decrypt; each of K4-K7
+    launched by the bootstraps, and K5 at the shape classes chip_smoke.py
+    times on its kernels15 lines (BOOT15_K5); the graphed calls (captures,
+    then replays) torch.equal to the same bootstrap under
+    graphs.disabled()."""
+    from torch_cases import BOOT15_K5, ew_by_kernel, ew_counters
+    ctx = HeContext(logn=15, q=1 << 881, slots=4, Delta=1 << 30)
+    eng = CKKS(ctx, rng=Surf(), device=cuda_device)
+    pk, sk = eng.keypair()
+    rlk, ck = eng.genrlk(sk), eng.genck(sk)
+    rk = eng.genrk(sk, bs.bootstrap_rotations(ctx))
+    bctx = bs.BootstrapContext(eng)
+    rng = np.random.default_rng(15)
+    msgs = [sample.sample_z01vec(eng.rng, ctx.slots) * 0.1,
+            0.1 * (rng.random(ctx.slots) + 1j * rng.random(ctx.slots))]
+    ntt_before = dict(ntt_cuda.LAUNCHES)
+    cts = []
+    for m in msgs:
+        ct = eng.enc_pk(eng.ecd(m), pk)
+        while ct.l > 1:
+            ct = eng.moddown(ct)
+        cts.append(ct)
+
+    def run(ct):
+        return bs.bootstrap(eng, bctx, ct, rlk, ck, rk)
+    ew_before = ew_counters()
+    got = [run(c) for c in cts]
+    torch.cuda.synchronize()
+    ew_after = ew_counters()
+    assert all(v > 0 for v in ew_by_kernel({k: ew_after[k] - ew_before.get(k, 0)
+                                             for k in ew_after}).values())
+    for entry, dim, lead, nw in BOOT15_K5:
+        key = f"{entry} {list(lead) + [dim, 1 << 15]}" + (f" x{nw}" if nw else "")
+        assert ew_after.get(key, 0) > ew_before.get(key, 0), key
+    got += [run(c) for c in cts]
+    with graphs.disabled():
+        want = [run(c) for c in cts]
+    for i, r in enumerate(got):
+        assert not any(equal_cts(r, want[i % 2]).values()), i
+    for r, m in zip(got, msgs):
+        assert r.l >= 10 and np.max(np.abs(eng.dcd(eng.dec(r, sk)) - m)) < 1e-2
+    torch.cuda.synchronize()
+    assert all(ntt_cuda.LAUNCHES[k] > ntt_before[k] for k in MODES)
+
+
+@pytest.mark.cuda
+def test_cuda_keys_saved_and_loaded_onto_the_card(cuda_device, tmp_path):
+    """utils/serialize.py: a ciphertext, rlk and a rotation bank through .npz
+    files and back onto the card (load's default device): every tensor
+    torch.equal, the ledger and the rotations equal, and mul_rs and rot
+    from the loaded keys torch.equal to the same from the originals."""
+    from gpqhe_tpu_torch.utils import serialize
+    ctx = HeContext(logn=11, q=1 << 48, slots=4, Delta=1 << 22)
+    eng = CKKS(ctx, rng=Surf(), device=cuda_device)
+    pk, sk = eng.keypair()
+    objs = {"ct": eng.enc_pk(eng.ecd(sample.sample_z01vec(eng.rng, 4)), pk),
+            "rlk": eng.genrlk(sk), "rk": eng.genrk(sk)}
+    loaded = {}
+    for name, obj in objs.items():
+        serialize.save(str(tmp_path / f"{name}.npz"), ctx, obj)
+        loaded[name] = serialize.load(str(tmp_path / f"{name}.npz"), ctx)
+
+    def tensors(x):
+        if isinstance(x, dict):
+            return [t for r in sorted(x) for t in tensors(x[r])]
+        return [v for v in vars(x).values() if isinstance(v, torch.Tensor)]
+    for name in objs:
+        a, b = tensors(objs[name]), tensors(loaded[name])
+        assert len(a) == len(b) > 0 and all(y.is_cuda and torch.equal(x, y) for x, y in zip(a, b))
+    ct, lct = objs["ct"], loaded["ct"]
+    assert (ct.l, ct.nu, ct.B) == (lct.l, lct.nu, lct.B) and sorted(loaded["rk"]) == sorted(objs["rk"])
+    r = max(objs["rk"])
+    for x, y in ((eng.mul_rs(ct, ct, objs["rlk"]), eng.mul_rs(ct, ct, loaded["rlk"])),
+                 (eng.rot(ct, r, objs["rk"]), eng.rot(ct, r, loaded["rk"]))):
+        assert torch.equal(x.c0, y.c0) and torch.equal(x.c1, y.c1)
+
+
+CLI_SMALL = ["--logn=9", "--logq=120", "--slots=4", "--logDelta=30"]
+CLI_CASES = {"mul pk": ["mul", "pk"], "exp": ["exp"],
+             "mesh virtual": ["mul", "pk", "--mesh=2x2x1:virtual"],
+             "mesh of cards": ["mul", "pk", "--mesh=2x2x1"] + CLI_SMALL}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CLI_CASES))
+def test_cuda_cli_as_a_user_runs_it(cuda_device, case):
+    """python -m gpqhe_tpu_torch at its defaults on the card: mul pk and exp
+    exit 0 with an [ok] line and the kernel's launches on their "device"
+    line; mul pk on a virtual 2x2x1 mesh of the card says its mesh mode;
+    without :virtual the same mesh exits 2, "needs 4 devices", where the
+    machine has fewer than 4 GPUs (at a small ring: the answer does not
+    depend on it)."""
+    import re
+    argv = CLI_CASES[case]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    p = subprocess.run([sys.executable, "-m", "gpqhe_tpu_torch"] + argv, cwd=root,
+                       capture_output=True, text=True, timeout=900)
+    lines = p.stdout.splitlines()
+    oks = [ln for ln in lines if ln.startswith("[ok] ")]
+    said = [ln for ln in lines if ln.startswith(("mesh mode: ", "--mesh="))]
+    why = f"{p.stdout[-2000:]}\n{p.stderr[-2000:]}"
+    if case == "mesh of cards" and torch.cuda.device_count() < 4:
+        assert p.returncode == 2 and not oks and said and "needs 4 devices" in said[0], why
+        return
+    assert p.returncode == 0 and oks and not any(ln.startswith("[FAIL]") for ln in lines), why
+    if case.startswith("mesh"):
+        assert said[:1] == ["mesh mode: {'limb': 2, 'coeff': 2, 'batch': 1}"], why
+    else:
+        m = re.search(r"^device (.*): NTT kernel launches (\{.*\})$", p.stdout, re.M)
+        counts = json.loads(m.group(2).replace("'", '"')) if m else {}
+        assert counts and all(c > 0 for c in counts.values()), why
 
 
 # -- the mesh engine: per-shard plans on the kernels, virtual meshes of the card --
@@ -531,7 +835,7 @@ def test_cuda_mesh_engine_matches_single_device(cuda_device, shape, logp):
 
 # -- the copy path: a mesh of the card and the host; a mesh of two processes --
 
-from chip_smoke import first_difference, mixed_devices      # noqa: E402
+from torch_cases import first_difference, is_graph, mixed_devices      # noqa: E402
 
 
 @pytest.mark.cuda
@@ -540,7 +844,8 @@ def test_cuda_mesh_of_card_and_host_matches_single_device(cuda_device, logp):
     """(2,2,2) with position (l, c, b) on the card when l + c is even, else on
     the host: every limb psum and coefficient swap, and half of each scatter
     and gather, is a copy between the two (the card's blocks through the
-    kernel, the host's through the twin).  Bit-equal to CKKS on the card."""
+    kernel, the host's through the twin), and no program is graphed.
+    Bit-equal to CKKS on the card."""
     ctx = HeContext(logn=9, q=1 << 120, slots=4, Delta=1 << 30, logp=logp)
     eng = CKKS(ctx, rng=Surf(), device=cuda_device, hoist_bits=100)
     pk, sk = eng.keypair()
@@ -560,31 +865,40 @@ def test_cuda_mesh_of_card_and_host_matches_single_device(cuda_device, logp):
     t = mesh.traffic_by_kind
     assert all(t[c]["device"][1] > 0 for c in ("psum", "ppermute", "scatter", "gather"))
     assert t["psum"]["view"][0] == 0 and t["ppermute"]["view"][0] == 0
+    # two devices: the programs run eagerly, and the mesh says why
+    assert not mesh.graphable and mesh.eager_why and meng._mesh_jit
+    assert not any(is_graph(f) for f in meng._mesh_jit.values())
 
 
 @pytest.mark.cuda
 def test_cuda_two_process_mesh_over_gloo(cuda_device):
     """gpqhe_tpu_torch.parallel.mp_mul_rs with both ranks on the card over
-    gloo (every message staged through host memory), both layouts."""
+    gloo (every message staged through host memory), both layouts and both
+    chains: each rank's ops equal to the single-device engine's, its
+    chain's kernel launched and the other's not, bytes across the processes
+    and staged, and no program graphed (a graph does not capture the
+    messages)."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     p = subprocess.run([sys.executable, "-m", "gpqhe_tpu_torch.parallel.mp_mul_rs",
                         "--device=cuda", "--backend=gloo", "--logn=9", "--logq=120",
-                        "--mesh=2x2x2,1x4x2", "--timeout=300"],
+                        "--logp=59,29", "--mesh=2x2x2,1x4x2", "--timeout=300"],
                        cwd=root, capture_output=True, text=True, timeout=400)
     assert p.returncode == 0, f"{p.stdout[-3000:]}\n{p.stderr[-3000:]}"
     assert p.stdout.splitlines()[-1].startswith("mp_mul_rs: PASS")
     lines = [json.loads(t) for t in p.stdout.splitlines() if t.startswith("{")]
-    assert len(lines) == 4
+    assert len(lines) == 8 and {ln["logp"] for ln in lines} == {59, 29}
     for ln in lines:
+        mine, other = ("u64", "u32") if ln["logp"] == 59 else ("u32", "u64")
         assert all(ln["equal"].values()) and ln["device"] == "cuda:0"
-        assert ln["launches"]["u64"]["fwd"] > 0 and ln["launches"]["u64"]["inv"] > 0
-        assert not any(ln["launches"]["u32"].values())
+        assert ln["launches"][mine]["fwd"] > 0 and ln["launches"][mine]["inv"] > 0
+        assert not any(ln["launches"][other].values())
+        assert ln["graphed"] is False
         kinds = [k for t in ln["traffic"].values() for k in t.values()]
         assert sum(k["process"][1] for k in kinds) > 0 and sum(k["staged"][1] for k in kinds) > 0
 
 
 # -- the rest of the JAX suite on the card: the logp=9 chain, the exact oracle,
-# -- full packing (the same cases as chip_smoke.py's suite phase) --------------
+# -- full packing (torch_cases.py's cases, which the CPU tests hold to JAX) ---
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", MODES)
@@ -673,7 +987,7 @@ def test_cuda_elementwise_kernels_match_plain(cuda_device, logn, logp):
     31/47/48; batch 8) on edge words; the digit product's sums as values
     mod 2^(16 kd), its f64 estimate within a relative 2^-45 (summed in
     another order)."""
-    from chip_smoke import ew_compare, ew_counters, elementwise_cases
+    from torch_cases import ew_compare, ew_counters, elementwise_cases
     before = ew_counters()
     cases = elementwise_cases(logn, logp, cuda_device)
     for entry, entry_cases in cases.items():
@@ -690,7 +1004,7 @@ _EDGE = {}
 
 
 def _edge_cases(device):
-    from chip_smoke import elementwise_edge_cases
+    from torch_cases import elementwise_edge_cases
     if str(device) not in _EDGE:
         _EDGE[str(device)] = elementwise_edge_cases(device)
     return _EDGE[str(device)]
@@ -704,7 +1018,7 @@ def _edge_cases(device):
                                    "crt_digit_split"])
 def test_cuda_row_kernels_at_tile_edges(cuda_device, entry):
     """K7, the CRT lift, decompose and the digit product at the edges of their
-    designs (chip_smoke.py's elementwise_edge_cases): K = 1 .. 3071 limbs
+    designs (torch_cases.py's elementwise_edge_cases): K = 1 .. 3071 limbs
     around whole chunks of 32, rows not a multiple of a block's, constant,
     broadcast (two leading rows), row-strided and limb-strided operands
     through cuda_build.strides3, bool and int64 row bits, the lift at one,
@@ -714,8 +1028,8 @@ def test_cuda_row_kernels_at_tile_edges(cuda_device, entry):
     and its chunks of depth, on strided, broadcast and misaligned residues;
     each launch torch.equal to the plain version on the same CUDA tensors
     (the digit sums as values mod 2^(16 kd), the f64 estimate within a
-    relative 2^-45: chip_smoke.ew_compare)."""
-    from chip_smoke import ew_compare, ew_counters
+    relative 2^-45: torch_cases.ew_compare)."""
+    from torch_cases import ew_compare, ew_counters
     cases = [c for c in _edge_cases(cuda_device) if c["entry"] == entry]
     before = ew_counters()[entry]
     for case in cases:
@@ -729,13 +1043,13 @@ def test_cuda_row_kernels_at_tile_edges(cuda_device, entry):
 @pytest.mark.parametrize("entry", ["modmath_mulmod", "modmath_mont_mul", "modmath_addmod",
                                    "modmath_submod", "modmath_to_mont"])
 def test_cuda_modmath_at_the_edges_of_its_design(cuda_device, entry):
-    """K5's elementwise kernel at the edges of its design (chip_smoke.py's
+    """K5's elementwise kernel at the edges of its design (torch_cases.py's
     MODMATH_EDGES): rows and n that are not a multiple of a thread's 4 words
     or a block's 1024, views one word off 16-byte alignment, stride-0
     operands on each axis, the key bank's row and column slices, A past
     65535, the three widths of prime, mont_mul on any u64 words; each
     launch torch.equal to the plain version on the same CUDA tensors."""
-    from chip_smoke import ew_compare, ew_counters
+    from torch_cases import ew_compare, ew_counters
     cases = [c for c in _edge_cases(cuda_device) if c["entry"] == entry]
     before = ew_counters()[entry]
     for case in cases:
@@ -841,7 +1155,7 @@ def test_cuda_profile_shows_the_fills_and_one_copy(cuda_device, what):
 def test_cuda_keyswitch_path_launches_the_elementwise_kernels(cuda_device, logp):
     """The key-switch path on the card goes through K4-K7 (each kernel's
     launch count grows) and none of them on the host engine."""
-    from chip_smoke import ew_by_kernel, ew_counters
+    from torch_cases import ew_by_kernel, ew_counters
     before = ew_by_kernel(ew_counters())
     _run_keyswitch(cuda_device, logp)
     after = ew_by_kernel(ew_counters())
@@ -856,8 +1170,8 @@ def test_cuda_keyswitch_path_launches_the_elementwise_kernels(cuda_device, logp)
 # ntt_impl="matmul"
 # ---------------------------------------------------------------------------
 
-from chip_smoke import (NTT4_PATH, ntt4_compare, ntt4_edge_cases, ntt4_input,  # noqa: E402
-                        ntt4_max_sums)
+from torch_cases import (NTT4_PATH, ntt4_compare, ntt4_edge_cases, ntt4_input,  # noqa: E402
+                         ntt4_max_sums)
 from gpqhe_tpu_torch.ops import ntt4, ntt4_cuda  # noqa: E402
 
 _ntt4_plans = {}
@@ -928,7 +1242,12 @@ def test_cuda_ntt4_at_a_contraction_of_256(cuda_device, mode):
 def test_cuda_matmul_engine_mul_rs_equals_butterfly(cuda_device, logp):
     """The same stream through both backends at the main path's ring: the
     keys differ (another NTT order), mul_rs's ciphertext is the same, and
-    the matmul engine launches K8 and no butterfly NTT."""
+    the matmul engine launches K8 and no butterfly NTT.  So are rot, conj,
+    mulpt, a batch of two products and the classic gemv's, each within 1e-5
+    of its plaintext result on both; the matmul engine's gemv_hoisted falls
+    back to the classic gemv (one fallback, warned), the butterfly
+    engine's does not."""
+    import warnings
     ctx = HeContext(logn=14, q=1 << 438, slots=16, Delta=1 << 50, logp=logp)
     out = {}
     for impl in ("butterfly", "matmul"):
@@ -943,13 +1262,32 @@ def test_cuda_matmul_engine_mul_rs_equals_butterfly(cuda_device, logp):
         after = (ntt_cuda.LAUNCHES, ntt_cuda32.LAUNCHES32, ntt4_cuda.LAUNCHES)
         out[impl] = (ct, rlk, [sum(a.values()) - sum(b.values()) for a, b in zip(after, counts)],
                      np.max(np.abs(eng.dcd(eng.dec(ct, sk)) - m1 * m2)))
-    (cb, kb, nb, db), (cm, km, nm, dm) = out["butterfly"], out["matmul"]
+        ck, rk = eng.genck(sk), eng.genrk(sk)
+        A = sample.sample_z01vec(eng.rng, ctx.slots * ctx.slots)
+        plan = linalg.HoistedGemvPlan(eng, A)
+        more = {"rot": (eng.rot(ct1, 1, rk), np.roll(m1, -1)), "conj": (eng.conj(ct1, ck), np.conj(m1)),
+                "mulpt": (eng.rs(eng.mulpt(ct1, eng.ecd(m2))), m1 * m2),
+                "batch": (eng.mul_rs_batch([ct1, ct2], [ct2, ct1], rlk)[1], m2 * m1),
+                "gemv": (linalg.gemv(eng, None, ct1, rk, plan=plan), A.reshape(16, 16) @ m1)}
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            hoisted = linalg.gemv_hoisted(eng, plan, ct1, rk)
+        for name, (c, want) in more.items():
+            assert np.max(np.abs(eng.dcd(eng.dec(c, sk)) - want)) < 1e-5, (impl, name)
+        out[impl] += ({k: c for k, (c, _) in more.items()}, hoisted, plan.fallbacks,
+                      sum("falling back" in str(w.message) for w in caught))
+    (cb, kb, nb, db, mb, hb, fb, _), (cm, km, nm, dm, mm, hm, fm, wm) = (out["butterfly"],
+                                                                        out["matmul"])
     assert torch.equal(cb.c0, cm.c0) and torch.equal(cb.c1, cm.c1)
     assert (cb.l, cb.nu, cb.B) == (cm.l, cm.nu, cm.B)
     assert not torch.equal(kb.p0hat, km.p0hat)
     assert db < 1e-5 and dm < 1e-5
     assert nb[2] == 0 and nb[0] + nb[1] == 4          # four transforms, one launch each
     assert nm[0] == nm[1] == 0 and nm[2] == 8          # two stages each
+    for name in mb:
+        assert not any(equal_cts(mm[name], mb[name]).values()), name
+    assert not any(equal_cts(hm, mb["gemv"]).values())
+    assert (fb, fm) == (0, 1) and wm >= 1
 
 
 # -- the engine programs as CUDA graphs (utils/graphs.py) ---------------------
@@ -975,7 +1313,7 @@ def test_cuda_graphed_program_equals_eager(cuda_device, logp, impl, op):
     """Each op's programs as CUDA graphs, torch.equal to the same programs
     under graphs.disabled() at the first call and at replays over fresh
     inputs, no result overwritten or shared, the launch counters of a replay
-    equal to an eager call's (chip_smoke.graph_check)."""
+    equal to an eager call's (torch_cases.graph_check)."""
     case = _graph_case(cuda_device, logp, impl)
     r = graph_check(case["ops"][op], case["inputs"], f"{op} logp={logp} {impl}")
     g = case["eng"].ring.graphs
@@ -985,7 +1323,8 @@ def test_cuda_graphed_program_equals_eager(cuda_device, logp, impl, op):
 @pytest.mark.cuda
 def test_cuda_mul_rs_replays_one_graph(cuda_device):
     """After its first call a mul_rs is one replay of its level's graph:
-    no capture, one replay, one graph under the program's key."""
+    no capture, one replay, one graph under the program's key; the host
+    dispatches that graph and at most 8 copies and kernels."""
     case = _graph_case(cuda_device, 59, "butterfly")
     eng, x = case["eng"], case["inputs"][0]
     rlk = case["keys"][2]
@@ -996,6 +1335,18 @@ def test_cuda_mul_rs_replays_one_graph(cuda_device):
     assert (g.captures, g.replays) == (before[0], before[1] + 1)
     assert len(eng._fns[("he_mul_rs", eng.ctx.L)].graphs) == 1
     assert isinstance(g.capture, graphs.CudaGraphs)
+    # the host's dispatches of a replay, read as the benchmark reads them:
+    # one graph launch, and at most 8 copies and kernels beside it (the
+    # static inputs' copies, the outputs' clones)
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpubench.devtrace import host_dispatches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.mul_rs(x["ct1"], x["ct2"], rlk)
+        torch.cuda.synchronize()
+    host = host_dispatches([e.name for e in prof.events()])
+    assert host["graph_launches"] == 1 and host["copies"] + host["kernel_launches"] <= 8, host
 
 
 @pytest.mark.cuda
@@ -1028,8 +1379,8 @@ def test_cuda_a_failing_capture_raises(cuda_device):
 
 # -- the mesh's sharded programs as CUDA graphs (parallel/mesh.py) -----------
 
-from chip_smoke import (MESH_HEADS, graph_same, mesh_graphed,  # noqa: E402
-                        mesh_replays_match)
+from torch_cases import (MESH_HEADS, graph_same, mesh_graphed,  # noqa: E402
+                         mesh_replays_match)
 from gpqhe_tpu_torch.scheme.types import limbs_to_torch      # noqa: E402
 
 _MESHES = {}
@@ -1067,9 +1418,10 @@ def _mesh_case(device, logp):
 def test_cuda_mesh_op_graphed_equals_eager(cuda_device, logp, op):
     """On a virtual mesh of the card each sharded program is a CUDA graph:
     the op torch.equal to itself under graphs.disabled() at the capture and
-    at replays (chip_smoke.graph_check) and to the single-device engine on
+    at replays (torch_cases.graph_check) and to the single-device engine on
     every input set; three replays count the launches and the mesh traffic
-    of three eager calls."""
+    of three eager calls; an eager call launches the local transforms the
+    layout implies on its chain's kernel and none on the other."""
     c = _mesh_case(cuda_device, logp)
     fn = c["sharded"][op]
     r = graph_check(fn, c["inputs"], f"mesh {op} logp={logp}")
@@ -1079,6 +1431,18 @@ def test_cuda_mesh_op_graphed_equals_eager(cuda_device, logp, op):
     assert c["mesh"].graphable and mesh_graphed(c["meng"], op, c["inputs"][0]["ct"].l)
     gains = mesh_replays_match(fn, c["inputs"], c["mesh"], f"{op} logp={logp}")
     assert gains["traffic"]["psum"][0] > 0 and gains["traffic"]["ppermute"][0] > 0
+    # the local transforms of one call: a position's mul_rs 2 forward (the
+    # four polys in one launch, then d2) and 2 inverse (the cross terms, the
+    # key switch's halves); rot and conj 1 + 1; the gemv step 2 inverse a
+    # position and its prologue's 2 forward on the first device
+    P = len(c["mesh"].positions)
+    want = {"mul_rs": (2 * P, 2 * P), "rot": (P, P), "conj": (P, P), "gemv_full": (2, 2 * P)}[op]
+    mine, other = _chain_launches(logp)
+    before, before_other = dict(mine), dict(other)
+    with graphs.disabled():
+        fn(c["inputs"][0])
+    torch.cuda.synchronize()
+    assert tuple(mine[k] - before[k] for k in MODES) == want + (0,) and other == before_other
 
 
 @pytest.mark.cuda
@@ -1086,7 +1450,8 @@ def test_cuda_mesh_op_graphed_equals_eager(cuda_device, logp, op):
 def test_cuda_sharded_poly_mul_3d_graphed(cuda_device, logp):
     """build_sharded_poly_mul_3d on a virtual (2,2,2) mesh of the card, in
     the mesh's own graphs: its capture and a replay torch.equal to eager
-    and to RingEngine.poly_mul on the card, pair by pair."""
+    and to RingEngine.poly_mul on the card, pair by pair; eagerly it
+    launches its chain's kernel and not the other."""
     pctx = PolyContext(9, q=1 << 100, logp=logp, dim_cap=8)
     mesh = _virtual(cuda_device, 2, 2, 2)
     f = pmesh.build_sharded_poly_mul_3d(pctx, 8, 4, 128, 4, mesh)
@@ -1098,10 +1463,47 @@ def test_cuda_sharded_poly_mul_3d_graphed(cuda_device, logp):
         w[..., -1] &= 0xF
         sets.append([limbs_to_torch(x, cuda_device) for x in w])
     got = [f(a, b) for a, b in sets]
+    mine, other = _chain_launches(logp)
+    before, before_other = dict(mine), dict(other)
     with graphs.disabled():
         want = [f(a, b) for a, b in sets]
+    torch.cuda.synchronize()
+    assert mine["fwd"] > before["fwd"] and mine["inv"] > before["inv"] and other == before_other
     assert isinstance(f, graphs.Program) and len(f.graphs) == 1 and mesh.graphs.replays == 1
     for (a, b), g, e in zip(sets, got, want):
         assert torch.equal(g, e)
         for i in range(2):
             assert torch.equal(g[i], ring.poly_mul(a[i], b[i], 8, 128, 4))
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_coeff2slot_graphed(cuda_device):
+    """bootstrap.coeff2slot (SubSum rotations, a conjugation, four hoisted
+    gemvs, mulpt and rescales) on a virtual (2,4,1) mesh of the card at
+    logn=6/logq=400/slots=4/Delta=2^30, hoist_bits=160 (tests/
+    test_torch_mesh_compose.py's ring), on the single-device engine's keys:
+    every sharded program a CUDA graph, the graphed calls (captures, then
+    replays) and an eager one torch.equal to the single-device engine's,
+    the eager call moving the same traffic as a graphed one."""
+    ctx = HeContext(logn=6, q=1 << 400, slots=4, Delta=1 << 30)
+    eng = CKKS(ctx, rng=Surf(), device=cuda_device, hoist_bits=160)
+    pk, sk = eng.keypair()
+    ck, rk = eng.genck(sk), eng.genrk(sk, bs.bootstrap_rotations(ctx))
+    ct = eng.enc_pk(eng.ecd(sample.sample_z01vec(eng.rng, ctx.slots) / (1 << 30)), pk)
+    want = bs.coeff2slot(eng, bs.BootstrapContext(eng), ct, ck, rk)
+    mesh = _virtual(cuda_device, 2, 4)
+    meng = MeshCKKS(ctx, mesh, rng=Surf(), hoist_bits=160)
+    bctx = bs.BootstrapContext(meng)
+    got = [bs.coeff2slot(meng, bctx, ct, ck, rk) for _ in range(2)]
+    traffic = []
+    for mode in ("graphed", "eager"):
+        mesh.reset_traffic()
+        with graphs.disabled() if mode == "eager" else contextlib.nullcontext():
+            got.append(bs.coeff2slot(meng, bctx, ct, ck, rk))
+        traffic.append({k: list(v) for k, v in mesh.traffic.items()})
+    progs = list(meng._mesh_jit.values())
+    assert progs and mesh.graphable and all(is_graph(f) for f in progs)
+    assert traffic[0] == traffic[1] and traffic[0]["psum"][0] > 0
+    for pair in got:
+        for a, b in zip(pair, want):
+            assert not any(equal_cts(a, b).values())

@@ -52,7 +52,7 @@ from gpqhe_tpu_torch.ops.modmath import torch_to_u64, u64_to_torch
 
 import torch_rns_model as rm
 import torch_rowwarp_model as rt
-from chip_smoke import EDGE_K, EDGE_ROWS, elementwise_edge_cases
+from torch_cases import EDGE_K, EDGE_ROWS, elementwise_edge_cases
 
 torch.set_num_threads(1)
 
@@ -443,7 +443,7 @@ def test_lift_model(path, logp):
                    torch_to_u64(tplan.MminusP_limbs), tplan.ks)
     plain = _u(tr.plain_lift(sd, af, tplan, center, k_out))
     assert np.array_equal(model, plain)
-    launched, lp = rt.run_lift(sd, af, tplan, center, k_out)   # rns.cu as launched
+    launched, lp = rt.run_lift(sd.to(torch.int64), af, tplan, center, k_out)   # rns.cu as launched
     assert lp["chunks"] == 1 and np.array_equal(model, launched)
     kw = dict(center=center, k_out=k_out or (tplan.ks if path == "nonneg" else None),
               bound_bits=bound if k_out else None)
@@ -676,7 +676,7 @@ def test_row_kernels_at_tile_edges(entry):
     constant, broadcast, row-strided and limb-strided operands with two
     leading rows, bool and int64 row bits, the 16-byte pair path and the
     word path of mask_bits and select, the lift at one, two and four chunks
-    on f64 and int64 digit sums and estimates past both clamps."""
+    on int64 digit sums and estimates past both clamps."""
     cases = [c for c in _edge_cases() if c["entry"] == entry]
     designs = set()
     for case in cases:
@@ -787,18 +787,21 @@ def _bad_calls():
         "digit_split table": (lambda: rns_cuda.digit_sums(
             x, dataclasses.replace(plan, phat_bytes=plan.phat_bytes[:, 1:]), 4), "byte table"),
         "lift table": (lambda: rns_cuda.lift(
-            torch.zeros((16, 4), dtype=torch.float64), torch.zeros(16, dtype=torch.float64),
+            torch.zeros((16, 4), dtype=i64), torch.zeros(16, dtype=torch.float64),
             dataclasses.replace(plan, P_limbs=torch.zeros((plan.ks, 2), dtype=i64)[:, 0]),
             True, 2), "contiguous"),
         "lift dtype": (lambda: rns_cuda.lift(torch.zeros((16, 4), dtype=torch.int32),
                                              torch.zeros(16, dtype=torch.float64), plan, True, 2),
                        "digit sums"),
+        "lift f64 digit sums": (lambda: rns_cuda.lift(
+            torch.zeros((16, 4), dtype=torch.float64), torch.zeros(16, dtype=torch.float64),
+            plan, True, 2), "int64 digit sums"),
         "limbs dtype": (lambda: limbs_cuda.binary("add", limbs, limbs.double()), "int64"),
         "limbs shape": (lambda: limbs_cuda.binary("add", limbs, limbs[:, :5]), "broadcast"),
         "limbs row operand": (lambda: limbs_cuda.select(torch.zeros(16, dtype=torch.float32),
                                                         limbs, limbs), "row operand"),
         "limbs row width": (lambda: rns_cuda.lift(
-            torch.zeros((16, 4), dtype=torch.float64), torch.zeros(16, dtype=torch.float64),
+            torch.zeros((16, 4), dtype=i64), torch.zeros(16, dtype=torch.float64),
             plan, True, rns_cuda.MAX_LIMBS + 1), "at most 128 limbs"),
         "limbs rows": (lambda: limbs_cuda.binary(
             "add", torch.zeros((1 << 16, 1, 2), dtype=i64), torch.zeros((1 << 15, 2), dtype=i64)),

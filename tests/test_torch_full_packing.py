@@ -9,8 +9,8 @@ on the default 59-bit chain and on logp=29.  The rotation bank holds only
 the baby steps and the giant-step multiples, so the streamed BSGS route
 runs.  Gates: decode within 1e-5 of A @ m, plan.fallbacks == 0, and on the
 59-bit chain the output ciphertext bit-equal to the JAX package's from the
-same Surf() stream and numpy seed.  The case itself is chip_smoke.py's
-gemv_packing_case, which the suite phase runs on the card.
+same Surf() stream and numpy seed.  The case itself is torch_cases.py's
+gemv_packing_case, which tests/test_torch_cuda.py runs on the card.
 """
 
 import numpy as np
@@ -27,7 +27,7 @@ from gpqhe_tpu.substrate.surf import Surf as JSurf
 
 from gpqhe_tpu_torch.scheme.types import limbs_to_numpy
 
-from chip_smoke import gemv_packing_case
+from torch_cases import gemv_packing_case
 
 torch.set_num_threads(1)
 

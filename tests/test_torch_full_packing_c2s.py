@@ -8,14 +8,14 @@ default 59-bit chain and on logp=29.  Gates: BootstrapContext.U0 / U1
 within 1e-9 of the reference construction; both coeff2slot outputs decode
 within 1e-5 to the real and imaginary encode coefficients; every hoisted
 plan without a fallback; on the 59-bit chain ct0 and ct1 bit-equal to the
-JAX package's from the same Surf() stream.  The case is chip_smoke.py's
-c2s_packing_case, which the suite phase runs on the card.
+JAX package's from the same Surf() stream.  The case is torch_cases.py's
+c2s_packing_case, which tests/test_torch_cuda.py runs on the card.
 """
 
 import pytest
 import torch
 
-from chip_smoke import c2s_packing_case
+from torch_cases import c2s_packing_case
 from test_torch_full_packing import JAX_API, assert_bit_equal
 
 torch.set_num_threads(1)

@@ -28,9 +28,8 @@ from gpqhe_tpu.algo import linalg as jlin
 from gpqhe_tpu.ring import sample as jsmp
 from gpqhe_tpu.substrate import surf as jsurf
 
-from chip_smoke import (GRAPH_ENGINES, GRAPH_OPS, HOISTED,  # the repository root
-                        graph_case, graph_check,            # is on sys.path
-                        kernel_module)
+from gpubench.devtrace import kernel_module      # the repository root is on sys.path
+from torch_cases import GRAPH_ENGINES, GRAPH_OPS, HOISTED, graph_case, graph_check
 from torch_standin import StandIn
 import gpqhe_tpu_torch as gt
 from gpqhe_tpu_torch.algo import linalg as tlin
@@ -349,8 +348,8 @@ SMALL = dict(logn=9, q=1 << 120, slots=4, Delta=1 << 30)
 
 @pytest.mark.parametrize("logp,impl", GRAPH_ENGINES)
 def test_the_card_checks_run_through_the_stand_in(monkeypatch, logp, impl):
-    """chip_smoke.graph_check, which the card's tests and the graphs phase
-    hold every graphed op to eager with, on the CPU at a small ring: the
+    """torch_cases.graph_check, which the card's tests hold every graphed op
+    to eager with, on the CPU at a small ring: the
     engine's default primitive replaced by the stand-in, each op of
     graph_case on two fresh input sets."""
     monkeypatch.setattr(graphs, "CUDA_GRAPHS", StandIn())
@@ -369,6 +368,7 @@ def test_the_card_checks_run_through_the_stand_in(monkeypatch, logp, impl):
     ("sm90_xmma_gemm_f64f64_f64f64_f64_nt_n", "matmul"),
     ("void at::native::index_elementwise_kernel<128, 4>", "other torch")])
 def test_profiles_give_a_graphs_copies_a_bucket_of_their_own(name, module):
-    """chip_smoke's profiles split busy time by module; the static inputs'
-    copies and the outputs' clones of a graphed op are "copies"."""
+    """The benchmark's profiles split busy time by module
+    (gpubench/devtrace.py); the static inputs' copies and the outputs'
+    clones of a graphed op are "copies"."""
     assert kernel_module(name) == module

@@ -154,7 +154,8 @@ def _imported_modules(path):
 def test_no_jax_import_in_port():
     files = [os.path.join(d, f) for d, _, fs in os.walk(PORT) for f in fs
              if f.endswith(".py")] + [os.path.join(ROOT, "chip_smoke.py"),
-                                      os.path.join(ROOT, "tests", "torch_oracle.py")]
+                                      os.path.join(ROOT, "tests", "torch_oracle.py"),
+                                      os.path.join(ROOT, "tests", "torch_cases.py")]
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -196,9 +197,9 @@ def test_port_imports_with_jax_blocked():
 
 
 def test_oracle_runs_with_jax_blocked():
-    """tests/torch_oracle.py (the exact oracle that chip_smoke.py's suite
-    phase and the CUDA tests hold the card against) imports and runs
-    test_kat.py's KAT sequence on the port without jax or gpqhe_tpu."""
+    """tests/torch_oracle.py (the exact oracle that the CUDA tests hold the
+    card against) imports and runs test_kat.py's KAT sequence on the port
+    without jax or gpqhe_tpu."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"

@@ -26,7 +26,7 @@ from gpqhe_tpu.context import PolyContext as JPolyContext
 from gpqhe_tpu.parallel import mesh as jmesh
 from gpqhe_tpu.ring import sample as jsmp
 
-from chip_smoke import is_graph   # the repository root is on sys.path (conftest)
+from torch_cases import is_graph
 from torch_mesh_cases import MeshCase, bat, cross, jbat
 from torch_standin import StandIn
 import gpqhe_tpu_torch as gt

@@ -11,7 +11,7 @@ plain torch versions and the JAX package's functions.
   - the launch's work split (threads a block, 16-byte pairs, the pair,
     constant and word paths of each operand row, tails, the loop over A past
     the grid): every output word written once, through ops/modmath_cuda.py's
-    wrapper as it calls the library, on chip_smoke.py's edge cases (the card
+    wrapper as it calls the library, on torch_cases.py's edge cases (the card
     runs the same ones);
   - the model's constants against modmath.cu's #defines.
 """
@@ -31,7 +31,7 @@ from gpqhe_tpu_torch.ops import modmath as tm
 from gpqhe_tpu_torch.ops import rns as tr
 
 import torch_modmath_model as mm
-from chip_smoke import CRT_CHAIN, ew_compare, modmath_edge_cases
+from torch_cases import CRT_CHAIN, ew_compare, modmath_edge_cases
 
 torch.set_num_threads(1)
 
@@ -163,7 +163,7 @@ def edge_cases():
 
 
 def test_ew_launches_at_the_edges(model_lib, edge_cases):
-    """chip_smoke.py's K5 edge cases through the wrapper and the model of the
+    """torch_cases.py's K5 edge cases through the wrapper and the model of the
     launch: equal to the plain version, every output word written once, and
     every branch of the design taken (16-byte pairs, a per-row constant and
     word loads for each operand, pair and word stores, tails, the loop over

@@ -15,7 +15,7 @@ fused stage (csrc/ntt4.cu) through its numpy model.
   - the wrapper of ops/ntt4_cuda.py with the model of the kernel
     (tests/torch_ntt4_model.py) in place of the library: every stage equal
     to the plain stage (split, torch.bmm, combine), every output word
-    written once, on chip_smoke.py's K8 edge cases (the card runs the same
+    written once, on torch_cases.py's K8 edge cases (the card runs the same
     ones, to logn=16), on the three chains at their larger rings, and at a
     stage's largest anti-diagonal sums for 2, 4 and 8 byte planes; the
     fragment maps; the wrapper's argument checks; the model's constants
@@ -42,7 +42,7 @@ from gpqhe_tpu_torch.ops import ntt4 as tntt4
 from gpqhe_tpu_torch.ops.modmath import torch_to_u64, u64_to_torch
 
 import torch_ntt4_model as nm
-from chip_smoke import CRT_CHAIN, MODES, ntt4_edge_cases, ntt4_input, ntt4_max_sums
+from torch_cases import CRT_CHAIN, MODES, ntt4_edge_cases, ntt4_input, ntt4_max_sums
 
 torch.set_num_threads(1)
 

@@ -18,7 +18,8 @@ integers and the plain torch versions.
   - both launches' work split (blocks, tiles of primes or byte columns,
     lanes and warps, staged chunks, the slab loop): every output word
     written once, through ops/rns_cuda.py's wrappers as they call the
-    library, on chip_smoke.py's edge cases (the card runs the same ones);
+    library, on tests/torch_cases.py's edge cases (the card runs the same
+    ones);
   - the model's constants against rns.cu's #defines.
 The file compiles no JAX program.
 """
@@ -36,7 +37,7 @@ from gpqhe_tpu_torch.substrate import bigint
 
 import torch_rns_model as rm
 import torch_rowwarp_model as rt
-from chip_smoke import CRT_CHAIN, ew_compare, rns_edge_cases
+from torch_cases import CRT_CHAIN, ew_compare, rns_edge_cases
 
 torch.set_num_threads(1)
 
@@ -154,7 +155,7 @@ def edge_cases():
 
 
 def test_decompose_launches_at_the_edges(model_lib, edge_cases):
-    """chip_smoke.py's decompose edge cases through the wrapper and the
+    """torch_cases.py's decompose edge cases through the wrapper and the
     model of the launch: equal to the plain version, every output word
     written once, and every branch of the design taken (one and two 32-bit
     halves a constant, one and several tiles of primes, one and two staged chunks of
@@ -173,7 +174,7 @@ def test_decompose_launches_at_the_edges(model_lib, edge_cases):
 
 
 def test_digit_split_launches_at_the_edges(model_lib, edge_cases):
-    """chip_smoke.py's digit-product edge cases through the wrapper and the
+    """torch_cases.py's digit-product edge cases through the wrapper and the
     model of the launch (rns_cuda.digit_sums): the digit sums equal the
     plain version's as values mod 2^(16 kd), af within a relative 2^-45
     (ew_compare), every digit sum and estimate written once, every byte
@@ -358,10 +359,11 @@ def test_digit_product_on_a_shard_plan(model_lib):
     assert torch.equal(tr.plain_lift(total, af, full, True, None), want)
 
 
-def test_recon_counts_each_digit_product_by_route():
-    """RECON counts a reconstruct's digit product once, by its route (on a
-    CPU tensor the plain split and torch.matmul), and a graphed program's
-    replays count it again, as its launches are."""
+def test_graphed_cpu_reconstruct_takes_the_plain_digit_product(monkeypatch):
+    """A reconstruct on a CPU tensor takes the plain digit product (the
+    16-bit split and torch.matmul), never rns_cuda.digit_sums, and a graphed
+    program's three calls (the capture and two replays) equal the eager
+    reconstruct."""
     from gpqhe_tpu_torch.utils import graphs
     from torch_standin import StandIn
     pctx = _digit_ring(59)
@@ -369,8 +371,11 @@ def test_recon_counts_each_digit_product_by_route():
     p = np.asarray(pctx.primes[:6], dtype=U)[:, None]
     y = torch.from_numpy((np.random.default_rng(2).integers(0, 1 << 63, size=(6, 64), dtype=U)
                           % p).view(np.int64))
+    want = tr.reconstruct(y, ba, plan)
+
+    def refuse(*a, **k):
+        raise AssertionError("a CPU reconstruct reached the card's digit product")
+    monkeypatch.setattr(rns_cuda, "digit_sums", refuse)
     prog = graphs.Graphs(StandIn()).program(lambda y: tr.reconstruct(y, ba, plan), ("recon",))
-    before = dict(tr.RECON)
     outs = [prog(y) for _ in range(3)]
-    assert tr.RECON == {"imma": before["imma"], "matmul": before["matmul"] + 3}
-    assert all(torch.equal(o, tr.reconstruct(y, ba, plan)) for o in outs)
+    assert all(torch.equal(o, want) for o in outs)

@@ -229,11 +229,11 @@ def test_kemctx_sizes():
 
 
 def test_full_width_checks_at_a_small_ring():
-    """chip_smoke.py's full_width_checks (the suite phase runs them at
-    logn=14/logq=438/slots=16/Delta=2^50 on the card) at logn=9/q=2^120/
+    """torch_cases.py's full_width_checks (tests/test_torch_cuda.py runs them
+    at logn=14/logq=438/slots=16/Delta=2^50 on the card) at logn=9/q=2^120/
     slots=16/Delta=2^30 on the CPU: every decode within 1e-5, a rotation by
     each of the 16 slots."""
-    from chip_smoke import full_width_checks
+    from torch_cases import full_width_checks
     eng = gt.CKKS(gt.HeContext(logn=9, q=1 << 120, slots=16, Delta=1 << 30), rng=gt.Surf(),
                   device="cpu")
     pk, sk = eng.keypair()

@@ -7,8 +7,7 @@ same samplers, so that every ciphertext of the engine can be held limb for
 limb against it.  It imports the port's verbatim copies of the host modules
 (context, ring/sample, substrate/surf, params) and neither jax nor
 gpqhe_tpu, so it also runs on a machine that has only the port: the CUDA
-tests (tests/test_torch_cuda.py) and chip_smoke.py's `suite` phase hold the
-engine on the card against it.
+tests (tests/test_torch_cuda.py) hold the engine on the card against it.
 
 kat_sequence and ladder_sweep are the op sequences of test_kat.py's
 test_exact_oracle_kat and test_exact_oracle_ladder_sweep, written once for
@@ -257,7 +256,7 @@ def _ints(t, to_host):
 
 
 def _check(ok, what: str) -> None:
-    """A gate that also holds under python -O (chip_smoke.py relies on it)."""
+    """A gate that also holds under python -O."""
     if not ok:
         raise AssertionError(what)
 

@@ -353,17 +353,17 @@ def run_limbs(op, out_shape, k, a, b=None, bit=None, k_out=0, t=0, nbits=0):
 # ---------------------------------------------------------------------------
 
 def run_lift(sd, af, plan, center, k_out):
-    """One gpqhe_rns_lift launch (rns_lift_kernel<T, NCH>): digit sums sd
-    [R, kd] (f64 or int64), af [R]; returns (limbs [R, k_out or ks] as
-    numpy, how it ran)."""
+    """One gpqhe_rns_lift launch (rns_lift_kernel<NCH>): int64 digit sums
+    sd [R, kd], af [R]; returns (limbs [R, k_out or ks] as numpy, how it
+    ran)."""
     kd = sd.shape[-1]
     exact = k_out is None
     kout = plan.ks if exact else k_out
     assert 1 <= kout <= 32 * MAX_CHUNKS
     kuse = min(kd, 2 * kout)
     R = af.numel()
-    s = sd.reshape(R, kd)
-    s = (s.numpy().astype(np.int64) if s.dtype == torch.float64 else s.numpy()).view(U)
+    assert sd.dtype == torch.int64, f"the lift takes int64 digit sums, got {sd.dtype}"
+    s = sd.reshape(R, kd).numpy().view(U)
     a = af.reshape(R).numpy()
     negP = plan.negP16.numpy().view(U)
     Pt, Pht, Mt = (x.numpy().view(U) for x in (plan.P_limbs, plan.Phalf_limbs,
