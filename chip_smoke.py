@@ -289,21 +289,22 @@ def phase_build():
     if mma is not None and (len(mma) != ROW_KERNELS["ntt4.cu"] or not all(mma.values())):
         raise AssertionError(f"K8 instantiations without tensor-core products in SASS: {mma}")
     mma = sass["rns.cu"] and {k: v["tensor_core"] for k, v in sass["rns.cu"].items()
-                              if "rns_digit_split_kernel_mma" in k}
-    if mma is not None and (len(mma) != DIGIT_PRODUCTS or not all(mma.values())):
-        raise AssertionError(f"digit-product instantiations without tensor-core products in "
-                             f"SASS: {mma}")
+                              if "_kernel_mma" in k}
+    if mma is not None and (len(mma) != RNS_MMA or not all(mma.values())):
+        raise AssertionError(f"digit-product or tensor-core decompose instantiations without "
+                             f"tensor-core products in SASS: {mma}")
 
 
 # instantiations of the gated kernels by source: K7's eight chains on rows of
 # one chunk and of more, its word kernel by word and by pair for mask_bits
 # and select, and the fill by word and by pair; the lift (on int64 digit
-# sums) at 1, 2 and 4 chunks, decompose and the digit product by the bytes
-# of a residue (8, 4: DIGIT_PRODUCTS, each with IMMA in its SASS); K5's
-# elementwise kernel by op, the cross terms, the key products and the sum
-# by mode; K8's stage by byte planes (2, 4, 8) and transpose
-DIGIT_PRODUCTS = 2
-ROW_KERNELS = {"limbs.cu": 22, "rns.cu": 4 + DIGIT_PRODUCTS, "modmath.cu": 9, "ntt4.cu": 6}
+# sums) at 1, 2 and 4 chunks, decompose's IMAD kernel, and the digit product
+# and decompose's tensor-core kernel by the bytes of a residue or constant
+# (8, 4: RNS_MMA, each with IMMA in its SASS); K5's elementwise kernel by op,
+# the cross terms, the key products and the sum by mode; K8's stage by byte
+# planes (2, 4, 8) and transpose
+RNS_MMA = 4
+ROW_KERNELS = {"limbs.cu": 22, "rns.cu": 4 + RNS_MMA, "modmath.cu": 9, "ntt4.cu": 6}
 
 
 def resource_usage(library: str) -> dict:
@@ -557,17 +558,51 @@ EW_REPLACES = {
     "limbs_fill_rows": "gpqhe_tpu/scheme/engine.py:164 (const_pt's and ecd's host build and copy)",
 }
 
-def ew_bound(case) -> dict:
+def ew_bound(case, route: str | None = None) -> dict:
     """The least time of a case: its bytes over the memory rate, its 32-bit
     multiplies over the integer rate, or (int8_ops) its u8 tensor-core
-    operations over the int8 rate, whichever is largest."""
+    operations over the int8 rate, whichever is largest.  A decompose case
+    counts the operations of `route` (default: the route its K takes)."""
+    if "route_ops" in case:
+        from gpqhe_tpu_torch.ops import rns_cuda
+        route = route or ("mma" if rns_cuda.takes_mma(case["k"]) else "imad")
+        case = {**case, **case["route_ops"][route], "route": route}
     t_bytes = case["bytes"] / PEAK_BYTES_S * 1e3
     t_ops = max(case["imad"] / PEAK_IMAD_S, case.get("int8_ops", 0) / PEAK_INT8_S) * 1e3
     out = {"bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bytes_ms": t_bytes, "operations_ms": t_ops}
-    if "imad_mont" in case:
+    if "imad_mont" in case and case.get("route", "imad") == "imad":
         out["mont_operations_ms"] = case["imad_mont"] / PEAK_IMAD_S * 1e3
+    if "route" in case:
+        out["route"] = case["route"]
+    return out
+
+
+def decompose_route_rows(case, iters: int, phase: str, ring) -> dict:
+    """Both routes of decompose at a case's shape (torch_cases'
+    decompose_routes: the IMAD kernel and the tensor cores, whichever the
+    dispatcher would take at its K), each torch.equal to the plain version
+    and timed as the entries are, with its own bound; one line a route.
+    K* (rns_cuda.MMA_MIN_LIMBS) comes from these rows."""
+    import torch
+    want = case["plain"]()
+    out = {}
+    for route, fn in case["routes"].items():
+        got = fn()
+        torch.cuda.synchronize()
+        eq = torch.equal(got, want)
+        row = {"phase": phase, "ring": ring, "kernel": "decompose", "route": route,
+               "shape": case["shape"], "equal": eq}
+        if eq:
+            runs = [device_ms_runs(fn, iters) for _ in range(2)]
+            row.update({"ms": median(runs[0] + runs[1]), "turn_ms": [median(r) for r in runs],
+                        "host_us": host_us(fn), **ew_bound(case, route)})
+            out[route] = row
+        emit(row)
+        if not eq:
+            raise AssertionError(f"decompose's {route} route at {case['shape']} differs from "
+                                 f"its plain version")
     return out
 
 
@@ -616,6 +651,8 @@ def phase_kernels16(iters: int) -> dict:
             if not eq:
                 raise AssertionError(f"CUDA {entry} {case['shape']} at logn=16 differs from "
                                      f"its plain version")
+            if entry == "decompose":
+                decompose_route_rows(case, iters, "kernels16", [16, 59])
     emit({"phase": "kernels16", "summary": "device ms per launch at the logn=16 shapes",
           "ms": {k: v["ms"] for k, v in result.items()},
           "bound_share": {k: v["bound_ms"] / v["ms"] for k, v in result.items()}})
@@ -684,6 +721,8 @@ def phase_elementwise(iters: int, rings=((14, 59), (14, 29), (15, 59)), tag: str
                 if not eq:
                     raise AssertionError(f"CUDA {entry} {case['shape']} at logn={logn} "
                                          f"logp={logp} differs from its plain version")
+                if entry == "decompose" and ((logn, logp) == timed_ring and i < 2 or main15):
+                    decompose_route_rows(case, iters, phase, [logn, logp])
                 if entry in result:
                     result[entry]["max_abs_err"] = max(result[entry]["max_abs_err"], err)
     for case in elementwise_edge_cases(dev):

@@ -21,9 +21,11 @@
 // What bounds them on the H100: bytes for digit_split and lift (a word in,
 // its digit sums out, 8 bytes each; a row of digit sums in, u32 limbs out, in
 // int64), the tensor cores' u8 products close behind digit_split's bytes;
-// multiplies for decompose: per output word and limb the 32 x 64-bit product
-// of the limb and its constant, 2 IMAD and 2 IMAD.HI where the primes pass
-// 32 bits.  The designs.  decompose: a block stages a tile of 64 rows'
+// multiplies for decompose's IMAD route: per output word and limb the 32 x
+// 64-bit product of the limb and its constant, 2 IMAD and 2 IMAD.HI where the
+// primes pass 32 bits, so that its work an output grows with the row's limbs
+// K; its tensor-core route (rows of many limbs, see the kernel) takes those
+// products as u8 ones.  The designs.  decompose: a block stages a tile of 64 rows'
 // limbs in shared memory once, read coalesced, a signed row's limbs masked
 // as they land; its 8 warps take 2 primes each of a tile of 16 and a lane 2
 // rows, each output the sum over the limbs of limb_i c_i, c_i = 2^(32 i) R
@@ -87,6 +89,21 @@ static_assert(DS_TILE / DS_WARP_N == 256, "bm = 256 / wn: 2^(8 - log2 wn) rows")
 constexpr int DS_OUT_W = DS_WARP_N / 2 + DS_OUT_PAD;
 static_assert(DS_WARPS * 16 * DS_OUT_W * 8 <= (128 + 128) * DS_KS, "the warps' sums fit a stage");
 
+// decompose on the tensor cores: a tile of DM_ROWS rows against DM_COLS byte
+// columns (the digit product's warps, two down and four across), a chunk of
+// depth DS_DEPTH bytes = DM_CHUNK limbs, each thread staging DM_LOADS limbs
+#define DM_ROWS 64
+#define DM_OUT_PAD 8      // words past a row of a warp's staged column sums
+constexpr int DM_COLS = DS_TILE / DM_ROWS;                       // 256
+constexpr int DM_CHUNK = DS_DEPTH / 4;                            // 32 limbs
+constexpr int DM_LOADS = DM_ROWS * DM_CHUNK / (DS_WARPS * 32);    // 8
+constexpr int DM_OUT_W = DS_WARP_N + DM_OUT_PAD;
+static_assert(DM_CHUNK == 32 && DM_ROWS == 8 * DM_LOADS, "lane = limb, warp + 8 u = row");
+static_assert(DM_ROWS / DS_WARP_M * (DM_COLS / DS_WARP_N) == DS_WARPS, "the warps cover a tile");
+static_assert(DM_OUT_W % 4 == 0, "a row's staged sums 16-byte aligned");
+static_assert(DS_WARPS * 16 * DM_OUT_W * 4 <= (DM_ROWS + DM_COLS) * DS_KS,
+              "the warps' sums fit a stage");
+
 // c_i = 2^(32 i) R mod p (R = 2^64) of limb i, from the weights w_j = R^(j+1)
 // mod p (row of one prime) and c1 = 2^32 R mod p: c_2j = w_j and
 // c_2j+1 = mont_mul(w_j, c1) = R^(j+1) 2^32.
@@ -103,6 +120,16 @@ __device__ __forceinline__ u64 c1_of(const u64 *w, int J, u64 p, u64 pinv) {
     u64 c1 = w0;
     for (int b = 0; b < 32; ++b) c1 = addmod(c1, c1, p);
     return c1;
+}
+
+// 2^src_bits mod p = (c_f 2^e) R^-1, src_bits = 32 f + e, f < K: what a
+// negative row of a two's-complement input of src_bits width subtracts
+__device__ __forceinline__ u64 pow2_src(const u64 *w, int J, int K, int src_bits, u64 p,
+                                        u64 pinv) {
+    const int f = src_bits / 32 < K ? src_bits / 32 : K - 1;
+    const int sh = src_bits - 32 * f;
+    const u64 c = limb_const(w, f, c1_of(w, J, p, pinv), p, pinv);
+    return mont_reduce(sh ? c >> (64 - sh) : 0, c << sh, p, pinv);
 }
 
 // a[0..3] (a 128-bit sum, 32-bit words) += x * c, c = c.y:c.x (NH = 2) or
@@ -281,21 +308,42 @@ __global__ void __launch_bounds__(DEC_WARPS * 32, 3) rns_decompose_kernel(DecArg
             const int dl = warp + e * DEC_WARPS;
             if (dl >= np) continue;
             const u64 p = tp[2 * dl];
-            u64 tsrc = 0;
-            if (g.src_bits > 0) {
-                // 2^src_bits mod p = (c_f 2^e) R^-1, src_bits = 32 f + e, f < K
-                const u64 pinv = tp[2 * dl + 1], *w = g.w + (i64)(d0 + dl) * g.J;
-                const int f = g.src_bits / 32 < g.K ? g.src_bits / 32 : g.K - 1;
-                const int sh = g.src_bits - 32 * f;
-                const u64 c = limb_const(w, f, c1_of(w, g.J, p, pinv), p, pinv);
-                tsrc = mont_reduce(sh ? c >> (64 - sh) : 0, c << sh, p, pinv);
-            }
+            const u64 tsrc = g.src_bits > 0 ? pow2_src(g.w + (i64)(d0 + dl) * g.J, g.J, g.K,
+                                                       g.src_bits, p, tp[2 * dl + 1])
+                                            : 0;
             u64 *o = g.out + (s * g.dim + d0 + dl) * g.n + r0;
 #pragma unroll
             for (int j = 0; j < DEC_RL; ++j) {
                 const int rr = lane + 32 * j;
                 if (rr >= rows) continue;
                 o[rr] = g.src_bits > 0 && neg[rr] ? submod(r[j][e], tsrc, p) : r[j][e];
+            }
+        }
+    }
+}
+
+// The products of one staged chunk: a warp's two m16 fragments of A (rows
+// 16 apart from its lane's ldmatrix address a_lane) against its `live` n8
+// tiles of B (from b_lane), `depth` bytes walked 32 at a time.  Per 32 bytes
+// the warp loads its two A fragments and its live B fragments once and
+// issues up to 2 FN products.
+template <int FN>
+__device__ __forceinline__ void mma_chunk(int (&acc)[2][FN][4], u32 base, u32 a_lane, u32 b_lane,
+                                          int depth, int live) {
+    for (int kk = 0; kk < depth; kk += 32) {
+        u32 a0[4], a1[4];
+        ldsm_x4(a0, base + a_lane + kk);
+        ldsm_x4(a1, base + a_lane + 16 * DS_KS + kk);
+#pragma unroll
+        for (int j = 0; j < FN; j += 2) {
+            if (j >= live) break;
+            u32 b[4];
+            ldsm_x4(b, base + b_lane + 8 * j * DS_KS + kk);
+            mma_u8(acc[0][j], a0, b[0], b[1]);
+            mma_u8(acc[1][j], a1, b[0], b[1]);
+            if (j + 1 < live) {
+                mma_u8(acc[0][j + 1], a0, b[2], b[3]);
+                mma_u8(acc[1][j + 1], a1, b[2], b[3]);
             }
         }
     }
@@ -442,26 +490,7 @@ rns_digit_split_kernel_mma(i64 *__restrict__ sums, double *__restrict__ af, i64 
         }
         if (scale.p) __syncthreads();
         const int depth = NB * dim - d0 * NB < DS_DEPTH ? NB * dim - d0 * NB : DS_DEPTH;
-        if (T.live > 0) {
-            const u32 base = s0 + st * stage;
-            for (int kk = 0; kk < depth; kk += 32) {
-                u32 a0[4], a1[4];
-                ldsm_x4(a0, base + a_lane + kk);
-                ldsm_x4(a1, base + a_lane + 16 * DS_KS + kk);
-#pragma unroll
-                for (int j = 0; j < FN; j += 2) {
-                    if (j >= T.live) break;
-                    u32 b[4];
-                    ldsm_x4(b, base + b_lane + 8 * j * DS_KS + kk);
-                    mma_u8(acc[0][j], a0, b[0], b[1]);
-                    mma_u8(acc[1][j], a1, b[0], b[1]);
-                    if (j + 1 < T.live) {
-                        mma_u8(acc[0][j + 1], a0, b[2], b[3]);
-                        mma_u8(acc[1][j + 1], a1, b[2], b[3]);
-                    }
-                }
-            }
-        }
+        if (T.live > 0) mma_chunk(acc, s0 + st * stage, a_lane, b_lane, depth, T.live);
         __syncthreads();                        // the stage's readers are done
         if (last) {
             // the epilogue: byte columns 2j and 2j + 1 (this lane's 2t, 2t + 1
@@ -500,6 +529,209 @@ rns_digit_split_kernel_mma(i64 *__restrict__ sums, double *__restrict__ af, i64 
         }
         if (!more) break;
         ch = last ? 0 : ch + 1;
+        item = next;
+        T = N;
+    }
+}
+
+// decompose on the tensor cores, for rows of many limbs (the wrapper takes
+// this route for K >= rns_cuda.MMA_MIN_LIMBS): limbs [S, n, K] -> residues
+// [S, dim, n], the same function as rns_decompose_kernel.  A row's K limbs
+// are its 4K little-endian bytes x_j, and residue d is
+//   sum_j x_j c_dj R^-1 mod p_d,   c_dj = 2^(8 j) R mod p_d,
+// so the products are u8 ones: A the rows' bytes (depth j), B the table
+// (u8 [NB dim, tdepth], rns_cuda.decompose_table: row NB d + k, depth j
+// holds byte k of c_dj; NB = 8, or 4 where the primes fit 32 bits), and
+// mma.sync m16n8k32 u8 x u8 -> s32 sums byte column k of prime d,
+//   s_dk = sum_j x_j c_dj[k] <= 4K 255^2 < 2^31 (K <= 8256),
+// exact.  The epilogue folds a prime's NB columns, V = sum_k s_dk 2^(8 k) =
+// sum_j x_j c_dj < 4K 2^8 p, whose high 64-bit word is below p (4K 2^8 <
+// 2^64), so one mont_reduce(hi, lo) gives the residue; a negative row (src_bits
+// > 0) subtracts 2^src_bits mod p, its limbs masked to src_bits as they land,
+// as rns_decompose_kernel does.  The work an output: 2 NB u8 products a limb
+// on the tensor cores, and a fold and one reduction whatever K is.
+//
+// The loop is the digit product's: persistent blocks, DS_BLOCKS_AN_SM an
+// SM, each walking the tiles (DM_ROWS rows of a slab x DM_COLS byte
+// columns; columns fastest, so that a row tile's limbs are read from L2 by
+// the blocks of its other column tiles) gridDim.x apart, the depth in
+// chunks of DS_DEPTH bytes (DM_CHUNK limbs), two stages in shared memory.
+// Both operands come by cp.async, issued a step ahead: the table's rows 16
+// bytes a copy; the limbs are int64 words whose low halves are the bytes, so
+// lane l of warp w copies the low 4 bytes of limb 32 ch + l of rows w + 8 u
+// (a warp a row's 256 bytes) to their packed place in the stage, zeros past
+// the row's limbs or the tile's rows (the stage holds no stale byte), and
+// masks its own words of a negative row once they have landed.  Epilogue:
+// each warp stages its two fragments' s32 sums 16 rows at a time in its part
+// of the stage just worked (rows DM_OUT_PAD words longer), then lane (r, q)
+// of it folds and reduces row r's primes q, q + 2, ..., and writes them, 16
+// neighbouring words of a prime's row of residues a store.
+struct DmTile {
+    i64 s, k0;
+    int rows, c0, cols, live;
+};
+
+template <int NB>
+__global__ void __launch_bounds__(DS_WARPS * 32, DS_BLOCKS_AN_SM)
+rns_decompose_kernel_mma(u64 *__restrict__ out, const u64 *__restrict__ a, i64 S, i64 n, int K,
+                         i64 ss, i64 sn, int dim, int J, const u64 *__restrict__ w, PerPrime P,
+                         PerPrime V, int src_bits, const u8 *__restrict__ table, int tdepth) {
+    constexpr int FN = DS_WARP_N / 8;           // a warp's n8 tiles
+    constexpr int PW = DS_WARP_N / NB;          // a warp's primes
+    extern __shared__ __align__(16) u8 smem[];
+    __shared__ u64 wp[DS_WARPS][PW][3];         // a warp's primes: p, pinv, 2^src_bits mod p
+    const u32 stage = (DM_ROWS + DM_COLS) * DS_KS;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int g = lane >> 2, t = lane & 3;
+    const int wr = (warp >> 2) * DS_WARP_M, wc = (warp & 3) * DS_WARP_N;
+    const int chunks = (4 * K + DS_DEPTH - 1) / DS_DEPTH;
+    const int tiles_c = (NB * dim + DM_COLS - 1) / DM_COLS;
+    const i64 tiles_k = (n + DM_ROWS - 1) / DM_ROWS, items = S * tiles_k * tiles_c;
+    const int full = src_bits / 32, rem = src_bits % 32, hb = src_bits - 1;
+    const u32 s0 = smem_addr(smem);
+    const u32 a_lane = (wr + (lane & 7) + 8 * ((lane >> 3) & 1)) * DS_KS + 16 * (lane >> 4);
+    const u32 b_lane = (DM_ROWS + wc + (lane & 7) + 8 * (lane >> 4)) * DS_KS +
+                       16 * ((lane >> 3) & 1);
+    // item -> tile: column blocks fastest, then rows, then slabs
+    auto tile_of = [&](i64 item) {
+        DmTile T;
+        const i64 q = item / tiles_c;
+        T.c0 = (int)(item - q * tiles_c) * DM_COLS;
+        T.s = q / tiles_k;
+        T.k0 = (q - T.s * tiles_k) * DM_ROWS;
+        T.rows = n - T.k0 < DM_ROWS ? (int)(n - T.k0) : DM_ROWS;
+        T.cols = NB * dim - T.c0 < DM_COLS ? NB * dim - T.c0 : DM_COLS;
+        T.live = T.cols - wc <= 0 ? 0 : T.cols - wc >= DS_WARP_N ? FN : (T.cols - wc + 7) / 8;
+        return T;
+    };
+    auto row_of = [&](const DmTile &T, int r) { return a + T.s * ss + (T.k0 + r) * sn; };
+    auto negative = [&](const DmTile &T, int r) {
+        return src_bits > 0 && ((__ldg((const u32 *)(row_of(T, r) + hb / 32)) >> (hb % 32)) & 1);
+    };
+    // chunk ch of tile T into stage st: this thread's limbs (the low 32-bit
+    // half of each int64 word, 4 bytes a copy; zeros past the row's limbs
+    // and the tile's rows) and the table's rows of the tile's columns
+    auto fetch = [&](const DmTile &T, int ch, int st) {
+        const u32 base = s0 + st * stage;
+        const int li = DM_CHUNK * ch + lane;
+#pragma unroll
+        for (int u = 0; u < DM_LOADS; ++u) {
+            const int r = warp + 8 * u;
+            const bool in = r < T.rows && li < K;
+            cp_async_zfill<4>(base + r * DS_KS + 4 * lane, in ? row_of(T, r) + li : a, in);
+        }
+        for (int i = tid; i < T.cols * (DS_DEPTH / 16); i += DS_WARPS * 32) {
+            const int c = i >> 3, o = i & 7;
+            cp_async16(base + (DM_ROWS + c) * DS_KS + 16 * o,
+                       table + (i64)(T.c0 + c) * tdepth + ch * DS_DEPTH + 16 * o);
+        }
+        asm volatile("cp.async.commit_group;\n" ::: "memory");
+    };
+    // once this thread's copies of chunk ch have landed: a negative row's
+    // limbs at and past the sign's word masked to src_bits
+    auto mask = [&](const DmTile &T, int ch, int st) {
+        const int li = DM_CHUNK * ch + lane;
+        if (src_bits <= 0 || li < full || li >= K) return;
+        u32 *as = (u32 *)(smem + st * stage);
+#pragma unroll
+        for (int u = 0; u < DM_LOADS; ++u) {
+            const int r = warp + 8 * u;
+            if (r < T.rows && negative(T, r)) {
+                u32 &v = as[r * (DS_KS / 4) + lane];
+                v = li > full || rem == 0 ? 0 : v & ((1u << rem) - 1);
+            }
+        }
+    };
+    // the epilogue of tile T, its sums in stage st; the warp's primes'
+    // constants made where its tile of columns changes
+    int wp_c0 = -1;
+    auto epilogue = [&](const DmTile &T, int (&acc)[2][FN][4], int st) {
+        const int e0 = (T.c0 + wc) / NB;        // the warp's first prime
+        const int np = T.cols - wc <= 0              ? 0
+                       : T.cols - wc < DS_WARP_N ? (T.cols - wc) / NB
+                                                 : PW;  // the warp's live primes
+        if (T.c0 != wp_c0 && lane < np) {
+            const u64 p = P.at(e0 + lane), pinv = V.at(e0 + lane);
+            wp[warp][lane][0] = p;
+            wp[warp][lane][1] = pinv;
+            wp[warp][lane][2] = src_bits > 0 ? pow2_src(w + (i64)(e0 + lane) * J, J, K, src_bits,
+                                                        p, pinv)
+                                             : 0;
+        }
+        wp_c0 = T.c0;
+        u32 *sm = (u32 *)(smem + st * stage) + warp * 16 * DM_OUT_W;
+        const int r = lane & 15;
+#pragma unroll
+        for (int f = 0; f < 2; ++f) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+                for (int j = 0; j < FN; ++j) {
+                    if (j < T.live)
+                        *(uint2 *)(sm + (g + 8 * h) * DM_OUT_W + 8 * j + 2 * t) =
+                            make_uint2((u32)acc[f][j][2 * h], (u32)acc[f][j][2 * h + 1]);
+                    acc[f][j][2 * h] = acc[f][j][2 * h + 1] = 0;
+                }
+            __syncwarp();
+            const int row = wr + 16 * f + r;
+            if (row < T.rows) {
+                const bool neg = negative(T, row);
+                u64 *o = out + (T.s * dim + e0) * n + T.k0 + row;
+                for (int e = lane >> 4; e < np; e += 2) {
+                    const u32 *cs = sm + r * DM_OUT_W + NB * e;
+                    const uint4 c4 = *(const uint4 *)cs;
+                    // a_i = s_2i + 2^8 s_2i+1 < 2^40; V = sum_i a_i 2^(16 i) as hi:lo
+                    const u64 a0 = c4.x + ((u64)c4.y << 8), a1 = c4.z + ((u64)c4.w << 8);
+                    u64 lo = a0 + (a1 << 16), hi = 0;
+                    if constexpr (NB == 8) {
+                        const uint4 d4 = *(const uint4 *)(cs + 4);
+                        const u64 a2 = d4.x + ((u64)d4.y << 8), a3 = d4.z + ((u64)d4.w << 8);
+                        hi = (a1 >> 48) + (lo < (a1 << 16));
+                        u64 x = a2 << 32;
+                        lo += x;
+                        hi += (a2 >> 32) + (lo < x);
+                        x = a3 << 48;
+                        lo += x;
+                        hi += (a3 >> 16) + (lo < x);
+                    }
+                    const u64 *pe = wp[warp][e];
+                    const u64 res = mont_reduce(hi, lo, pe[0], pe[1]);
+                    o[(i64)e * n] = neg ? submod(res, pe[2], pe[0]) : res;
+                }
+            }
+            __syncwarp();
+        }
+    };
+    i64 item = blockIdx.x;
+    if (item >= items) return;
+    DmTile T = tile_of(item);
+    fetch(T, 0, 0);
+    int acc[2][FN][4] = {};
+    for (int ch = 0, st = 0;; st ^= 1) {
+        // the next step (the next chunk, or the next tile's first) lands
+        // while this one is worked
+        const bool last = ch + 1 == chunks;
+        const i64 next = last ? item + gridDim.x : item;
+        const bool more = next < items;
+        const DmTile N = last && more ? tile_of(next) : T;
+        const int nch = last ? 0 : ch + 1;
+        if (more) {
+            fetch(N, nch, st ^ 1);
+            asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+        } else {
+            asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+        }
+        mask(T, ch, st);
+        __syncthreads();
+        const int depth = 4 * K - ch * DS_DEPTH < DS_DEPTH ? 4 * K - ch * DS_DEPTH : DS_DEPTH;
+        if (T.live > 0) mma_chunk(acc, s0 + st * stage, a_lane, b_lane, depth, T.live);
+        __syncthreads();                        // the stage's readers are done
+        if (last) {
+            epilogue(T, acc, st);
+            __syncthreads();                    // before the stage takes the step after next
+        }
+        if (!more) break;
+        ch = nch;
         item = next;
         T = N;
     }
@@ -617,6 +849,52 @@ extern "C" int gpqhe_rns_decompose(i64 S, i64 n, int K, i64 ss, i64 sn, int dim,
     return (int)cudaGetLastError();
 }
 
+// The device's SMs, once the dynamic shared-memory limit of the persistent
+// kernel in `slot` is raised to DS_SMEM on it (once a device and kernel);
+// 0 on an error, in *rc.
+static int persistent_sms(const void *kernel, int slot, cudaError_t *rc) {
+    static bool ready[64][4];
+    static int sms[64];
+    int dev = 0;
+    *rc = cudaGetDevice(&dev);
+    if (*rc != cudaSuccess || dev >= 64) {
+        if (*rc == cudaSuccess) *rc = cudaErrorInvalidValue;
+        return 0;
+    }
+    if (!ready[dev][slot]) {
+        *rc = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DS_SMEM);
+        if (*rc == cudaSuccess && !sms[dev])
+            *rc = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+        if (*rc != cudaSuccess) return 0;
+        ready[dev][slot] = true;
+    }
+    return sms[dev];
+}
+
+// limbs [S, n, K] (strides ss, sn, 1) -> residues [S, dim, n] on the tensor
+// cores; table: u8 [nb dim, tdepth] (rns_cuda.decompose_table: tdepth a
+// multiple of DS_DEPTH, >= 4 K), its rows 16-byte aligned.
+extern "C" int gpqhe_rns_decompose_mma(i64 S, i64 n, int K, i64 ss, i64 sn, int dim, int J,
+                                       int nb, void *out, const void *a, const void *w,
+                                       const void *ps, i64 psd, const void *pinv, i64 pvd,
+                                       int src_bits, const void *table, int tdepth,
+                                       void *stream) {
+    void (*kernel)(u64 *, const u64 *, i64, i64, int, i64, i64, int, int, const u64 *, PerPrime,
+                   PerPrime, int, const u8 *, int) =
+        nb == 8 ? rns_decompose_kernel_mma<8> : nb == 4 ? rns_decompose_kernel_mma<4> : nullptr;
+    if (!kernel || K < 1 || tdepth % DS_DEPTH || 4 * K > tdepth) return (int)cudaErrorInvalidValue;
+    cudaError_t rc;
+    const int sms = persistent_sms((const void *)kernel, nb == 8 ? 2 : 3, &rc);
+    if (!sms) return (int)rc;
+    const i64 items = S * ((n + DM_ROWS - 1) / DM_ROWS) * ((nb * dim + DM_COLS - 1) / DM_COLS);
+    if (items == 0) return (int)cudaSuccess;
+    const unsigned grid = (unsigned)(items < DS_BLOCKS_AN_SM * sms ? items : DS_BLOCKS_AN_SM * sms);
+    kernel<<<grid, DS_WARPS * 32, DS_SMEM, (cudaStream_t)stream>>>(
+        (u64 *)out, (const u64 *)a, S, n, K, ss, sn, dim, J, (const u64 *)w,
+        {(const u64 *)ps, psd}, {(const u64 *)pinv, pvd}, src_bits, (const u8 *)table, tdepth);
+    return (int)cudaGetLastError();
+}
+
 // table: u8 [2 ds, tdepth] (tdepth a multiple of DS_DEPTH, >= nb dim), its
 // rows 16-byte aligned; nb the bytes a residue takes (8, or 4 for primes
 // below 2^32).
@@ -625,31 +903,21 @@ extern "C" int gpqhe_rns_digit_sums(i64 S, int dim, i64 n, int nb, int kd, void 
                                     const void *scale, i64 scd, const void *ps, i64 psd,
                                     const void *pinv, i64 pvd, const void *inv_p, i64 ipd,
                                     const void *table, int tdepth, void *stream) {
-    static bool ready[64][2];           // the shared-memory limit set, by device and kernel
-    static int sms[64];                 // the device's SMs
     void (*kernel)(i64 *, double *, i64, int, i64, int, int, View, PerPrime, PerPrime,
                    PerPrime, const double *, i64, const u8 *, int) =
         nb == 8 ? rns_digit_split_kernel_mma<8> : nb == 4 ? rns_digit_split_kernel_mma<4>
                                                           : nullptr;
-    int dev = 0;
-    if (!kernel || kd < 1 || tdepth % DS_DEPTH || (i64)nb * dim > tdepth ||
-        cudaGetDevice(&dev) != cudaSuccess || dev >= 64)
+    if (!kernel || kd < 1 || tdepth % DS_DEPTH || (i64)nb * dim > tdepth)
         return (int)cudaErrorInvalidValue;
-    if (!ready[dev][nb == 8]) {
-        cudaError_t rc = cudaFuncSetAttribute(
-            (const void *)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, DS_SMEM);
-        if (rc == cudaSuccess && !sms[dev])
-            rc = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
-        if (rc != cudaSuccess) return (int)rc;
-        ready[dev][nb == 8] = true;
-    }
+    cudaError_t rc;
+    const int sms = persistent_sms((const void *)kernel, nb == 8, &rc);
+    if (!sms) return (int)rc;
     const int lwn = 2 * kd <= DS_WARP_N ? 0 : 2 * kd <= 2 * DS_WARP_N ? 1 : 2;   // log2 wn
     const int bn = DS_WARP_N << lwn, bm = DS_TILE / bn;
     const i64 items = S * ((n + bm - 1) / bm) * ((2 * kd + bn - 1) / bn);
     if (items == 0) return (int)cudaSuccess;
     // persistent blocks, two an SM, each walking tiles gridDim.x apart
-    const unsigned grid = (unsigned)(items < DS_BLOCKS_AN_SM * sms[dev] ? items
-                                                                     : DS_BLOCKS_AN_SM * sms[dev]);
+    const unsigned grid = (unsigned)(items < DS_BLOCKS_AN_SM * sms ? items : DS_BLOCKS_AN_SM * sms);
     const View yv = {(const u64 *)y, 0, ys, yd, yk};
     const PerPrime sc = {(const u64 *)scale, scd}, P = {(const u64 *)ps, psd},
                    V = {(const u64 *)pinv, pvd};

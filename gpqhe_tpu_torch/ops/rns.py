@@ -19,7 +19,10 @@ launch of rns_cuda.digit_sums (u8 products on the tensor cores) on a CUDA
 tensor, whose int64 digit sums the card's lift takes.  LIFT counts the lifts
 _lift makes on any device, by their operands: calls, rows, digit_words
 (rows x the digit sums a row reads) and limb_words (rows x the limbs a row
-writes).
+writes).  DECOMP counts the decomposes decompose_core makes on any device
+likewise: calls, rows, limb_words (rows x K), residue_words (rows x dim),
+and tc_calls, those that took the card's tensor-core route
+(rns_cuda.takes_mma: rows of many limbs).
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ from . import rns_cuda
 from .modmath import plain_mont_mul, u64_to_torch
 
 LIFT = cuda_build.counters({"calls": 0, "rows": 0, "digit_words": 0, "limb_words": 0})
+DECOMP = cuda_build.counters({"calls": 0, "tc_calls": 0, "rows": 0, "limb_words": 0,
+                              "residue_words": 0})
 
 
 @dataclass(frozen=True)
@@ -212,10 +217,17 @@ def plain_decompose_signed(a, ps, pinv, weights, src_bits: int):
 def decompose_core(a, ps, pinv, weights, src_bits: int | None = None):
     """[..., n, K] limbs -> [..., dim, n] residues; src_bits: the input is a
     two's-complement value of that width (plain_decompose_signed)."""
+    k = a.shape[-1]
+    rows = a.numel() // k if k else 0
+    DECOMP["calls"] += 1
+    DECOMP["rows"] += rows
+    DECOMP["limb_words"] += rows * k
+    DECOMP["residue_words"] += rows * ps.numel()
     if a.device.type == "cpu":
         if src_bits is None:
             return plain_decompose_core(a, ps, pinv, weights)
         return plain_decompose_signed(a, ps, pinv, weights, src_bits)
+    DECOMP["tc_calls"] += rns_cuda.takes_mma(k)
     return rns_cuda.decompose(a, ps, pinv, weights, src_bits)
 
 

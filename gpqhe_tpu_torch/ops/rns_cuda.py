@@ -5,7 +5,9 @@ checks.
 Replaces, on CUDA tensors, the torch chains of ops/rns.py that XLA fuses
 inside each jitted program of the JAX package: decompose_core
 (gpqhe_tpu/ops/rns.py:110, with the signed form of the ring engine's
-decompose) and the two halves of reconstruct_core (gpqhe_tpu/ops/rns.py:200):
+decompose: a row of fewer than MMA_MIN_LIMBS limbs by 32 x 64-bit integer
+products, one of more by u8 products on the tensor cores against
+decompose_table) and the two halves of reconstruct_core (gpqhe_tpu/ops/rns.py:200):
 digit_sums (y -> the int64 digit sums of S = sum_d y_d phat_d and the S / P
 estimate, the 16-bit digit split and the f64 digit matmul of the plain
 version in one launch, u8 products on the tensor cores) and lift (digit
@@ -22,13 +24,27 @@ import ctypes
 import math
 import os
 
+import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from . import cuda_build
 
 SOURCE = os.path.join(cuda_build.CSRC, "rns.cu")
 MAX_LIMBS = 128          # the lift's per-row limbs (csrc/rns.cu)
-DEPTH = 128              # bytes of depth a chunk of digit_sums walks (csrc/rns.cu DS_DEPTH)
+DEPTH = 128              # bytes of depth a chunk of digit_sums or decompose_mma walks (DS_DEPTH)
+# K*: decompose takes the tensor cores for rows of this many limbs or more.
+# Set from `python3 chip_smoke.py --phases build,kernels,kernels16`'s decompose
+# rows of both routes and `python3 tools/rns_decompose_scale.py` on an NVIDIA
+# H100 80GB HBM3 at 700 W (PERF.md section 6): at K = 14 the integer units
+# lead at 16 primes (6.46 against 8.60 us, n = 2^14) and trail at 24 (10.31
+# against 8.90); at K = 28 the tensor cores lead at 31 and 47 primes (16.08
+# against 26.72 us and 28.44 against 38.63, n = 2^15), at K = 55 by 2.3-2.5x.
+# The tensor cores' time hardly grows with K within a chunk of 32 limbs, the
+# integer units' by about 2% of theirs a limb, and over the product bases
+# (dim about K + 2 primes) the two meet between K = 16 and 20.
+MMA_MIN_LIMBS = 20
+MMA_MAX_LIMBS = 8256     # past it a byte column's sum passes the kernel's s32
 
 LAUNCHES = cuda_build.counters({"decompose": 0, "digit_split": 0, "lift": 0})
 
@@ -36,6 +52,8 @@ _VP, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _ARGTYPES = {
     "gpqhe_rns_decompose": [_I64, _I64, _I32, _I64, _I64, _I32, _I32, _VP, _VP, _VP,
                             _VP, _I64, _VP, _I64, _I32, _VP],
+    "gpqhe_rns_decompose_mma": [_I64, _I64, _I32, _I64, _I64, _I32, _I32, _I32, _VP, _VP, _VP,
+                                _VP, _I64, _VP, _I64, _I32, _VP, _I32, _VP],
     "gpqhe_rns_digit_sums": [_I64, _I32, _I64, _I32, _I32, _VP, _VP, _VP, _I64, _I64, _I64,
                              _VP, _I64, _VP, _I64, _VP, _I64, _VP, _I64, _VP, _I32, _VP],
     "gpqhe_rns_lift": [_I64, _I32, _VP, _VP, _I32, _VP, _I32, _I32, _I32,
@@ -49,6 +67,62 @@ def residue_bytes(nd: int) -> int:
     """The bytes a residue of nd 16-bit digits takes in digit_sums' product:
     8, or 4 where the primes fit 32 bits (the kernel copies 4 or 8)."""
     return 8 if nd > 2 else 4
+
+
+def takes_mma(k_limbs: int) -> bool:
+    """Whether decompose takes the tensor cores for rows of k_limbs limbs."""
+    return MMA_MIN_LIMBS <= k_limbs <= MMA_MAX_LIMBS
+
+
+def const_bytes(pmax: int) -> int:
+    """The bytes of a constant below pmax that decompose_mma multiplies: 8,
+    or 4 where the primes fit 32 bits (the table's byte columns a prime)."""
+    return 8 if pmax >> 32 else 4
+
+
+def decomp_byte_table(primes, k_limbs: int) -> np.ndarray:
+    """u8 [nb dim, depth]: row nb d + k, column j holds byte k of c_dj =
+    2^(8 j) R mod p_d (R = 2^64) for the 4 k_limbs bytes of a row of k_limbs
+    limbs, depth = 4 k_limbs rounded up to a chunk (DEPTH bytes), the rest
+    zero; nb = const_bytes of the largest prime.
+
+    Operand of decompose_mma's products: a row's bytes x_j against it give
+    s_dk = sum_j x_j c_dj[k], and sum_k s_dk 2^(8 k) R^-1 mod p_d is the row
+    mod p_d.  A column sums at most 4 K products below 2^16, so it is
+    < 2^31 for K <= 8256 (exact in the kernel's s32)."""
+    primes = [int(p) for p in primes]
+    nb = const_bytes(max(primes))
+    nj = 4 * k_limbs
+    out = np.zeros((nb * len(primes), -(-nj // DEPTH) * DEPTH), dtype=np.uint8)
+    for d, p in enumerate(primes):
+        c, cs = pow(2, 64, p), []
+        for _ in range(nj):
+            cs.append(c)
+            c = (c << 8) % p
+        cb = np.array(cs, dtype="<u8").view(np.uint8).reshape(nj, 8)
+        out[nb * d:nb * (d + 1), :nj] = cb[:, :nb].T
+    return out
+
+
+# the tables of decompose_mma by the weights tensor they serve (a ring's, a
+# mesh shard's: each made once and kept), as (nb, table)
+_TABLES = WeakIdKeyDictionary()
+
+
+def decompose_table(weights, ps) -> tuple[int, torch.Tensor]:
+    """(nb, decomp_byte_table) on the weights' device for the primes ps and
+    the 2 J limbs the weights [dim, J] serve (a row of 2 J - 1 limbs reads
+    its first 4 (2 J - 1) bytes of depth), made at the first call with these
+    weights and kept beside them.  Making it reads the primes to the host,
+    so the first call for a weights tensor comes before any CUDA graph
+    capture, as the weights' own (ring.weights) do."""
+    hit = _TABLES.get(weights)
+    if hit is None:
+        primes = ps.reshape(-1).cpu().numpy().view(np.uint64)
+        table = decomp_byte_table(primes, 2 * weights.shape[-1])
+        hit = _TABLES[weights] = (const_bytes(int(primes.max())),
+                                  torch.from_numpy(table).to(weights.device))
+    return hit
 
 
 def reset_launches() -> None:
@@ -91,7 +165,16 @@ def _contiguous_table(x: torch.Tensor, shape: tuple, name: str) -> None:
 
 
 def decompose(a, ps, pinv, weights, src_bits: int | None = None) -> torch.Tensor:
-    """[..., n, K] limbs -> [..., dim, n] residues (see rns.plain_decompose)."""
+    """[..., n, K] limbs -> [..., dim, n] residues (see rns.plain_decompose):
+    decompose_mma where takes_mma(K), else decompose_imad."""
+    route = decompose_mma if takes_mma(a.shape[-1]) else decompose_imad
+    return route(a, ps, pinv, weights, src_bits)
+
+
+def _decompose_operands(a, ps, pinv, weights, src_bits):
+    """The checked operands of a decompose: (x, S, n, K, ss, sn, dim, J, psd,
+    pvd, out), x the limbs with unit stride along K (copied where they had
+    another), out the residues' empty tensor."""
     dev = a.device
     K = a.shape[-1]
     dim = ps.numel()
@@ -111,13 +194,37 @@ def decompose(a, ps, pinv, weights, src_bits: int | None = None) -> torch.Tensor
         x = a.contiguous()
         cuda_build.COPIES["operands"] += 1
         _, _, ss, sn, sk = cuda_build.strides3(x, tuple(a.shape))
-    S = math.prod(lead)
     out = torch.empty(lead + (dim, n), dtype=torch.int64, device=dev)
+    return x, math.prod(lead), n, K, ss, sn, dim, J, psd, pvd, out
+
+
+def decompose_imad(a, ps, pinv, weights, src_bits: int | None = None) -> torch.Tensor:
+    """decompose by rns_decompose_kernel: 32 x 64-bit products on the
+    integer units."""
+    x, S, n, K, ss, sn, dim, J, psd, pvd, out = _decompose_operands(a, ps, pinv, weights,
+                                                                     src_bits)
     if out.numel():
         _check(load_library().gpqhe_rns_decompose(
             S, n, K, ss, sn, dim, J, out.data_ptr(), x.data_ptr(), weights.data_ptr(),
             ps.data_ptr(), psd, pinv.data_ptr(), pvd, src_bits or 0,
-            cuda_build.stream_of(dev)), "decompose")
+            cuda_build.stream_of(a.device)), "decompose")
+        LAUNCHES["decompose"] += 1
+    return out
+
+
+def decompose_mma(a, ps, pinv, weights, src_bits: int | None = None) -> torch.Tensor:
+    """decompose by rns_decompose_kernel_mma: the rows' bytes against
+    decompose_table by u8 products on the tensor cores."""
+    x, S, n, K, ss, sn, dim, J, psd, pvd, out = _decompose_operands(a, ps, pinv, weights,
+                                                                     src_bits)
+    if K > MMA_MAX_LIMBS:
+        raise ValueError(f"{K} limbs: the tensor cores' sums hold {MMA_MAX_LIMBS} at most")
+    if out.numel():
+        nb, table = decompose_table(weights, ps)
+        _check(load_library().gpqhe_rns_decompose_mma(
+            S, n, K, ss, sn, dim, J, nb, out.data_ptr(), x.data_ptr(), weights.data_ptr(),
+            ps.data_ptr(), psd, pinv.data_ptr(), pvd, src_bits or 0, table.data_ptr(),
+            table.shape[-1], cuda_build.stream_of(a.device)), "decompose_mma")
         LAUNCHES["decompose"] += 1
     return out
 

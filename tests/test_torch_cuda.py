@@ -1039,6 +1039,86 @@ def test_cuda_row_kernels_at_tile_edges(cuda_device, entry):
     assert ew_counters()[entry] > before
 
 
+def _decomposes_counted(fn, k: int, rows: int, dim: int):
+    """fn() (one decompose_core of rows rows of k limbs into dim primes) and
+    the DECOMP counter's change: one call, on the tensor cores where
+    rns_cuda.takes_mma(k)."""
+    from gpqhe_tpu_torch.ops import rns, rns_cuda
+    before = dict(rns.DECOMP)
+    out = fn()
+    got = {key: rns.DECOMP[key] - before[key] for key in before}
+    assert got == {"calls": 1, "tc_calls": int(rns_cuda.takes_mma(k)), "rows": rows,
+                   "limb_words": rows * k, "residue_words": rows * dim}, got
+    return out
+
+
+@pytest.mark.cuda
+def test_cuda_decompose_routes_at_tile_edges(cuda_device):
+    """decompose's edge cases (torch_cases.py's DECOMPOSE_EDGES and K* - 1,
+    K*: tiles of primes and of byte columns, chunks of limbs and of depth,
+    every src_bits edge, the three widths of prime, strided, broadcast and
+    leading-axis operands, a mesh shard's primes) through both routes,
+    rns_cuda.decompose_imad and decompose_mma, each torch.equal to the plain
+    version; the dispatcher takes the route K gives it, counted in DECOMP."""
+    from gpqhe_tpu_torch.ops import rns, rns_cuda
+    cases = [c for c in _edge_cases(cuda_device) if c["entry"] == "decompose"]
+    ks = {c["args"][0].shape[-1] for c in cases}
+    assert {rns_cuda.MMA_MIN_LIMBS - 1, rns_cuda.MMA_MIN_LIMBS} <= ks and max(ks) >= 130
+    for case in cases:
+        a, ps, pinv, w, src = case["args"]
+        want = case["plain"]()
+        for fn in (rns_cuda.decompose_imad, rns_cuda.decompose_mma):
+            got = fn(*case["args"])
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (case["shape"], fn.__name__)
+        k = a.shape[-1]
+        got = _decomposes_counted(lambda: rns.decompose_core(*case["args"]), k,
+                                  a.numel() // k, ps.numel())
+        assert torch.equal(got, want), case["shape"]
+
+
+# decompose at the cells' shapes and around K*: (logn, K, primes, src_bits,
+# layout): n14's product and key switch (14 limbs into 16 and 24 primes),
+# n15's (28 into 31 and 47), n16's (55 into 60 and, signed, 90), K* - 1 and
+# K* at logn=15; "strided" rows 3 words longer than K, "ragged" n - 5 rows
+DECOMPOSE_CELLS = ((14, 14, 16, None, "plain"), (14, 14, 24, 32 * 14, "strided"),
+                   (15, 28, 31, None, "plain"), (15, 28, 47, 32 * 28, "ragged"),
+                   (16, 55, 60, None, "plain"), (16, 55, 90, 32 * 55, "plain"),
+                   (16, 55, 60, 32 * 55 - 5, "ragged"), (15, "K*-1", 31, None, "strided"),
+                   (15, "K*", 31, 32, "ragged"), (15, "K*", 47, None, "plain"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("logn,k,dim,src,layout", DECOMPOSE_CELLS,
+                         ids=[f"{a}-{b}-{c}-{d}-{e}" for a, b, c, d, e in DECOMPOSE_CELLS])
+def test_cuda_decompose_routes_at_the_cells_shapes(cuda_device, logn, k, dim, src, layout):
+    """Both routes of decompose at the cells' shapes and at K* - 1 and K*,
+    on random limbs with all-ones and zero rows among them, torch.equal to
+    plain_decompose_core or plain_decompose_signed; the dispatcher
+    (rns.decompose_core) takes the tensor cores exactly where K >= K*,
+    counted in DECOMP["tc_calls"]."""
+    from gpqhe_tpu_torch.ops import rns, rns_cuda
+    from torch_cases import ew_limbs
+    k = {"K*-1": rns_cuda.MMA_MIN_LIMBS - 1, "K*": rns_cuda.MMA_MIN_LIMBS}.get(k, k)
+    rng = np.random.default_rng(logn * 100 + k)
+    ring = RingEngine(PolyContext(logn, q=1 << 20, dim_cap=dim), device=cuda_device)
+    n = 1 << logn
+    a = ew_limbs(rng, (n, k + 3), cuda_device)
+    a[0], a[1] = 0xFFFFFFFF, 0
+    a = a[:, :k] if layout == "strided" else a[:n - 5, :k] if layout == "ragged" else \
+        a[:, :k].contiguous()
+    ba, w = ring.ba(dim), ring.weights(dim, k)
+    want = (rns.plain_decompose_core(a, ba.ps, ba.pinv, w) if src is None
+            else rns.plain_decompose_signed(a, ba.ps, ba.pinv, w, src))
+    for fn in (rns_cuda.decompose_imad, rns_cuda.decompose_mma):
+        got = fn(a, ba.ps, ba.pinv, w, src)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), fn.__name__
+    got = _decomposes_counted(lambda: rns.decompose(a, ba, w, src), k, a.shape[0], dim)
+    assert torch.equal(got, want)
+    assert rns_cuda.takes_mma(k) == (k >= rns_cuda.MMA_MIN_LIMBS)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("entry", ["modmath_mulmod", "modmath_mont_mul", "modmath_addmod",
                                    "modmath_submod", "modmath_to_mont"])

@@ -2,12 +2,15 @@
 numpy model of each kernel (tests/torch_rns_model.py) against Python
 integers and the plain torch versions.
 
-  - decompose's arithmetic (the limb constants made from the weights, the
-    32 x 64-bit products summed in four 32-bit words by the PTX carry
-    chain, one Montgomery reduction a group of 256 limbs, the signed form)
+  - decompose's arithmetic on its IMAD route (the limb constants made from
+    the weights, the 32 x 64-bit products summed in four 32-bit words by the
+    PTX carry chain, one Montgomery reduction a group of 256 limbs, the
+    signed form) and on its tensor-core route (the rows' bytes against the
+    u8 table of 2^(8 j) R mod p, the s32 byte-column sums and their bound,
+    the fold into V with hi < p, one Montgomery reduction, the signed form)
     on edge rows: all 0xFFFFFFFF, 0, the multiples of p and their
     neighbours, two's-complement values at every src_bits edge, on the
-    59-bit, logp=29 and logp=9 primes;
+    59-bit, logp=29 and logp=9 primes; the route by K (MMA_MIN_LIMBS);
   - the digit product's arithmetic (the residues' byte planes against the
     plan's u8 table, the s32 byte-column sums and their bound, the combine
     into 16-bit digit sums): the digit sums equal plain_digit_partials'
@@ -86,6 +89,81 @@ def test_decompose_arithmetic_on_edge_rows(logp, K):
         assert np.array_equal(got.astype(object), want), (src, logp, K)
 
 
+@pytest.mark.parametrize("logp", [59, 29, 9])
+@pytest.mark.parametrize("K", [1, 2, 3, 14, 19, 20, 28, 33, 55, 57, 65, 130])
+def test_decompose_mma_arithmetic_on_edge_rows(logp, K):
+    """The model of the tensor-core route (the rows' bytes against
+    decomp_byte_table, s32 column sums, the fold, hi < p, one Montgomery
+    reduction) equals v mod p, and the signed form (v mod 2^src) - 2^src mod
+    p for a row whose bit src - 1 is set, at src_bits 1, 31, 32, 33, 32 K -
+    5 and 32 K; its table takes 8 bytes a constant on the 59-bit chain and
+    4 on the others."""
+    pctx = CHAINS[logp]
+    dim = min(6, len(pctx.primes))
+    p = np.asarray(pctx.primes[:dim], dtype=U)
+    pinv = np.asarray(pctx.basis(dim).pinv_mont, dtype=U)
+    w = tr.make_decomp_weights(pctx, dim, K)
+    table = rns_cuda.decomp_byte_table(pctx.primes[:dim], 2 * w.shape[1])
+    nb = rns_cuda.const_bytes(max(pctx.primes[:dim]))
+    assert nb == {59: 8, 29: 4, 9: 4}[logp] and table.shape[0] == nb * dim
+    for src in sorted(b for b in {0, 1, 31, 32, 33, 32 * K - 5, 32 * K} if b <= 32 * K):
+        vals = _edge_rows(K, pctx.primes, src)
+        x = np.stack([bigint.int_to_limbs(v, K) for v in vals]).astype(U)
+        got, maxcol = rm.decompose_mma_rows(x, table, nb, w, p, pinv, src)
+        assert maxcol <= 4 * K * 255**2
+        if src:
+            vals = [(v % (1 << src)) - (1 << src) if (v >> (src - 1)) & 1 else v for v in vals]
+        want = np.array([[v % q for v in vals] for q in pctx.primes[:dim]], dtype=object)
+        assert np.array_equal(got.astype(object), want), (src, logp, K)
+
+
+def test_decomp_byte_table_holds_the_bytes_of_the_constants():
+    """Row nb d + k, column j of the table is byte k of 2^(8 j + 64) mod p_d,
+    zero past the 4 K bytes of depth and rounded up to a chunk; the rows'
+    bytes against it sum, column by column and folded, to sum_j x_j 2^(8 j)
+    R mod p (Python integers), the fold's high word below p."""
+    rng = np.random.default_rng(6)
+    for logp, K in ((59, 55), (29, 28), (9, 3)):
+        primes = CHAINS[logp].primes[:5]
+        t = rns_cuda.decomp_byte_table(primes, K)
+        nb = rns_cuda.const_bytes(max(primes))
+        assert t.shape == (nb * len(primes), -(-4 * K // rns_cuda.DEPTH) * rns_cuda.DEPTH)
+        assert not t[:, 4 * K:].any()
+        for d, p in enumerate(primes):
+            for j in (0, 1, 4 * K - 1):
+                c = sum(int(t[nb * d + k, j]) << (8 * k) for k in range(nb))
+                assert c == pow(2, 8 * j + 64, p)
+        x = rng.integers(0, 1 << 32, size=(3, K), dtype=U)
+        cols = rm.column_sums(rm.limb_bytes(x), t, nb * len(primes)).reshape(3, -1, nb)
+        hi, lo = rm.fold(cols, nb)
+        for r in range(3):
+            v = sum(int(x[r, i]) << (32 * i) for i in range(K))
+            for d, p in enumerate(primes):
+                V = (int(hi[r, d]) << 64) | int(lo[r, d])
+                assert V == sum(int(s) << (8 * k) for k, s in enumerate(cols[r, d]))
+                assert V % p == (v << 64) % p and int(hi[r, d]) < p
+
+
+def test_decompose_mma_sums_and_fold_stay_in_their_words():
+    """The bounds the tensor-core route rests on, at their extremes: a byte
+    column sums at most 4 K 255^2, below 2^31 for K <= 8256 (the mma's s32);
+    at K = 130 every byte 255 against every table byte 255 reaches it; the
+    fold of such sums is V < 4 K 2^8 p, whose high word stays below the
+    smallest prime of the three chains."""
+    assert 4 * 8256 * 255**2 < 2**31 <= 4 * 8257 * 255**2
+    K = 130
+    a = np.full((2, 4 * K), 255, dtype=np.uint8)
+    cols = rm.column_sums(a, np.full((8, 4 * K), 255, dtype=np.uint8), 8)
+    assert (cols == 4 * K * 255**2).all()
+    hi, lo = rm.fold(cols[:, None, :], 8)
+    assert (int(hi[0, 0]) << 64 | int(lo[0, 0])) == 4 * K * 255**2 * (2**64 - 1) // 255
+    for p in (CHAINS[9].primes[0], CHAINS[29].primes[0], CHAINS[59].primes[0]):
+        assert (4 * K * 256 * p) >> 64 < p
+    with pytest.raises(AssertionError, match="s32"):
+        rm.column_sums(np.full((1, 4 * 8257), 255, dtype=np.uint8),
+                       np.full((1, 4 * 8257), 255, dtype=np.uint8), 1)
+
+
 def test_decompose_sums_stay_in_their_words():
     """The bounds the kernel's reduction rests on, at their extremes: a
     group of 256 limbs of 0xFFFFFFFF against constants of p - 1 sums below
@@ -106,7 +184,7 @@ def test_rns_constants_mirror_the_source():
     d = _defines(rns_cuda.SOURCE)
     for name in ("DEC_WARPS", "DEC_ROWS", "DEC_PRIMES", "DEC_KC", "DEC_GROUP", "DS_WARPS",
                  "DS_WARP_M", "DS_WARP_N", "DS_DEPTH", "DS_PAD", "DS_BLOCKS_AN_SM",
-                 "DS_OUT_PAD"):
+                 "DS_OUT_PAD", "DM_ROWS", "DM_OUT_PAD"):
         assert d[name] == getattr(rm, name), name
     assert rns_cuda.DEPTH == rm.DS_DEPTH
     # a warp takes two primes of a tile and a lane two rows, 32 apart
@@ -118,6 +196,9 @@ def test_rns_constants_mirror_the_source():
     assert [rm.launch_shape(kd)[1:] for kd in (32, 64, 128)] == [(256, 64), (128, 128),
                                                                  (64, 256)]
     assert ((rm.DS_DEPTH + rm.DS_PAD) // 16) % 2 == 1
+    # the tensor-core decompose: 64 rows (two warps of 32 down) against 256
+    # byte columns (four of 64 across), a chunk of depth 32 limbs
+    assert (rm.DM_ROWS, rm.DM_COLS, rm.DM_CHUNK) == (64, 256, 32)
 
 
 def test_fastdiv_splits_the_staged_chunks():
@@ -156,21 +237,38 @@ def edge_cases():
 
 def test_decompose_launches_at_the_edges(model_lib, edge_cases):
     """torch_cases.py's decompose edge cases through the wrapper and the
-    model of the launch: equal to the plain version, every output word
-    written once, and every branch of the design taken (one and two 32-bit
-    halves a constant, one and several tiles of primes, one and two staged chunks of
-    limbs, a second group of 256 limbs, a partial block, signed rows; S = 0
-    launches nothing)."""
-    seen = []
+    model of the launch, on the route K takes (K* = MMA_MIN_LIMBS) and on
+    each route's own entry: equal to the plain version, every output word
+    written once, and every branch of both designs taken (the IMAD kernel:
+    one and two 32-bit halves a constant, one and several tiles of primes,
+    one and two staged chunks of limbs, a second group of 256 limbs; the
+    tensor cores: 8 and 4 bytes a constant, one and two tiles of columns, a
+    warp's columns partly live, one and several chunks of depth; both: a
+    partial block, signed rows; S = 0 launches nothing)."""
+    seen = {"decompose": [], "decompose_mma": []}
     for case in (c for c in edge_cases if c["entry"] == "decompose"):
+        want = case["plain"]()
         out, plans = _run(model_lib, case)
-        assert torch.equal(out, case["plain"]()), case["shape"]
+        assert torch.equal(out, want), case["shape"]
         assert len(plans) == (1 if out.numel() else 0), case["shape"]
-        seen += plans
-    assert set().union(*(p["nh"] for p in seen)) == {1, 2}
+        k = case["args"][0].shape[-1]
+        route = "decompose_mma" if rns_cuda.takes_mma(k) else "decompose"
+        assert all(p["entry"] == route for p in plans), (case["shape"], route)
+        for fn in (rns_cuda.decompose_imad, rns_cuda.decompose_mma):
+            before = len(model_lib.plans)
+            assert torch.equal(fn(*case["args"]), want), (case["shape"], fn.__name__)
+            for p in model_lib.plans[before:]:
+                seen[p["entry"]].append(p)
+    imad, mma = seen["decompose"], seen["decompose_mma"]
+    assert set().union(*(p["nh"] for p in imad)) == {1, 2}
     for key, want in (("tiles", {1, 2, 3}), ("chunks", {1, 2, 5}), ("groups", {1, 2}),
                       ("partial_block", {True}), ("signed", {True, False})):
-        assert want <= {p[key] for p in seen}, key
+        assert want <= {p[key] for p in imad}, key
+    for key, want in (("nb", {4, 8}), ("col_blocks", {1, 2}), ("chunks", {1, 2, 4, 10}),
+                      ("partial_cols", {True, False}), ("partial_block", {True}),
+                      ("signed", {True, False})):
+        assert want <= {p[key] for p in mma}, key
+    assert max(p["max_column"] for p in mma) < 2**31
 
 
 def test_digit_split_launches_at_the_edges(model_lib, edge_cases):

@@ -134,6 +134,28 @@ def decompose_imad(out_words: int, k: int, pmax: int) -> int:
     return out_words * (2 * halves * k + 7)
 
 
+def decompose_routes(a, ba, wts, src) -> dict:
+    """{route: fn} of both routes of rns_cuda.decompose on the same operands
+    (the dispatcher takes one by K; chip_smoke.py times both where K* is
+    set): "imad" the integer units' kernel, "mma" the tensor cores'."""
+    from gpqhe_tpu_torch.ops import rns_cuda
+    return {r: (lambda f=f: f(a, ba.ps, ba.pinv, wts, src))
+            for r, f in (("imad", rns_cuda.decompose_imad), ("mma", rns_cuda.decompose_mma))}
+
+
+def decompose_route_kw(a, ba, wts, src, rows: int, k: int, primes) -> dict:
+    """A decompose case's routes (decompose_routes), its limbs k and each
+    route's operations for the bound (route_ops): the IMAD route's 32-bit
+    multiplies (decompose_imad), the tensor-core route's u8 operations, 2 for
+    each of a row's 4 k bytes against each of the table's nb dim byte
+    columns (nb = rns_cuda.const_bytes of the largest prime)."""
+    from gpqhe_tpu_torch.ops import rns_cuda
+    dim, pmax = len(primes), max(primes)
+    return dict(k=k, routes=decompose_routes(a, ba, wts, src), route_ops={
+        "imad": {"imad": decompose_imad(rows * dim, k, pmax)},
+        "mma": {"imad": 0, "int8_ops": 2 * rows * 4 * k * rns_cuda.const_bytes(pmax) * dim}})
+
+
 def ew_counters() -> dict:
     """{entry: its launch count} over the three elementwise libraries, and
     K5's launches by shape class, "modmath_<entry> [shape]" (the launch's
@@ -336,7 +358,9 @@ def elementwise_cases(logn: int, logp: int, device, seed: int = 8) -> dict:
         add("decompose", a.shape,
             lambda a=a, ba=ba, wts=wts, src=src: rns.decompose(a, ba, wts, src_bits=src), plain,
             [a, wts], out_words, decompose_imad(out_words, klv, max(ring.pctx.primes[:dim])),
-            imad_mont=IMAD_MONT * out_words * ((klv + 1) // 2), signed_bits=src, dim=dim)
+            imad_mont=IMAD_MONT * out_words * ((klv + 1) // 2), signed_bits=src, dim=dim,
+            **decompose_route_kw(a, ba, wts, src, out_words // dim, klv,
+                                 ring.pctx.primes[:dim]))
 
     # K6 the CRT reconstruct: the digit product and lift on their own inputs,
     # and the whole reconstruct on values that meet its bounds; the product
@@ -577,13 +601,17 @@ def elementwise_edge_cases(device, seed: int = 9) -> list:
     return cases + rns_edge_cases(device, rings) + modmath_edge_cases(device, rings)
 
 
-# decompose at the edges of its design: (logp, dim, K, src_bits, layout): dims
-# around its tiles of 16 primes (1-47), K = 1 (the c1 of a one-weight row),
-# 2, odd K, 64 and 65 and 125 (one and two staged chunks of 64 limbs), 300
-# (a reduction after 256 limbs and a second group), src_bits at 1, 32 K - 5
-# and 32 K; on the three widths of prime (one, two and three 24-bit chunks a
-# constant); S = 0, three slabs, a row broadcast over two slabs, rows 2K + 3
-# words apart and limbs two words apart (copied by the wrapper)
+# decompose at the edges of its designs: (logp, dim, K, src_bits, layout):
+# dims around the IMAD kernel's tiles of 16 primes (1-47) and the tensor-core
+# kernel's 256 byte columns (33 primes of 8 bytes, 65 of 4: a second tile of
+# columns), K = 1 (the c1 of a one-weight row), 2, odd K, 64 and 65 and 125
+# (one and two staged chunks of 64 limbs; the tensor cores' chunks of 32),
+# 300 (a reduction after 256 limbs and a second group), src_bits at 1, 32 K
+# - 5 and 32 K; on the three widths of prime (one, two and three 24-bit
+# chunks a constant; 8 and 4 bytes a constant); S = 0, three slabs, a row
+# broadcast over two slabs, rows 2K + 3 words apart and limbs two words apart
+# (copied by the wrapper), a mesh shard's primes (rows 4 .. dim + 3 of a
+# basis); rns_edge_cases adds K* - 1 and K* (rns_cuda.MMA_MIN_LIMBS)
 DECOMPOSE_EDGES = (
     (59, 16, 14, None, "lead"), (59, 17, 13, None, "plain"), (59, 47, 28, 32 * 28, "plain"),
     (59, 31, 28, 32 * 28 - 5, "row_strided"), (59, 8, 1, None, "plain"), (59, 8, 1, 1, "plain"),
@@ -593,7 +621,9 @@ DECOMPOSE_EDGES = (
     (59, 16, 14, None, "S0"), (29, 31, 14, None, "plain"), (29, 47, 28, 32 * 28 - 5, "lead"),
     (29, 16, 1, 1, "plain"), (29, 20, 125, 32 * 125, "broadcast"), (9, 6, 3, None, "plain"),
     (9, 6, 14, 32 * 14, "lead"), (9, 5, 1, 1, "plain"), (9, 6, 125, 32 * 125 - 5, "plain"),
-    (9, 6, 300, None, "row_strided"))
+    (9, 6, 300, None, "row_strided"), (59, 33, 40, None, "plain"),
+    (59, 33, 55, 32 * 55, "shard"), (29, 65, 30, 32 * 30 - 5, "plain"),
+    (29, 20, 57, None, "shard"))
 # the digit product at the edges of its design: (logp, dim, n, lead, scaled,
 # layout, k_out (None: the exact width, the plan's ds digit sums)): byte
 # columns 2 kd within one warp's 64 (a block of 256 rows), two warps' (128
@@ -632,7 +662,7 @@ def rns_edge_cases(device, rings: dict, seed: int = 10) -> list:
     import numpy as np
     import torch
     from gpqhe_tpu_torch.context import PolyContext
-    from gpqhe_tpu_torch.ops import rns
+    from gpqhe_tpu_torch.ops import rns, rns_cuda
     from gpqhe_tpu_torch.substrate import bigint
 
     rng = np.random.default_rng(seed)
@@ -645,7 +675,10 @@ def rns_edge_cases(device, rings: dict, seed: int = 10) -> list:
                           plain=plain))
 
     rows = EDGE_ROWS
-    for logp, dim, k, src, layout in DECOMPOSE_EDGES:
+    kstar = rns_cuda.MMA_MIN_LIMBS
+    for logp, dim, k, src, layout in DECOMPOSE_EDGES + (
+            (59, 24, kstar - 1, None, "lead"), (59, 24, kstar, 32 * kstar - 5, "plain"),
+            (29, 31, kstar - 1, 32 * (kstar - 1), "plain"), (29, 31, kstar, None, "lead")):
         ring = rings[logp]
         x = rng.integers(0, 1 << 32, size=(rows, k), dtype=np.int64)
         x[0], x[1], x[2] = 0xFFFFFFFF, 0, 0xFFFFFFFF
@@ -668,6 +701,12 @@ def rns_edge_cases(device, rings: dict, seed: int = 10) -> list:
             a = torch.stack([a, a], dim=-1).reshape(rows, 2 * k)[:, ::2]
         ba = rns.make_basis_arrays(ring, dim, device)
         w = torch.from_numpy(rns.make_decomp_weights(ring, dim, k).view(np.int64)).to(device)
+        if layout == "shard":
+            # the mesh's shard: its rows of the basis's constants, each contiguous
+            wide = rns.make_basis_arrays(ring, dim + 4, device)
+            ba = dataclasses.replace(ba, ps=wide.ps[4:].clone(), pinv=wide.pinv[4:].clone())
+            w = torch.from_numpy(rns.make_decomp_weights(ring, dim + 4, k)[4:].view(np.int64)
+                                 ).to(device)
         args = (a, ba.ps, ba.pinv, w, src)
         plain = ((lambda a=a, ba=ba, w=w: rns.plain_decompose_core(a, ba.ps, ba.pinv, w))
                  if src is None else
@@ -885,7 +924,8 @@ def ring16_cases(device, seed: int = 16) -> dict:
                   rns.plain_decompose_signed(a, ba.ps, ba.pinv, wts, src)))
         add("decompose", [n, kq, dim],
             lambda ba=ba, wts=wts, src=src: rns.decompose(a, ba, wts, src_bits=src), plain,
-            [a, wts], n * dim, decompose_imad(n * dim, kq, max(ring.pctx.primes[:dim])))
+            [a, wts], n * dim, decompose_imad(n * dim, kq, max(ring.pctx.primes[:dim])),
+            **decompose_route_kw(a, ba, wts, src, n, kq, ring.pctx.primes[:dim]))
     for dim, rows, lead, scaled, k_out in DIGITS16:
         ba, plan = ring.ba(dim), rns.make_recon_plan(ring.pctx, dim, device)
         y = res(rows, lead)[..., :dim, :]

@@ -1,12 +1,16 @@
-"""K4 decompose and K6's digit product (csrc/rns.cu) in numpy, for the CPU
-tests of both kernels: each launch's work split as the kernel makes it
-(which block takes which rows or coefficients and which tile of primes or
-byte columns, which lane and warp of it which outputs, the slab loop past
-65535 blocks, the staged chunks of 64 limbs, the chunks of 128 bytes of
-depth) and its arithmetic as the kernel runs it (decompose: the limb
-constants made from the weights, the 32 x 64-bit products summed in four
-32-bit words by the PTX carry chain, one Montgomery reduction a group of
-256 limbs, the signed form; the digit product: the residues' byte planes
+"""K4 decompose (both routes) and K6's digit product (csrc/rns.cu) in numpy,
+for the CPU tests of the kernels: each launch's work split as the kernel
+makes it (which block takes which rows or coefficients and which tile of
+primes or byte columns, which lane and warp of it which outputs, the slab
+loop past 65535 blocks, the staged chunks of 64 limbs, the persistent
+blocks' tiles, the chunks of 128 bytes of depth) and its arithmetic as the
+kernel runs it (decompose's IMAD route: the limb constants made from the
+weights, the 32 x 64-bit products summed in four 32-bit words by the PTX
+carry chain, one Montgomery reduction a group of 256 limbs, the signed
+form; its tensor-core route: the rows' bytes against the u8 table of
+2^(8 j) R mod p, the s32 byte-column sums and their bound, the fold of a
+prime's columns into a 128-bit V, hi < p before the one Montgomery
+reduction, the signed form; the digit product: the residues' byte planes
 against the plan's u8 table, the s32 byte-column sums and their bound, the
 combine into 16-bit digit sums, af in the kernel's order), on native u64
 words, vectorised over rows.
@@ -39,6 +43,10 @@ DS_BLOCKS_AN_SM = 2       # rns.cu: the digit product's persistent blocks an SM
 DS_OUT_PAD = 4            # rns.cu: words past a row of a warp's staged digit sums
 SMS = 132                 # the H100's SMs
 DS_TILE = DS_WARPS * DS_WARP_M * DS_WARP_N
+DM_ROWS = 64               # rns.cu: rows of a tensor-core decompose tile
+DM_OUT_PAD = 8             # rns.cu: words past a row of a warp's staged column sums
+DM_COLS = DS_TILE // DM_ROWS                 # its byte columns: 256
+DM_CHUNK = DS_DEPTH // 4                     # limbs a chunk of depth: 32
 GRID_Z = 65535            # the launches' largest grid.y / grid.z
 
 
@@ -182,6 +190,58 @@ def decompose_rows(x, w, p, pinv, src_bits=0):
 
 
 # ---------------------------------------------------------------------------
+# decompose's tensor-core route
+# ---------------------------------------------------------------------------
+
+def limb_bytes(xs):
+    """Staged limbs u64 [rows, K] (each < 2^32) -> the A operand u8 [rows,
+    4K]: depth j holds byte j % 4 of limb j / 4."""
+    assert (xs >> U(32) == 0).all()
+    return np.ascontiguousarray(xs.astype("<u4")).view(np.uint8).reshape(xs.shape[0], -1)
+
+
+def fold(s, nb: int):
+    """A prime's nb s32 byte-column sums s [..., nb] (int64, each < 2^31) ->
+    V = sum_k s_k 2^(8 k) as (hi, lo) u64, as the kernel folds them: a_i =
+    s_2i + 2^8 s_2i+1, then the a_i 16 bits apart, with their carries."""
+    s = np.asarray(s).astype(U)
+    a = [s[..., 2 * i] + (s[..., 2 * i + 1] << U(8)) for i in range(nb // 2)]
+    with np.errstate(over="ignore"):
+        lo, hi = a[0] + (a[1] << U(16)), np.zeros_like(a[0])
+        if nb == 8:
+            hi = (a[1] >> U(48)) + (lo < (a[1] << U(16))).astype(U)
+            for i, sh in ((2, 32), (3, 48)):
+                x = a[i] << U(sh)
+                lo = lo + x
+                hi = hi + (a[i] >> U(64 - sh)) + (lo < x).astype(U)
+    return hi, lo
+
+
+def decompose_mma_rows(x, table, nb, w, p, pinv, src_bits=0):
+    """The tensor-core route's arithmetic on one slab: x u64 [rows, K] (words),
+    table u8 [nb P, depth] (rns_cuda.decomp_byte_table), w u64 [P, J] and p,
+    pinv [P] -> (residues [P, rows], the largest column sum)."""
+    rows, K = x.shape
+    neg = np.zeros(rows, dtype=bool)
+    if src_bits:
+        hb = src_bits - 1
+        neg = ((x[:, hb // 32] >> U(hb % 32)) & U(1)) == 1
+    a = limb_bytes(stage(x, neg, src_bits))
+    # the depth walked: 32 bytes at a time, the bytes past 4K zero
+    walked = -(-4 * K // 32) * 32
+    assert walked <= table.shape[1], "the table is shallower than the walk"
+    a = np.pad(a, ((0, 0), (0, walked - 4 * K)))
+    cols = column_sums(a, table, nb * len(p)).reshape(rows, len(p), nb)
+    hi, lo = fold(cols, nb)                                          # [rows, P]
+    assert (hi < p[None, :]).all(), "V's high word past p"
+    r = mont_reduce(hi, lo, p[None, :], pinv[None, :]).T
+    if src_bits:
+        t = pow2_src(w, src_bits, K, c1_of(w, p, pinv), p, pinv)
+        r = np.where(neg[None, :], submod(r, t[:, None], p[:, None]), r)
+    return r, int(cols.max(initial=0))
+
+
+# ---------------------------------------------------------------------------
 # the digit product's arithmetic
 # ---------------------------------------------------------------------------
 
@@ -314,6 +374,66 @@ class ModelLib:
                            "chunks": -(-K // DEC_KC), "groups": -(-K // DEC_GROUP),
                            "nh": nhs, "partial_block": n % DEC_ROWS != 0, "slab_loop": S > gz,
                            "signed": bool(src_bits)})
+        return 0
+
+    def gpqhe_rns_decompose_mma(self, S, n, K, ss, sn, dim, J, nb, out, a, w, ps, psd, pinv, pvd,
+                                src_bits, table, tdepth, stream):
+        if K < 1 or nb not in (4, 8) or tdepth % DS_DEPTH or 4 * K > tdepth:
+            return 1                                # cudaErrorInvalidValue
+        A = _strided(a, (S, n, K), (ss, sn, 1))
+        W = _mem(w, dim * J).reshape(dim, J)
+        P = _strided(ps, (dim,), (psd,)).astype(U)
+        V = _strided(pinv, (dim,), (pvd,)).astype(U)
+        tab = _mem(table, nb * dim * tdepth, ctypes.c_uint8).reshape(nb * dim, tdepth)
+        O = _mem(out, S * dim * n).reshape(S, dim, n)
+        tiles_k, tiles_c = -(-n // DM_ROWS), -(-nb * dim // DM_COLS)
+        items = S * tiles_k * tiles_c
+        if items == 0:
+            return 0
+        blocks = min(items, DS_BLOCKS_AN_SM * self.sms)
+        seen = np.zeros((S, dim, n), dtype=np.int64)
+        # the warps' tiles: two down, four across; each stages 16 rows of its
+        # 64 columns' sums at a time in the stage just worked
+        w_ = np.arange(DS_WARPS)
+        wr, wc = (w_ // 4) * DS_WARP_M, (w_ % 4) * DS_WARP_N
+        assert DS_WARPS * 16 * (DS_WARP_N + DM_OUT_PAD) * 4 <= (DM_ROWS + DM_COLS) * (DS_DEPTH
+                                                                                     + DS_PAD)
+        # the staging loads: lane l of warp w takes limb 32 ch + l of rows w + 8 u
+        lane, warp, u = np.meshgrid(np.arange(32), np.arange(DS_WARPS), np.arange(8),
+                                    indexing="ij")
+        assert sorted(zip((warp + 8 * u).ravel(), lane.ravel())) == [
+            (r, l) for r in range(DM_ROWS) for l in range(DM_CHUNK)], "a staged limb missed"
+        walked = [0] * blocks
+        slabs, maxcol, partial_cols = {}, 0, False
+        for item in range(items):
+            walked[item % blocks] += 1          # block item % blocks takes it
+            q, tc = divmod(item, tiles_c)
+            s, tk = divmod(q, tiles_k)
+            c0, k0 = tc * DM_COLS, tk * DM_ROWS
+            cols, rows = min(nb * dim - c0, DM_COLS), min(n - k0, DM_ROWS)
+            if s not in slabs:                  # the slab's arithmetic, all its rows at once
+                res, mc = decompose_mma_rows(np.ascontiguousarray(A[s]), tab, nb, W, P, V,
+                                             src_bits)
+                maxcol = max(maxcol, mc)
+                slabs = {s: res}
+            res = slabs[s]
+            for r0, c1 in zip(wr, wc):
+                np_ = max(0, min(cols - c1, DS_WARP_N)) // nb
+                partial_cols |= 0 < np_ < DS_WARP_N // nb
+                e0 = (c0 + c1) // nb
+                for f in range(2):
+                    k = k0 + r0 + 16 * f + np.arange(16)
+                    k = k[k < k0 + rows]
+                    d = e0 + np.arange(np_)
+                    idx = (s, d[:, None], k[None, :])
+                    O[idx] = res[d[:, None], k[None, :]]
+                    np.add.at(seen, idx, 1)
+        assert (seen == 1).all(), "an output word written other than once"
+        self.plans.append({"entry": "decompose_mma", "blocks": blocks, "nb": nb,
+                           "col_blocks": tiles_c, "chunks": -(-4 * K // DS_DEPTH),
+                           "partial_block": n % DM_ROWS != 0, "partial_cols": bool(partial_cols),
+                           "slab_loop": max(walked) > 1, "signed": bool(src_bits),
+                           "max_column": maxcol})
         return 0
 
     def gpqhe_rns_digit_sums(self, S, dim, n, nb, kd, sums, af, y, ys, yd, yk, scale, scd, ps,

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Device time of the port's CUDA decompose (gpqhe_tpu_torch/csrc/rns.cu)
-against the limbs K, the rows n and the primes dim, on one GPU.
+"""Device time of the port's CUDA decompose (gpqhe_tpu_torch/csrc/rns.cu),
+both routes, against the limbs K, the rows n and the primes dim, on one GPU.
 
 Run from the repository root on a machine with an H100:
     python3 tools/rns_decompose_scale.py
 
-Prints one line a shape, "n=... dim=... K=... <µs a launch>" (device time
-as chip_smoke.py measures it: calls enqueued behind a sleep, the same
-L2-warm tensors every call), a four-slab batch at K=14 for each (n, dim),
-and one torch add of a single word, the launch floor, on the same card.
-The slope in K is the sums' cost a limb, the intercept the block's fixed
-cost (PERF.md §6).
+Prints one line a shape and route, "n=... dim=... K=... imad|mma <µs a
+launch>" (device time as chip_smoke.py measures it: calls enqueued behind a
+sleep, the same L2-warm tensors every call; imad the integer units' kernel,
+rns_cuda.decompose_imad, mma the tensor cores', decompose_mma), and one
+torch add of a single word, the launch floor, on the same card.  The IMAD
+route's slope in K is the sums' cost a limb, its intercept the block's fixed
+cost; where the two routes cross in K is the dispatcher's K*
+(rns_cuda.MMA_MIN_LIMBS, PERF.md section 6).
 """
 import os
 import sys
@@ -22,7 +24,7 @@ import torch
 
 import chip_smoke as cs
 from gpqhe_tpu_torch.context import PolyContext
-from gpqhe_tpu_torch.ops import rns
+from gpqhe_tpu_torch.ops import rns, rns_cuda
 
 
 def main() -> None:
@@ -30,20 +32,18 @@ def main() -> None:
         sys.exit("rns_decompose_scale: needs a CUDA device")
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
-    pctx = PolyContext(15, 1 << 881)
+    pctx = PolyContext(16, q=1 << 20, dim_cap=60)
     out = {}
-    for n in (1 << 13, 1 << 14, 1 << 15, 1 << 16):
-        for dim in (16, 31, 47):
+    for n in (1 << 14, 1 << 15, 1 << 16):
+        for dim in (16, 31, 60):
             ba = rns.make_basis_arrays(pctx, dim, dev)
-            for K in (4, 7, 14, 28, 56):
+            for K in (8, 12, 14, 16, 20, 24, 28, 40, 56):
                 w = torch.from_numpy(rns.make_decomp_weights(pctx, dim, K).view(np.int64)).to(dev)
                 a = cs.ew_limbs(rng, (n, K), dev)
-                out[f"n={n} dim={dim} K={K}"] = cs.median(cs.device_ms_runs(
-                    lambda: rns.decompose_core(a, ba.ps, ba.pinv, w), 5)) * 1e3
-            a = cs.ew_limbs(rng, (4, n, 14), dev)
-            w = torch.from_numpy(rns.make_decomp_weights(pctx, dim, 14).view(np.int64)).to(dev)
-            out[f"S=4 n={n} dim={dim} K=14"] = cs.median(cs.device_ms_runs(
-                lambda: rns.decompose_core(a, ba.ps, ba.pinv, w), 5)) * 1e3
+                for route, fn in (("imad", rns_cuda.decompose_imad),
+                                  ("mma", rns_cuda.decompose_mma)):
+                    out[f"n={n} dim={dim} K={K} {route}"] = cs.median(cs.device_ms_runs(
+                        lambda: fn(a, ba.ps, ba.pinv, w), 5)) * 1e3
     y = torch.zeros(1, dtype=torch.int64, device=dev)
     out["torch add one word"] = cs.median(cs.device_ms_runs(lambda: y + 1, 5)) * 1e3
     for k, v in out.items():
