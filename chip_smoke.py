@@ -52,7 +52,9 @@ raises and the script exits non-zero:
              the u64 NTT forward, inverse and scaled inverse at [4, 60, 2^16]
              and [2, 90, 2^16] against its twin (NTT16), then decompose into
              60 and 90 primes, the digit product (DIGITS16), the lift at
-             the widths a key switch there takes (LIFT16) and ecd's fill
+             the widths a key switch there takes (LIFT16: past four
+             chunks of 32, 147 limbs at level 37 and the widest basis's
+             167) and ecd's fill
              (ring16_cases), each torch.equal to its plain version and timed
              as in kernels.
   ntt4     — K8, the four-step ("matmul") NTT's stage (csrc/ntt4.cu: one
@@ -298,13 +300,13 @@ def phase_build():
 # instantiations of the gated kernels by source: K7's eight chains on rows of
 # one chunk and of more, its word kernel by word and by pair for mask_bits
 # and select, and the fill by word and by pair; the lift (on int64 digit
-# sums) at 1, 2 and 4 chunks, decompose's IMAD kernel, and the digit product
-# and decompose's tensor-core kernel by the bytes of a residue or constant
+# sums) at 1, 2, 4, 5 and 6 chunks, decompose's IMAD kernel, and the digit
+# product and decompose's tensor-core kernel by the bytes of a residue or constant
 # (8, 4: RNS_MMA, each with IMMA in its SASS); K5's elementwise kernel by op,
 # the cross terms, the key products and the sum by mode; K8's stage by byte
 # planes (2, 4, 8) and transpose
 RNS_MMA = 4
-ROW_KERNELS = {"limbs.cu": 22, "rns.cu": 4 + RNS_MMA, "modmath.cu": 9, "ntt4.cu": 6}
+ROW_KERNELS = {"limbs.cu": 22, "rns.cu": 6 + RNS_MMA, "modmath.cu": 9, "ntt4.cu": 6}
 
 
 def resource_usage(library: str) -> dict:

@@ -39,9 +39,10 @@
 // reads digit sums 2i and 2i + 1, brings their carries to 0/1 by two
 // shuffles and takes the rest, the compares and the +-P corrections from
 // ballots; a row of more than 32 limbs (the exact path on bases of 17
-// primes and more: the key switch's 46 limbs at logn=14, 88 at logn=15)
-// takes the whole warp, 32 limbs a chunk, its limbs in NCH registers a
-// lane, at most MAX_CHUNKS (128 limbs, as before).  (The
+// primes and more: the key switch's 46 limbs at logn=14, 88 at logn=15,
+// 147 at logn=16) takes the whole warp, 32 limbs a chunk, its limbs in NCH
+// registers a lane, at most MAX_CHUNKS (192 limbs: every basis up to 103
+// primes of 59 bits).  (The
 // first design walked each row in global memory, digits kd words apart
 // across a warp, and kept the limbs in a 1 KB local array, u64 r[128]:
 // 8.5 us at 5.0x its byte bound.)
@@ -53,7 +54,7 @@
 #include "mont.cuh"
 #include "rowwarp.cuh"
 
-#define MAX_CHUNKS 4      // the lift's chunks of 32 limbs a row: at most 128 limbs
+#define MAX_CHUNKS 6      // the lift's chunks of 32 limbs a row: at most 192 limbs
 
 // decompose: a block takes DEC_ROWS coefficients (two a lane, 32 apart) of
 // one slab against a tile of at most DEC_PRIMES primes (grid.y walks the
@@ -737,6 +738,37 @@ rns_decompose_kernel_mma(u64 *__restrict__ out, const u64 *__restrict__ a, i64 S
     }
 }
 
+// The lift's rows a lane at nch chunks of 32 limbs (rns_lift_kernel<NCH>).
+__host__ __device__ constexpr int lift_rows_a_lane(int nch) {
+    return nch < WARP_GROUPS ? WARP_GROUPS / nch : 1;
+}
+
+// x >= y over a row of NCH chunks, y a row of constant limbs, from the top
+// chunk down.  Every lane calls it.
+template <int NCH>
+__device__ __forceinline__ bool row_geq(const LaneGroups &lg, const bool (&limb)[NCH],
+                                        const u64 (&x)[NCH], const u64 (&y)[NCH]) {
+    bool ge = true, done = false;
+#pragma unroll
+    for (int c = NCH - 1; c >= 0; --c) lane_geq(lg, limb[c], x[c], y[c], ge, done);
+    return ge;
+}
+
+// x + P (add) or x - P over a row of NCH chunks where `on`, the carry or
+// borrow passed chunk to chunk.  Every lane calls it.
+template <int NCH>
+__device__ __forceinline__ void row_correct(const LaneGroups &lg, const bool (&limb)[NCH],
+                                            u64 (&x)[NCH], const u64 (&P)[NCH], bool on,
+                                            bool add) {
+    u64 carry = 0;
+#pragma unroll
+    for (int c = 0; c < NCH; ++c) {
+        const u64 y = add ? lane_add(lg, limb[c], x[c], P[c], carry)
+                          : lane_sub(lg, limb[c], x[c], P[c], carry);
+        x[c] = on ? y : x[c];
+    }
+}
+
 // int64 digit sums [R, kd] (contiguous) and af [R] -> limbs [R, k_out]
 // (exact: k_out = ks).  alpha = clamp(floor(af), 0, dim); the digits of
 // S + alpha (2^(16 ds) - P) are carried into limbs; then the fast path
@@ -749,13 +781,15 @@ rns_decompose_kernel_mma(u64 *__restrict__ out, const u64 *__restrict__ a, i64 S
 // digits carried into limbs by lane_digits, the compares and the +-P
 // corrections by ballots, chunk after chunk, the row's NCH limbs a lane and
 // the constant limbs and digits in registers.  WARP_GROUPS / NCH rows a
-// lane (four at two chunks kept a stack frame).
+// lane, one from four chunks on (four at two chunks kept a stack frame); at
+// five and six chunks (129-192 limbs) a lane holds its one row's 2 NCH
+// digit sums, 5 NCH constant words and NCH limbs in u64 registers.
 template <int NCH>
 __global__ void __launch_bounds__(ROWWARP_THREADS)
 rns_lift_kernel(u64 *out, i64 R, int kd, int kuse, const i64 *sd, const double *af, double dimf,
                 const i64 *negP16, int k_out, int exact, int center, const i64 *Pl,
                 const i64 *Phalf, const i64 *MminusP) {
-    constexpr int RL = WARP_GROUPS / NCH;
+    constexpr int RL = lift_rows_a_lane(NCH);
     const LaneGroups lg(k_out);
     bool lane_limb[NCH];
     u64 n0[NCH], n1[NCH], P[NCH], Ph[NCH], MmP[NCH];
@@ -800,32 +834,12 @@ rns_lift_kernel(u64 *out, i64 R, int kd, int kuse, const i64 *sd, const double *
             x[c] = lane_digits(lg, limb[c], s0[u][c] + ai * n0[c], s1[u][c] + ai * n1[c], dc,
                                NCH > 1);
         }
-        // x >= y over the row, y the constant limbs MmP (which 0), P (1) or
-        // Ph (2), from the top chunk down
-        auto compare = [&](int which) {
-            bool ge = true, done = false;
-#pragma unroll
-            for (int c = NCH - 1; c >= 0; --c)
-                lane_geq(lg, limb[c], x[c], which == 0 ? MmP[c] : which == 1 ? P[c] : Ph[c], ge,
-                         done);
-            return ge;
-        };
-        // x + P or x - P where `on`, carried chunk to chunk
-        auto correct = [&](bool on, bool add) {
-            u64 carry = 0;
-#pragma unroll
-            for (int c = 0; c < NCH; ++c) {
-                const u64 y = add ? lane_add(lg, limb[c], x[c], P[c], carry)
-                                  : lane_sub(lg, limb[c], x[c], P[c], carry);
-                x[c] = on ? y : x[c];
-            }
-        };
         if (exact) {
-            correct(compare(0), true);          // x >= M - P: x was below 0
-            correct(compare(1), false);         // x >= P
-            if (center) correct(compare(2), false);
+            row_correct(lg, limb, x, P, row_geq(lg, limb, x, MmP), true);  // x was below 0
+            row_correct(lg, limb, x, P, row_geq(lg, limb, x, P), false);   // x >= P
+            if (center) row_correct(lg, limb, x, P, row_geq(lg, limb, x, Ph), false);
         } else {
-            correct(a[u] - alpha > 0.5, false);
+            row_correct(lg, limb, x, P, a[u] - alpha > 0.5, false);
         }
 #pragma unroll
         for (int c = 0; c < NCH; ++c)
@@ -933,15 +947,16 @@ extern "C" int gpqhe_rns_lift(i64 R, int kd, const void *sd, const void *af, int
                               void *out, void *stream) {
     if (k_out < 1 || k_out > 32 * MAX_CHUNKS || kd < 0) return (int)cudaErrorInvalidValue;
     const int kuse = kd < 2 * k_out ? kd : 2 * k_out;
-    const int nch = k_out <= 32 ? 1 : k_out <= 64 ? 2 : 4;
-    const unsigned per_block = rows_a_block(k_out, WARP_GROUPS / nch);
+    const int nch = k_out <= 32 ? 1 : k_out <= 64 ? 2 : k_out <= 128 ? 4 : k_out <= 160 ? 5 : 6;
+    const unsigned per_block = rows_a_block(k_out, lift_rows_a_lane(nch));
     const unsigned blocks = (unsigned)((R + per_block - 1) / per_block);
     cudaStream_t s = (cudaStream_t)stream;
 #define LIFT(N) rns_lift_kernel<N><<<blocks, ROWWARP_THREADS, 0, s>>>(                      \
         (u64 *)out, R, kd, kuse, (const i64 *)sd, (const double *)af, (double)dim,         \
         (const i64 *)negP16, k_out, exact, center, (const i64 *)P, (const i64 *)Phalf,     \
         (const i64 *)MminusP)
-    if (nch == 1) LIFT(1); else if (nch == 2) LIFT(2); else LIFT(4);
+    if (nch == 1) LIFT(1); else if (nch == 2) LIFT(2); else if (nch == 4) LIFT(4);
+    else if (nch == 5) LIFT(5); else LIFT(6);
 #undef LIFT
     return (int)cudaGetLastError();
 }

@@ -19,10 +19,11 @@ launch of rns_cuda.digit_sums (u8 products on the tensor cores) on a CUDA
 tensor, whose int64 digit sums the card's lift takes.  LIFT counts the lifts
 _lift makes on any device, by their operands: calls, rows, digit_words
 (rows x the digit sums a row reads) and limb_words (rows x the limbs a row
-writes).  DECOMP counts the decomposes decompose_core makes on any device
-likewise: calls, rows, limb_words (rows x K), residue_words (rows x dim),
-and tc_calls, those that took the card's tensor-core route
-(rns_cuda.takes_mma: rows of many limbs).
+writes); LIFT_WIDE counts those of them whose rows have more than WIDE_LIMBS
+limbs (on a card, five and six chunks of 32).  DECOMP counts the decomposes
+decompose_core makes on any device likewise: calls, rows, limb_words (rows
+x K), residue_words (rows x dim), and tc_calls, those that took the card's
+tensor-core route (rns_cuda.takes_mma: rows of many limbs).
 """
 
 from __future__ import annotations
@@ -39,6 +40,8 @@ from . import rns_cuda
 from .modmath import plain_mont_mul, u64_to_torch
 
 LIFT = cuda_build.counters({"calls": 0, "rows": 0, "digit_words": 0, "limb_words": 0})
+LIFT_WIDE = cuda_build.counters({"calls": 0})
+WIDE_LIMBS = 128         # a lift past this many limbs counts in LIFT_WIDE
 DECOMP = cuda_build.counters({"calls": 0, "tc_calls": 0, "rows": 0, "limb_words": 0,
                               "residue_words": 0})
 
@@ -325,6 +328,7 @@ def _lift(s_digits, af, plan: ReconPlan, center: bool, k_out: int | None):
     kout = plan.ks if k_out is None else k_out
     rows = af.numel()
     LIFT["calls"] += 1
+    LIFT_WIDE["calls"] += kout > WIDE_LIMBS
     LIFT["rows"] += rows
     LIFT["digit_words"] += rows * min(s_digits.shape[-1], 2 * kout)
     LIFT["limb_words"] += rows * kout

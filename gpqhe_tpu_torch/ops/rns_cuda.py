@@ -15,7 +15,8 @@ sums -> limbs).  ops/rns.py dispatches here for a CUDA tensor; its plain_*
 functions serve the CPU.  LAUNCHES counts launches per entry (digit_sums
 under "digit_split", the kernel's class in a trace).  The lift takes a warp
 per row group (csrc/rowwarp.cuh), a row of more than 32 limbs the whole
-warp, 32 limbs at a time.
+warp, 32 limbs at a time, up to MAX_LIMBS (six chunks: the exact lift of
+every key-switch basis of the n = 2^16 chain, 167 limbs at its widest).
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 from . import cuda_build
 
 SOURCE = os.path.join(cuda_build.CSRC, "rns.cu")
-MAX_LIMBS = 128          # the lift's per-row limbs (csrc/rns.cu)
+MAX_LIMBS = 192          # the lift's per-row limbs (csrc/rns.cu: MAX_CHUNKS of 32)
 DEPTH = 128              # bytes of depth a chunk of digit_sums or decompose_mma walks (DS_DEPTH)
 # K*: decompose takes the tensor cores for rows of this many limbs or more.
 # Set from `python3 chip_smoke.py --phases build,kernels,kernels16`'s decompose

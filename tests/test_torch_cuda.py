@@ -22,10 +22,10 @@ import pytest
 import torch
 
 from torch_cases import (DIGITS16, GRAPH_ENGINES, GRAPH_INPUTS, GRAPH_OPS,  # tests/ is on
-                         HOISTED, LIFT16, NTT16, bootstrap_cases, c2s_packing_case,  # sys.path
-                         crt_chain_case, crt_chain_ring, equal_cts, full_width_checks,
-                         gemv_packing_case, graph_case, graph_check, kernel_ring,
-                         oracle_module)
+                         HOISTED, LIFT16, LIFT_WIDE16, NTT16, bootstrap_cases,  # sys.path
+                         c2s_packing_case, crt_chain_case, crt_chain_ring, equal_cts,
+                         full_width_checks, gemv_packing_case, graph_case, graph_check,
+                         kernel_ring, oracle_module)
 from gpqhe_tpu_torch import CKKS, HeContext, Surf         # the root too (python -m pytest)
 from gpqhe_tpu_torch import bootstrap as bs
 from gpqhe_tpu_torch.algo import linalg, nonlinear
@@ -289,11 +289,11 @@ def test_cuda_elementwise_kernels_at_the_n16_rings_shapes(cuda_device, entry, i)
     of [2^16, 55] limbs into 60 primes and, signed, into the key switch's
     90; the digit product at DIGITS16 ([3, 60, 2^16] and [2, 90, 2^16] to
     110 digit sums, the exact [2, 30 of 90, 2^16], scaled, to 114); the lift
-    at [2^16, 2K -> K] for K = 46, 88, 57 (exact) and from 90 primes to 55
-    limbs (fast); ecd's fill of 8 rows of 55 limbs: each torch.equal to its
-    plain version (the digit sums as values mod 2^(16 kd), the f64 estimate
-    within a relative 2^-45: torch_cases.ew_compare) in one launch of its
-    kernel."""
+    at [2^16, 2K -> K] for K = 46, 88, 57, 147, 167 (exact) and from 90
+    primes to 55 limbs (fast); ecd's fill of 8 rows of 55 limbs: each
+    torch.equal to its plain version (the digit sums as values mod 2^(16
+    kd), the f64 estimate within a relative 2^-45: torch_cases.ew_compare)
+    in one launch of its kernel."""
     from torch_cases import ew_compare, ew_counters, ring16_cases
     if "cases" not in _RING16:
         _RING16["cases"] = ring16_cases(cuda_device)
@@ -306,6 +306,117 @@ def test_cuda_elementwise_kernels_at_the_n16_rings_shapes(cuda_device, entry, i)
     eq, err, extra = ew_compare(got, case["plain"]())
     assert eq, (entry, case["shape"], err, extra)
     assert after[entry] == before[entry] + 1
+
+
+# -- ckks-n16-q1751 past level 37: the lift at five and six chunks -----------
+
+_N16 = {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,k_out", LIFT_WIDE16, ids=[f"{d}-{k}" for d, k in LIFT_WIDE16])
+def test_cuda_wide_lift_equals_the_plain_lift(cuda_device, dim, k_out):
+    """The lift past four chunks of 32 limbs on [2^16, 2K] int64 digit sums
+    of random residues: exact at 129, 147 and 167 limbs (69, 79, 90
+    primes), fast from 104 primes to 192 limbs; one launch of
+    rns_lift_kernel at five or six chunks, counted in LAUNCHES["lift"] and
+    rns.LIFT_WIDE, torch.equal to plain_lift on the same tensors."""
+    from torch_cases import lift16_case
+    from gpqhe_tpu_torch.ops import rns, rns_cuda
+    if "pctx" not in _N16:
+        _N16["pctx"] = PolyContext(16, q=1 << 20, dim_cap=max(d for d, _ in LIFT_WIDE16))
+    pctx = _N16["pctx"]
+    ba = rns.make_basis_arrays(pctx, dim, cuda_device)
+    shape, kern, plain, _, _ = lift16_case(pctx, ba, k_out, np.random.default_rng(dim),
+                                           cuda_device)
+    assert 128 < shape[2] <= rns_cuda.MAX_LIMBS and shape[2] in (129, 147, 167, 192)
+    launches, wide = rns_cuda.LAUNCHES["lift"], rns.LIFT_WIDE["calls"]
+    got = kern()
+    torch.cuda.synchronize()
+    assert rns_cuda.LAUNCHES["lift"] == launches + 1 and rns.LIFT_WIDE["calls"] == wide + 1
+    assert torch.equal(got, plain())
+
+
+def _n16_chain(device):
+    """gpubench's n16.circuit on the card, once a process: the engine of
+    ckks-n16-q1751-circuit, ckks-n16-q1751's ring (HeContext(16, 2^1751, 4,
+    2^30)), a secret and its
+    relinearization key, x: slots in the unit box encrypted and taken down
+    to level 40, and w[l] for l = 40 .. 2: slots e^(i theta) encrypted and
+    taken down to level l."""
+    if "eng" not in _N16:
+        ctx = HeContext(logn=16, q=1 << 1751, slots=4, Delta=1 << 30)
+        eng = CKKS(ctx, rng=Surf(), device=device)
+        _, sk = eng.keypair()
+        rng = np.random.default_rng(16)
+
+        def down(m, level):
+            ct = eng.enc_sk(eng.ecd(m), sk)
+            while ct.l > level:
+                ct = eng.moddown(ct)
+            return ct
+        mx = rng.uniform(-1, 1, 4) + 1j * rng.uniform(-1, 1, 4)
+        mw = {l: np.exp(1j * rng.uniform(0, 2 * np.pi, 4)) for l in range(40, 1, -1)}
+        _N16.update(eng=eng, sk=sk, rlk=eng.genrlk(sk), mx=mx, mw=mw, x=down(mx, 40),
+                    w={l: down(m, l) for l, m in mw.items()})
+    return _N16
+
+
+def _on_host(x):
+    """A ciphertext or switch key with its tensors copied to the host."""
+    import dataclasses
+    return dataclasses.replace(x, **{f.name: getattr(x, f.name).cpu()
+                                     for f in dataclasses.fields(x)
+                                     if isinstance(getattr(x, f.name), torch.Tensor)})
+
+
+@pytest.mark.cuda
+def test_cuda_n16_product_at_level_37_takes_the_wide_lift(cuda_device):
+    """mul_rs at level 37 of ckks-n16-q1751, where the key switch's bound
+    leaves 2 bits below P over its 79 primes, so that it lifts exactly, 147
+    limbs (five chunks): LIFT_WIDE rises by one, and the product is
+    torch.equal to the CPU twin's of the same ciphertexts under the same
+    key."""
+    from gpqhe_tpu_torch.ops import rns
+    c = _n16_chain(cuda_device)
+    eng = c["eng"]
+    assert eng.ctx.dim_swk(37) == 79
+    x = c["x"]
+    while x.l > 37:
+        x = eng.moddown(x)
+    wide = rns.LIFT_WIDE["calls"]
+    got = eng.mul_rs(x, c["w"][37], c["rlk"])
+    torch.cuda.synchronize()
+    assert rns.LIFT_WIDE["calls"] == wide + 1 and got.l == 36
+    torch.set_num_threads(os.cpu_count() or 1)
+    try:
+        want = CKKS(eng.ctx, rng=Surf(), device=torch.device("cpu")).mul_rs(
+            _on_host(x), _on_host(c["w"][37]), _on_host(c["rlk"]))
+    finally:
+        torch.set_num_threads(1)
+    assert torch.equal(got.c0.cpu(), want.c0) and torch.equal(got.c1.cpu(), want.c1)
+
+
+@pytest.mark.cuda
+def test_cuda_n16_chain_from_level_40_to_1(cuda_device):
+    """The n16.circuit request on the card: a relinearized product at every
+    level from 40 to 1 (39 mul_rs, each a CUDA graph of its own), one of
+    them lifting past 128 limbs; the output at level 1 decrypts to x prod
+    w_l within the cell's max_err (gpubench/cells/n16.circuit.json)."""
+    from gpqhe_tpu_torch.ops import rns
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "gpubench", "cells", "n16.circuit.json")) as f:
+        limit = json.load(f)["limits"]["max_err"]
+    c = _n16_chain(cuda_device)
+    eng, y, want = c["eng"], c["x"], c["mx"]
+    wide = rns.LIFT_WIDE["calls"]
+    for l in range(40, 1, -1):
+        y = eng.mul_rs(y, c["w"][l], c["rlk"])
+        want = want * c["mw"][l]
+    torch.cuda.synchronize()
+    assert y.l == 1 and rns.LIFT_WIDE["calls"] == wide + 1
+    err = float(np.max(np.abs(eng.dcd(eng.dec(y, c["sk"])) - want)))
+    assert err < limit, err
 
 
 # the reconstruct at the cells' shapes: (logn, leading axes, primes, rows of

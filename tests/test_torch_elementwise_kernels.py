@@ -553,6 +553,66 @@ def test_limbs_model(op, k):
 
 
 # ---------------------------------------------------------------------------
+# the lift at five and six chunks of 32 limbs (129-192): (primes, k_out (None:
+# exact, the plan's ks limbs), center, skewed estimate): the exact lift at
+# 129, 147 (the n16 key switch at level 37), 151, 160, 162, 167 (90 primes)
+# and 191 limbs, and the fast lift of 104 primes to 161 and 192
+WIDE_RING = PolyContext(LOGN, q=1 << 20, dim_cap=104)
+LIFT_WIDE = ((69, None, True, False), (79, None, True, False), (79, None, False, True),
+             (81, None, True, True), (86, None, True, False), (87, None, False, False),
+             (90, None, True, True), (103, None, True, False), (104, 161, True, False),
+             (104, 192, True, True))
+
+
+def _big(rng, lo: int, hi: int, count: int) -> list:
+    """count integers uniform in [lo, hi)."""
+    span = hi - lo
+    return [lo + int.from_bytes(rng.bytes(span.bit_length() // 8 + 8), "little") % span
+            for _ in range(count)]
+
+
+@pytest.mark.parametrize("dim,k_out,center,skewed", LIFT_WIDE)
+def test_lift_model_past_four_chunks(dim, k_out, center, skewed):
+    """The lift as launched (rns_lift_kernel<5> and <6>: one row a lane, the
+    carries, compares and +-P corrections passed through five or six
+    chunks) against plain_lift and Python integers: the exact path on
+    values next to 0, +-1 and +-(P/2 - 1) (center) or 0, 1, P - 1 and P/2
+    (nonnegative), an estimate made to miss by inv_p (1 + 2^-22) (the +-1
+    corrections); the fast path on values within 3 bits of P, mod
+    2^(32 k_out)."""
+    tba, tplan = tr.make_basis_arrays(WIDE_RING, dim, "cpu"), tr.make_recon_plan(WIDE_RING, dim,
+                                                                                 "cpu")
+    P = WIDE_RING.basis(dim).P
+    k = k_out or tplan.ks
+    assert 128 < k <= rns_cuda.MAX_LIMBS and rt.lift_chunks(k) in (5, 6)
+    if skewed:
+        tplan = dataclasses.replace(tplan, inv_p=tplan.inv_p * (1.0 + 2.0 ** -22))
+    rng = np.random.default_rng(dim + k)
+    if k_out:
+        big = (1 << (tplan.logP - 3)) - 1
+        vals = [0, 1, -1, big, -big, big - 1, -(big - 1)]
+        vals += _big(rng, -big, big + 1, N - len(vals))
+    elif center:
+        half = P // 2 - 1
+        vals = [0, 1, -1, half, -half, 3, -3] + _big(rng, -half, half + 1, N - 7)
+    else:
+        vals = [0, 1, P - 1, P // 2, P // 2 + 1] + _big(rng, 0, P, N - 5)
+    res = _edge_residues(vals, WIDE_RING.basis(dim).primes)
+    kd = min(2 * k_out, tplan.ds) if k_out else tplan.ds
+    sd, af = tr.plain_digit_partials(_t(res), tplan, kd, (tba.phatinv_mont, tba.ps, tba.pinv))
+    plain = _u(tr.plain_lift(sd, af, tplan, center, k_out))
+    launched, lp = rt.run_lift(sd.to(torch.int64), af, tplan, center, k_out)
+    assert lp["chunks"] == rt.lift_chunks(k) and lp["lanes"] == 32
+    assert np.array_equal(launched, plain)
+    got = launched.astype(np.uint32)
+    if k_out:
+        assert bigint.limbs_to_ints(got) == [v % (1 << (32 * k_out)) for v in vals]
+    elif center:
+        assert bigint.limbs_to_signed_ints(got) == vals
+    else:
+        assert bigint.limbs_to_ints(got) == vals
+
+
 # K7 and the lift as launched: the row kernels' work split (rowwarp.cuh)
 # ---------------------------------------------------------------------------
 
@@ -650,13 +710,17 @@ def test_row_plans(k):
 
 
 def test_lift_plans():
-    """The lift at 1-128 limbs: NCH chunks of 32 limbs (1, 2 or 4) that hold
-    the row, WARP_GROUPS / NCH rows a lane (a lane holds 8 digit sums);
+    """The lift at 1-192 limbs: NCH chunks of 32 limbs (1, 2, 4, 5 or 6), the
+    fewest of those that hold the row, WARP_GROUPS / NCH rows a lane up to
+    four chunks (a lane holds 8 digit sums) and one past them (10 and 12);
     EDGE_ROWS rows make two full blocks and a partial one at every width."""
+    assert rns_cuda.MAX_LIMBS == 192
     for k in range(1, rns_cuda.MAX_LIMBS + 1):
         nch = rt.lift_chunks(k)
-        assert nch in (1, 2, 4) and k <= 32 * nch and (nch == 1 or k > 16 * nch)
-        assert rt.lift_rows_a_lane(nch) * nch == rt.WARP_GROUPS     # 8 digit sums a lane
+        fewer = [c for c in (1, 2, 4, 5, 6) if c < nch]
+        assert nch in (1, 2, 4, 5, 6) and k <= 32 * nch and all(k > 32 * c for c in fewer)
+        rl = rt.lift_rows_a_lane(nch)
+        assert (rl * nch == rt.WARP_GROUPS) if nch <= 4 else rl == 1   # sums a lane: 8, 10, 12
         _lanes_cover(k)
         per_block = rt.rows_a_block(k, rt.lift_rows_a_lane(nch))
         assert EDGE_ROWS > 2 * per_block and EDGE_ROWS % per_block
@@ -675,7 +739,7 @@ def test_row_kernels_at_tile_edges(entry):
     borrow through every limb, equal rows, rows equal but for the top limb),
     constant, broadcast, row-strided and limb-strided operands with two
     leading rows, bool and int64 row bits, the 16-byte pair path and the
-    word path of mask_bits and select, the lift at one, two and four chunks
+    word path of mask_bits and select, the lift at one to six chunks
     on int64 digit sums and estimates past both clamps."""
     cases = [c for c in _edge_cases() if c["entry"] == entry]
     designs = set()
@@ -802,7 +866,7 @@ def _bad_calls():
                                                         limbs, limbs), "row operand"),
         "limbs row width": (lambda: rns_cuda.lift(
             torch.zeros((16, 4), dtype=i64), torch.zeros(16, dtype=torch.float64),
-            plan, True, rns_cuda.MAX_LIMBS + 1), "at most 128 limbs"),
+            plan, True, rns_cuda.MAX_LIMBS + 1), f"at most {rns_cuda.MAX_LIMBS} limbs"),
         "limbs rows": (lambda: limbs_cuda.binary(
             "add", torch.zeros((1 << 16, 1, 2), dtype=i64), torch.zeros((1 << 15, 2), dtype=i64)),
             "2\\^31"),

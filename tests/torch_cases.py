@@ -485,6 +485,23 @@ EDGE_K = (1, 13, 14, 28, 31, 32, 33, 62, 63, 64, 65, 68, 124, 125, 129, 3071)
 EDGE_ROWS = 2 * 256 + 7
 
 
+# the lift at the edges of its design: (logp, dim, k_out (None: exact, the
+# plan's ks limbs), kd (None: the plan's), center); ks = 3, 16, 31, 33, 64,
+# 66, 114 on the 59-bit chain at dim 1, 8, 16, 17, 34, 35, 61 and 30, 32 on
+# logp=29 at 31, 34; five and six chunks: ks = 129, 147, 160, 162, 191 at dim
+# 69, 79, 86, 87, 103, and the fast lift of 104 primes to 161 (kd odd, below
+# 2 k_out) and 192 limbs
+LIFT_EDGES = (
+    (59, 1, None, None, True), (59, 8, None, None, False), (59, 16, None, None, True),
+    (59, 17, None, None, True), (59, 34, None, None, False), (59, 35, None, None, True),
+    (59, 61, None, None, True), (29, 31, None, None, True), (29, 34, None, None, True),
+    (59, 8, 5, 9, True), (59, 8, 16, None, True), (29, 16, 7, 14, True),
+    (59, 24, 32, None, True), (59, 24, 33, 61, True), (59, 69, 128, None, False),
+    (59, 69, None, None, True), (59, 79, None, None, True), (59, 86, None, None, False),
+    (59, 87, None, None, True), (59, 103, None, None, True), (59, 104, 161, 319, True),
+    (59, 104, 192, None, False))
+
+
 def elementwise_edge_cases(device, seed: int = 9) -> list:
     """K7 and the CRT lift at the edges of their designs, each a dict with
     entry, shape, kern and plain (the plain version on the same tensors):
@@ -493,11 +510,11 @@ def elementwise_edge_cases(device, seed: int = 9) -> list:
     the top limb); operands read through cuda_build.strides3 in every form:
     a constant row (stride 0), an operand broadcast over a leading axis
     (R1 > 1, the rows do not collapse), row-strided and limb-strided views,
-    per-row bits as bool and int64; the lift at one, two and four chunks of
-    32 limbs (3-120 limbs on the exact path, up to 128 on the fast one), on
-    int64 digit sums (the card's, rns_cuda.digit_sums'), odd kd, kd < 2 k_out
-    and random estimates that reach both clamps and both sides of the 1/2
-    rule."""
+    per-row bits as bool and int64; the lift at one, two, four, five and six
+    chunks of 32 limbs (3-191 limbs on the exact path, up to 192 on the fast
+    one: LIFT_EDGES), on int64 digit sums (the card's, rns_cuda.digit_sums'),
+    odd kd, kd < 2 k_out and random estimates that reach both clamps and
+    both sides of the 1/2 rule."""
     import numpy as np
     import torch
     from gpqhe_tpu_torch.context import PolyContext
@@ -574,20 +591,13 @@ def elementwise_edge_cases(device, seed: int = 9) -> list:
             add(op, ["views", k], *args)
         add("from_digits16", ["views", k], base[:, :2 * k].to(torch.float64)[:, ::2], k // 2)
 
-    # the lift: (logp, dim, k_out (None: exact, the plan's ks limbs), kd (None:
-    # the plan's), center); ks = 3, 16, 31, 33, 64, 66, 114 on the 59-bit
-    # chain at dim 1, 8, 16, 17, 34, 35, 61 and 30, 32 on logp=29 at 31, 34
     n = 1 << 10
     rings = {59: PolyContext(10, q=1 << 20, dim_cap=72),
              29: PolyContext(10, q=1 << 20, logp=29, dim_cap=72)}
+    wide = PolyContext(10, q=1 << 20, dim_cap=max(d for _, d, *_ in LIFT_EDGES))
     R = rows
-    for logp, dim, k_out, kd, center in (
-            (59, 1, None, None, True), (59, 8, None, None, False), (59, 16, None, None, True),
-            (59, 17, None, None, True), (59, 34, None, None, False), (59, 35, None, None, True),
-            (59, 61, None, None, True), (29, 31, None, None, True), (29, 34, None, None, True),
-            (59, 8, 5, 9, True), (59, 8, 16, None, True), (29, 16, 7, 14, True),
-            (59, 24, 32, None, True), (59, 24, 33, 61, True), (59, 69, 128, None, False)):
-        ring = rings[logp]
+    for logp, dim, k_out, kd, center in LIFT_EDGES:
+        ring = rings[logp] if dim <= 72 else wide
         plan = rns.make_recon_plan(ring, dim, device)
         ba = rns.make_basis_arrays(ring, dim, device)
         kd = kd or (plan.ds if k_out is None else min(2 * k_out, plan.ds))
@@ -877,9 +887,15 @@ NTT16 = [(mode, (lead, dim, 1 << 16)) for dim, lead in ((60, 4), (90, 2))
 
 # the lift at the logn=16 ring: (primes, k_out) whose digit sums [2^16, 2K]
 # lift to K limbs: the exact lift at K = 46, 88 (the n14 and n15 key
-# switches' widths) and 57 (30 primes: the n16 key switch's exact rows), and
-# the fast lift of the n16 key switch's 90 primes to a ciphertext's 55 limbs
-LIFT16 = ((24, None), (47, None), (30, None), (90, 55))
+# switches' widths) and 57 (30 primes: the n16 key switch's exact rows), the
+# fast lift of the n16 key switch's 90 primes to a ciphertext's 55 limbs,
+# and the exact lift past four chunks of 32: 147 limbs (79 primes, five
+# chunks: the n16 key switch at level 37) and 167 (90 primes, six chunks:
+# the widest basis of the chain)
+LIFT16 = ((24, None), (47, None), (30, None), (90, 55), (79, None), (90, None))
+# the lift past four chunks at [2^16, 2K -> K] (the card's tests): exact at
+# 129, 147 and 167 limbs (69, 79 and 90 primes), fast from 104 primes to 192
+LIFT_WIDE16 = ((69, None), (79, None), (90, None), (104, 192))
 # the digit product there: (primes, rows of the stack, leading axes, scaled,
 # k_out (None: exact)): mul_rs's product of three polys to 55 limbs, the key
 # switch's c (both halves) to 55 and its exact sub-basis r over the first 30
@@ -887,13 +903,32 @@ LIFT16 = ((24, None), (47, None), (30, None), (90, 55))
 DIGITS16 = ((60, 60, (3,), False, 55), (90, 90, (2,), False, 55), (30, 90, (2,), True, None))
 
 
+def lift16_case(pctx, ba, k_out, rng, device) -> tuple:
+    """The lift of [n, 2K] int64 digit sums of random residues over the
+    basis ba of pctx (its first ba.dim primes) to K limbs (k_out, or the
+    exact path's plan.ks): (shape [n, kd, K], kern, plain, its operands, the
+    words it writes)."""
+    import torch
+    from gpqhe_tpu_torch.ops import rns
+    n, dim = pctx.n, ba.dim
+    plan = rns.make_recon_plan(pctx, dim, device)
+    kd = min(2 * k_out, plan.ds) if k_out else plan.ds
+    y = ew_residues(rng, pctx.primes[:dim], (dim, n), device)
+    sd, af = rns.plain_digit_partials(y, plan, kd, (ba.phatinv_mont, ba.ps, ba.pinv))
+    sd = sd.to(torch.int64)
+    k = k_out or plan.ks
+    return ([n, kd, k], lambda: rns._lift(sd, af, plan, True, k_out),
+            lambda: rns.plain_lift(sd, af, plan, True, k_out), [sd, af], n * k)
+
+
 def ring16_cases(device, seed: int = 16) -> dict:
     """{entry: [case, ...]} as elementwise_cases gives them, at the logn=16
     shapes of gpubench's ckks-n16-q1751 (a ciphertext of 55 limbs, the
     product's basis 60 primes, the key switch's 90) on the 59-bit chain:
     decompose of [2^16, 55] limbs into 60 primes and, signed, into 90; the
-    digit product at DIGITS16; the lift at LIFT16; the fill of a sparse ecd's 8 rows of 55 limbs (slots 4, gap
-    2^13).  (The NTT's shapes are NTT16, against its twin.)"""
+    digit product at DIGITS16; the lift at LIFT16 (lift16_case); the fill of a
+    sparse ecd's 8 rows of 55 limbs (slots 4, gap 2^13).  (The NTT's shapes
+    are NTT16, against its twin.)"""
     import numpy as np
     import torch
     from gpqhe_tpu_torch.context import PolyContext
@@ -933,15 +968,8 @@ def ring16_cases(device, seed: int = 16) -> dict:
         *args, kw = digit_product_case(y, plan, 2 * k_out if k_out else plan.ds, scale)
         add("crt_digit_split", y.shape, *args, **kw)
     for dim, k_out in LIFT16:
-        ba, plan = ring.ba(dim), rns.make_recon_plan(ring.pctx, dim, device)
-        kd = min(2 * k_out, plan.ds) if k_out else plan.ds
-        sd, af = rns.plain_digit_partials(res(dim), plan, kd, (ba.phatinv_mont, ba.ps, ba.pinv))
-        sd = sd.to(torch.int64)
-        k = k_out or plan.ks
-        add("crt_lift", [n, kd, k],
-            lambda sd=sd, af=af, plan=plan, k=k_out: rns._lift(sd, af, plan, True, k),
-            lambda sd=sd, af=af, plan=plan, k=k_out: rns.plain_lift(sd, af, plan, True, k),
-            [sd, af], n * k, 0)
+        *args, inputs, out_words = lift16_case(ring.pctx, ring.ba(dim), k_out, rng, device)
+        add("crt_lift", *args, inputs, out_words, 0)
     gap = (n // 2) // 4
     rows = rng.integers(0, 1 << 32, size=(n // gap, kq), dtype=np.uint64).astype(np.uint32)
     add("limbs_fill_rows", [n, kq, gap], lambda: lb.fill_rows(rows, n, gap, device),

@@ -22,7 +22,7 @@ U = np.uint64
 M32 = U(0xFFFFFFFF)
 ROWWARP_THREADS = 128         # rowwarp.cuh: threads of a block
 WARP_GROUPS = 4           # rowwarp.cuh: rows a lane takes
-MAX_CHUNKS = 4            # rns.cu: the lift's chunks of 32 limbs a row
+MAX_CHUNKS = 6            # rns.cu: the lift's chunks of 32 limbs a row
 LANE = np.arange(32, dtype=U)
 
 
@@ -44,12 +44,14 @@ def chain_limbs(op: str, k: int, k_out: int) -> int:
 
 def lift_chunks(k_out: int) -> int:
     """NCH: the lift's chunks of 32 limbs a row (gpqhe_rns_lift)."""
-    return 1 if k_out <= 32 else 2 if k_out <= 64 else 4
+    return 1 if k_out <= 32 else 2 if k_out <= 64 else 4 if k_out <= 128 else \
+        5 if k_out <= 160 else 6
 
 
 def lift_rows_a_lane(nch: int) -> int:
-    """RL: the lift's rows a lane at NCH chunks."""
-    return WARP_GROUPS // nch
+    """RL: the lift's rows a lane at NCH chunks (rns.cu lift_rows_a_lane):
+    WARP_GROUPS / NCH, one from four chunks on."""
+    return WARP_GROUPS // nch if nch < WARP_GROUPS else 1
 
 
 # ---------------------------------------------------------------------------
